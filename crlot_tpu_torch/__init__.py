@@ -1,0 +1,28 @@
+"""crlot-tpu-torch: the crlot-tpu STFT round-trip path on PyTorch + CUDA.
+
+A port of `crlot_tpu` (JAX on a TPU, kept beside it as the reference) to
+PyTorch on an NVIDIA H100. Plain tensor code is torch; the two Pallas
+kernels of the round-trip path are hand-written CUDA C++ for Hopper
+(`csrc/`), built with nvcc at first use. Importing this package imports
+neither jax, crlot_tpu nor triton, and builds nothing.
+"""
+
+from .core.types import (
+    FftBackend,
+    FftPrecision,
+    FrameSpec,
+    NormalizationType,
+    PadMode,
+    StftConfig,
+    WindowType,
+)
+from .frame.framing import frame_signal, frame_windowed, num_frames
+from .io.wav import read_wav, write_wav
+from .metrics import snr_db
+from .ola.reference import overlap_add, overlap_add_normalized
+from .pipeline import formulation_for, istft, round_trip, stft
+from .window.windows import get_window
+
+from . import convert, core, fft, frame, io, metrics, ola, spectral, window  # noqa: E402,F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,138 @@
+"""Config types for the PyTorch port: the STFT pipeline's frozen configs.
+
+Counterpart of `crlot_tpu/core/types.py`. The enums keep the reference's
+member names and `.value` strings, so `convert.config_from_reference` can map
+a `crlot_tpu` config field by field. Configs are frozen and hashable: they key
+the host-side constant caches.
+
+Precision on CUDA: `FftPrecision.HIGH` and `HIGHEST` both mean IEEE fp32
+matrix products (TF32 is never enabled by this package). `INT8X2` has no
+CUDA formulation yet and is refused at construction.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+
+
+class WindowType(enum.Enum):
+    HANN = "hann"
+    HAMMING = "hamming"
+    BLACKMAN = "blackman"
+    BLACKMAN_HARRIS = "blackman_harris"
+    RECT = "rect"
+
+
+class NormalizationType(enum.Enum):
+    NONE = "none"
+    SUM_TO_ONE = "sum_to_one"
+    L2_NORM = "l2_norm"
+    OLA_UNITY_GAIN = "ola_unity_gain"
+    OLA_SUM_WSQ = "ola_sum_wsq"
+
+
+class PadMode(enum.Enum):
+    """Centered-framing pad modes; REFLECT is non-repeating reflect101:
+    [1,2,3,4] -> ...3,2,[1,2,3,4],3,2,..."""
+
+    CONSTANT = "constant"
+    REFLECT = "reflect"
+    EDGE = "edge"
+
+
+class FftPrecision(enum.Enum):
+    """HIGH and HIGHEST are both IEEE fp32 on CUDA. INT8X2 (the reference's
+    int8 two-limb tier) is not ported: ROADMAP queue B, kernel B6."""
+
+    HIGHEST = "highest"
+    HIGH = "high"
+    INT8X2 = "int8x2"
+
+
+class FftBackend(enum.Enum):
+    """XLA = library FFT (`torch.fft`). MATMUL = DFT as folded matrix
+    products. AUTO = MATMUL on a CUDA tensor, `torch.fft` on a CPU tensor."""
+
+    AUTO = "auto"
+    XLA = "xla"
+    MATMUL = "matmul"
+
+
+@dataclass(frozen=True)
+class FrameSpec:
+    frame_size: int
+    hop_size: int
+    center: bool = False
+    pad_mode: PadMode = PadMode.CONSTANT
+    pad_value: float = 0.0
+
+    def __post_init__(self) -> None:
+        if self.frame_size <= 0:
+            raise ValueError(f"frame_size must be > 0, got {self.frame_size}")
+        if self.hop_size <= 0:
+            raise ValueError(f"hop_size must be > 0, got {self.hop_size}")
+
+    @property
+    def pad_amount(self) -> int:
+        return self.frame_size // 2 if self.center else 0
+
+    @property
+    def tail(self) -> int:
+        return max(self.frame_size - self.hop_size, 0)
+
+    def num_frames(self, signal_len: int) -> int:
+        """Max n with n*hop + tail <= padded_len."""
+        padded = signal_len + 2 * self.pad_amount
+        if padded < self.frame_size:
+            return 0
+        return (padded - self.tail) // self.hop_size
+
+
+@dataclass(frozen=True)
+class StftConfig:
+    """STFT/iSTFT pipeline config with single-window discipline: the
+    analysis window is applied once, and the OLA divides by the matching
+    COLA sum (sum w, or sum w^2 with a synthesis window)."""
+
+    frame_size: int
+    hop_size: int
+    window: WindowType = WindowType.HANN
+    periodic: bool = True
+    synthesis_window: bool = False
+    center: bool = False
+    pad_mode: PadMode = PadMode.REFLECT
+    eps: float = 1e-8
+    fft_backend: FftBackend = FftBackend.AUTO
+    fft_precision: FftPrecision = FftPrecision.HIGH
+    # The reference's opt-in frames-level fused kernel; not ported yet
+    # (ROADMAP kernel K3). round_trip refuses a config that sets it.
+    fused_roundtrip: bool = False
+
+    def __post_init__(self) -> None:
+        if self.frame_size <= 0 or self.frame_size % 2 != 0:
+            raise ValueError(
+                f"frame_size must be positive and even, got {self.frame_size}"
+            )
+        if self.hop_size <= 0 or self.hop_size > self.frame_size:
+            raise ValueError(
+                f"hop_size must be in [1, frame_size], got {self.hop_size}"
+            )
+        if self.fft_precision == FftPrecision.INT8X2:
+            raise NotImplementedError(
+                "FftPrecision.INT8X2 is not ported to CUDA yet "
+                "(ROADMAP queue B, kernel B6: the int8 wire tier)"
+            )
+
+    @property
+    def frame_spec(self) -> FrameSpec:
+        return FrameSpec(
+            frame_size=self.frame_size,
+            hop_size=self.hop_size,
+            center=self.center,
+            pad_mode=self.pad_mode,
+        )
+
+    @property
+    def num_bins(self) -> int:
+        return self.frame_size // 2 + 1

@@ -1,0 +1,131 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into one
+shared library with a plain C interface, loaded with `ctypes`. The build
+happens at first use, never at import, into `build/crlot_tpu_torch/<digest>/`
+beside the package (listed in `.gitignore`); the digest covers the sources
+and the flags, so an edited kernel is rebuilt and an unchanged one is
+reused within a checkout.
+
+No `--use_fast_math`: divisions and square roots stay IEEE-rounded, which
+the bit-exact OLA kernel relies on. A failed build raises; nothing falls
+back to another route.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "crlot_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_LIB = None
+build_log = ""  # nvcc's output (ptxas register / shared-memory report)
+build_seconds = 0.0
+
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # (frames, norm, out, batch, n_frames, nfft, hop, out_len, eps, stream)
+    "crlot_ola_normalized": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP],
+    # (padded, lp, window, c, s, cinv, sinv, norm, desc, n_ops, params, out,
+    #  channels, nfft, hop, n_frames, out_len, eps, stream)
+    "crlot_rt_ola": [
+        _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
+        _VP, _I, _I, _I, _I, _I, _F, _VP,
+    ],
+}
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "crlot_tpu_torch cannot be built"
+    )
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(srcs: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def compile_library(out_path: Path) -> str:
+    """Run nvcc over every source into `out_path`; returns its output."""
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_path.parent)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out_path)
+    return proc.stdout + proc.stderr
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call."""
+    global _LIB, build_log, build_seconds
+    if _LIB is not None:
+        return _LIB
+    srcs = sources()
+    so = BUILD_ROOT / _digest(srcs) / "libcrlot_tpu_torch.so"
+    if not so.exists():
+        t0 = time.perf_counter()
+        build_log = compile_library(so)
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.crlot_error_string.argtypes = [ctypes.c_int]
+    lib.crlot_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def check(status: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if status != 0:
+        msg = _LIB.crlot_error_string(status).decode()
+        raise RuntimeError(f"{what}: CUDA error {status} at launch: {msg}")
+
+
+def stream_handle(device) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

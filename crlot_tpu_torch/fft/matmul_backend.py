@@ -1,0 +1,379 @@
+"""DFT-as-matmul pieces of the round-trip slice, in torch.
+
+Counterpart of the slice's part of `crlot_tpu/fft/matmul_backend.py`:
+
+* the folded (half-size) forward and inverse DFT bases and the packed
+  forward / inverse that use them;
+* the composed round-trip basis: for a FIXED per-bin response, frame ->
+  spectrum -> response -> frame is one [N, N] matrix;
+* the blocked formulation: that map plus the overlap-add folded into a
+  hop-block Toeplitz kernel applied straight to the padded signal
+  (`hopblock_apply`), with the head/tail blocks recomputed exactly from the
+  real boundary frames (`blocked_edge_patch`).
+
+The float64 host design code is copied, not imported (the port never
+imports the JAX package); the tests hold every array byte-identical to the
+reference's. Products run in IEEE fp32 (`torch.matmul`; TF32 stays off).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ..core.consts import const_on
+
+MAX_MATMUL_NFFT = 4096
+
+
+@lru_cache(maxsize=None)
+def _folded_forward_consts(nfft: int):
+    """C [N/2+1, K] (cos rows n = 0..N/2) and S [N/2-1, K] (-sin rows
+    n = 1..N/2-1): the DFT rows' symmetry halves the contraction."""
+    kk = nfft // 2 + 1
+    k = np.arange(kk, dtype=np.float64)
+    n_e = np.arange(nfft // 2 + 1, dtype=np.float64)
+    n_o = np.arange(1, nfft // 2, dtype=np.float64)
+    c = np.cos(2.0 * np.pi * np.outer(n_e, k) / nfft)
+    s = -np.sin(2.0 * np.pi * np.outer(n_o, k) / nfft)
+    return c.astype(np.float32), s.astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _folded_inverse_consts(nfft: int):
+    """Cinv [K, N/2+1], Sinv [K, N/2-1], hermitian weights and 1/N
+    included: A = Re @ Cinv gives x[0], (x[n]+x[N-n])/2, x[N/2];
+    B = Im @ Sinv gives (x[n]-x[N-n])/2 for n = 1..N/2-1."""
+    kk = nfft // 2 + 1
+    k = np.arange(kk, dtype=np.float64)
+    w = np.full(kk, 2.0)
+    w[0] = 1.0
+    if nfft % 2 == 0:
+        w[-1] = 1.0
+    n_e = np.arange(nfft // 2 + 1, dtype=np.float64)
+    n_o = np.arange(1, nfft // 2, dtype=np.float64)
+    cinv = (w[:, None] * np.cos(2.0 * np.pi * np.outer(k, n_e) / nfft)) / nfft
+    sinv = -(w[:, None] * np.sin(2.0 * np.pi * np.outer(k, n_o) / nfft)) / nfft
+    return cinv.astype(np.float32), sinv.astype(np.float32)
+
+
+@lru_cache(maxsize=16)
+def folded_consts_on(nfft: int, device: torch.device):
+    """(C, S, Cinv, Sinv) as contiguous f32 tensors on `device`."""
+    c, s = _folded_forward_consts(nfft)
+    cinv, sinv = _folded_inverse_consts(nfft)
+    return tuple(torch.from_numpy(a).to(device) for a in (c, s, cinv, sinv))
+
+
+def _fold_frames(y: torch.Tensor, nfft: int):
+    """[..., N] -> even part [..., N/2+1], odd part [..., N/2-1]."""
+    h = nfft // 2
+    head = y[..., 1:h]
+    tail = y[..., h + 1 :].flip(-1)
+    even = torch.cat([y[..., :1], head + tail, y[..., h : h + 1]], dim=-1)
+    odd = head - tail
+    return even, odd
+
+
+def rfft_folded_packed(x: torch.Tensor, nfft: int, window_f32=None):
+    """rfft(x [* window]) -> (Re [..., K], Im [..., K]) via two half-size
+    products."""
+    c, s, _, _ = folded_consts_on(nfft, x.device)
+    y = x.float()
+    if window_f32 is not None:
+        w = (window_f32.to(x.device, torch.float32)
+             if isinstance(window_f32, torch.Tensor)
+             else const_on(window_f32, x.device))
+        y = y * w
+    even, odd = _fold_frames(y, nfft)
+    re = torch.matmul(even, c)
+    if s.shape[0]:
+        im = torch.matmul(odd, s)
+    else:
+        im = torch.zeros_like(re)
+    return re, im
+
+
+def irfft_folded_parts(re: torch.Tensor, im: torch.Tensor,
+                       nfft: int) -> torch.Tensor:
+    """(Re, Im) [..., K] -> real [..., N] (1/N included): two half-size
+    products and an unfold."""
+    _, _, cinv, sinv = folded_consts_on(nfft, re.device)
+    a = torch.matmul(re.float(), cinv)
+    h = nfft // 2
+    if sinv.shape[1]:
+        b = torch.matmul(im.float(), sinv)
+        mid = a[..., 1:h]
+        return torch.cat(
+            [a[..., :1], mid + b, a[..., h : h + 1], (mid - b).flip(-1)],
+            dim=-1,
+        )
+    return a  # nfft == 2: output is [x0, x1] = [A0, A1]
+
+
+@lru_cache(maxsize=None)
+def _composed_roundtrip_basis(
+    nfft: int,
+    awin_bytes: bytes,
+    swin_bytes,
+    response_bytes: bytes,
+) -> np.ndarray:
+    """[N, N] M = diag(w_a) . Re(B_f . diag(g) . B_i) [. diag(w_s)], built
+    in f64 as the windowed circulant M[i, j] = w[i] * h[(j - i) mod N] with
+    h = irfft(g)."""
+    kk = nfft // 2 + 1
+    w = np.frombuffer(awin_bytes, dtype=np.float64)
+    g = np.frombuffer(response_bytes, dtype=np.complex128)
+    assert len(w) == nfft and len(g) == kk
+    h = np.fft.irfft(g, n=nfft)
+    idx = (np.arange(nfft)[None, :] - np.arange(nfft)[:, None]) % nfft
+    m = w[:, None] * h[idx]
+    if swin_bytes is not None:
+        ws = np.frombuffer(swin_bytes, dtype=np.float64)
+        m = m * ws[None, :]
+    return m.astype(np.float32)
+
+
+def _bytes(a, dtype) -> bytes:
+    return np.ascontiguousarray(a, dtype).tobytes()
+
+
+def roundtrip_composed_matmul(
+    frames: torch.Tensor,
+    nfft: int,
+    analysis_window_f64: np.ndarray,
+    per_bin_response: np.ndarray,
+    synthesis_window_f64=None,
+) -> torch.Tensor:
+    """irfft(rfft(frames * w) * g) [* w_s] as one [F, N] @ [N, N] product."""
+    m = _composed_roundtrip_basis(
+        nfft,
+        _bytes(analysis_window_f64, np.float64),
+        None if synthesis_window_f64 is None
+        else _bytes(synthesis_window_f64, np.float64),
+        _bytes(per_bin_response, np.complex128),
+    )
+    return torch.matmul(frames.float(), torch.from_numpy(m).to(frames.device))
+
+
+@lru_cache(maxsize=None)
+def _composed_block_kernel(
+    nfft: int,
+    hop: int,
+    awin_bytes: bytes,
+    swin_bytes,
+    response_bytes: bytes,
+):
+    """[L, hop] block-Toeplitz kernel folding the composed frame map and the
+    OLA (L = (R-1)*hop + nfft):
+    K[tau, s] = sum_r M[tau - (R-1)*hop + r*hop, r*hop + s]."""
+    r_count = nfft // hop
+    m = _composed_roundtrip_basis(
+        nfft, awin_bytes, swin_bytes, response_bytes
+    ).astype(np.float64)
+    ll = (r_count - 1) * hop + nfft
+    k = np.zeros((ll, hop), np.float64)
+    for r in range(r_count):
+        rows = np.arange(nfft)
+        k[rows + (r_count - 1 - r) * hop, :] += m[:, r * hop : (r + 1) * hop]
+    return np.ascontiguousarray(k.astype(np.float32))
+
+
+def blocked_group_for(nfft: int, hop: int):
+    """Group size G (output hop-blocks per product row) of the blocked
+    kernel, or None when the blocked formulation does not apply. Kept
+    identical to the reference's choice (G*hop a multiple of 128 and
+    G | 2(R-1); G=2 at H=256) so the two packages run the same kernel; a
+    Hopper-chosen G waits for measurement."""
+    if not (
+        nfft <= MAX_MATMUL_NFFT
+        and 0 < hop < nfft
+        and nfft % hop == 0
+        and nfft // hop >= 2
+    ):
+        return None
+    r = nfft // hop
+    for g in range(2, 2 * (r - 1) + 1):
+        if (g * hop) % 128 == 0 and (2 * (r - 1)) % g == 0:
+            return g
+    return None
+
+
+def composed_block_supported(nfft: int, hop: int) -> bool:
+    return blocked_group_for(nfft, hop) is not None
+
+
+@lru_cache(maxsize=None)
+def _composed_block_kernel_grouped(
+    nfft: int,
+    hop: int,
+    group: int,
+    awin_bytes: bytes,
+    swin_bytes,
+    response_bytes: bytes,
+):
+    """K for GROUP consecutive output hop-blocks per row, block-banded:
+    K_G[tau, g*hop + s] = K1[tau - g*hop, s]."""
+    k1 = _composed_block_kernel(
+        nfft, hop, awin_bytes, swin_bytes, response_bytes
+    ).astype(np.float64)
+    ll = k1.shape[0]
+    kg = np.zeros((ll + (group - 1) * hop, group * hop), np.float64)
+    for g in range(group):
+        kg[g * hop : g * hop + ll, g * hop : (g + 1) * hop] = k1
+    return np.ascontiguousarray(kg.astype(np.float32))
+
+
+def blocked_runtime_kernel(
+    nfft: int,
+    hop: int,
+    group: int,
+    awin_bytes: bytes,
+    swin_bytes,
+    response_kern_bytes: bytes,
+):
+    """(kern_f32 [mg*G*hop, G*hop], mg): the grouped kernel zero-row-padded
+    to a whole number of G*hop tiles."""
+    gh = group * hop
+    kern = _composed_block_kernel_grouped(
+        nfft, hop, group, awin_bytes, swin_bytes, response_kern_bytes
+    )
+    mg = -(-kern.shape[0] // gh)
+    if mg * gh != kern.shape[0]:
+        kern = np.pad(kern, ((0, mg * gh - kern.shape[0]), (0, 0)))
+    return kern, mg
+
+
+@lru_cache(maxsize=8)
+def _runtime_kernel_on(nfft, hop, group, awin_bytes, swin_bytes, rb_kern,
+                       device: torch.device) -> torch.Tensor:
+    kern, _ = blocked_runtime_kernel(
+        nfft, hop, group, awin_bytes, swin_bytes, rb_kern
+    )
+    return torch.from_numpy(kern).to(device)
+
+
+@lru_cache(maxsize=8)
+def _composed_basis_on(nfft, awin_bytes, swin_bytes, response_bytes,
+                       device: torch.device) -> torch.Tensor:
+    m = _composed_roundtrip_basis(nfft, awin_bytes, swin_bytes, response_bytes)
+    return torch.from_numpy(m).to(device)
+
+
+def hopblock_apply(
+    x: torch.Tensor,  # [..., T] signal
+    kern: torch.Tensor,  # [M*block, block] Toeplitz-laid kernel, same device
+    block: int,
+    n_out: int,
+    left: int,
+) -> torch.Tensor:
+    """Hop-block Toeplitz product: pad x with `left` zeros (the look-back
+    halo) and enough right zeros, view it as ONE contiguous [..., B, block]
+    tensor, and accumulate the M products of its shifted row slices
+    (each slice a contiguous view, no im2col copy) in ascending m order.
+    Returns [..., n_out]."""
+    assert kern.shape[0] % block == 0, (
+        f"kernel height {kern.shape[0]} must be a multiple of the "
+        f"block size {block}"
+    )
+    mg = kern.shape[0] // block
+    nb = -(-n_out // block)
+    right = (nb - 1 + mg) * block - left - x.shape[-1]
+    x_ext = torch.nn.functional.pad(x, (left, right))
+    blocks = x_ext.reshape(x_ext.shape[:-1] + (-1, block))
+    acc = None
+    for m in range(mg):
+        term = torch.matmul(
+            blocks[..., m : m + nb, :], kern[m * block : (m + 1) * block, :]
+        )
+        acc = term if acc is None else acc + term
+    return acc.reshape(acc.shape[:-2] + (nb * block,))[..., :n_out]
+
+
+def blocked_patch_span(nfft: int, hop: int) -> int:
+    """Input samples an edge patch reads: (R-2)*hop + nfft."""
+    return (nfft // hop - 2) * hop + nfft
+
+
+def blocked_edge_patch(
+    x_region: torch.Tensor,  # [..., (R-2)*hop + nfft] head/tail samples
+    nfft: int,
+    hop: int,
+    awin_bytes: bytes,
+    swin_bytes,
+    response_bytes: bytes,
+    side: str = "head",
+) -> torch.Tensor:
+    """UN-normalized local OLA of the R-1 real boundary frames at the
+    stream head (or tail), [..., (R-1)*hop]: the exact values of the blocks
+    where the Toeplitz product sees phantom frames. Frames are summed in
+    ascending order."""
+    r_count = nfft // hop
+    edge = (r_count - 1) * hop
+    m = _composed_basis_on(
+        nfft, awin_bytes, swin_bytes, response_bytes, x_region.device
+    )
+    frames_small = torch.stack(
+        [x_region[..., f * hop : f * hop + nfft] for f in range(r_count - 1)],
+        dim=-2,
+    )  # [..., R-1, N]
+    of = torch.matmul(frames_small, m)
+    span_l = (r_count - 2) * hop + nfft
+    acc_l = of.new_zeros(of.shape[:-2] + (span_l,))
+    for f in range(r_count - 1):
+        acc_l[..., f * hop : f * hop + nfft] += of[..., f, :]
+    return acc_l[..., :edge] if side == "head" else acc_l[..., span_l - edge :]
+
+
+def roundtrip_composed_blocked(
+    padded: torch.Tensor,  # [..., T_pad] padded signal
+    nfft: int,
+    hop: int,
+    num_frames: int,
+    analysis_window_f64: np.ndarray,
+    per_bin_response: np.ndarray,
+    synthesis_window_f64=None,
+    group: int = 1,
+    norm_fold=None,
+) -> torch.Tensor:
+    """Composed per-bin round-trip INCLUDING the overlap-add as hop-block
+    products on the raw signal, length (num_frames-1)*hop + nfft.
+
+    Without `norm_fold` the result is the un-normalized OLA sum. With
+    `norm_fold = (norm_c, head_norm, tail_norm)` -- the constant interior
+    COLA norm and the eps-clamped f32 norms of the (R-1)*hop edge samples at
+    each end, on the signal's device (`pipeline.blocked_norm_fold` checks
+    the interior is constant) -- 1/norm_c is folded into the kernel at f64
+    design time and only the edge samples divide by their true norm."""
+    assert composed_block_supported(nfft, hop)
+    assert num_frames >= 2 * (nfft // hop - 1)
+    assert group >= 1
+    wb = _bytes(analysis_window_f64, np.float64)
+    sb = (
+        None if synthesis_window_f64 is None
+        else _bytes(synthesis_window_f64, np.float64)
+    )
+    rb = _bytes(per_bin_response, np.complex128)
+    r_count = nfft // hop
+    full = (num_frames - 1) * hop + nfft
+    edge = (r_count - 1) * hop
+    rb_kern = rb
+    if norm_fold is not None:
+        rb_kern = _bytes(
+            np.asarray(per_bin_response, np.complex128) / norm_fold[0],
+            np.complex128,
+        )
+    kern = _runtime_kernel_on(nfft, hop, group, wb, sb, rb_kern, padded.device)
+    x = padded[..., :full].float()
+    out = hopblock_apply(x, kern, group * hop, full, edge)
+    span_p = blocked_patch_span(nfft, hop)
+    head = blocked_edge_patch(x[..., :span_p], nfft, hop, wb, sb, rb, "head")
+    tail = blocked_edge_patch(
+        x[..., full - span_p : full], nfft, hop, wb, sb, rb, "tail"
+    )
+    if norm_fold is not None:
+        head = head / norm_fold[1]
+        tail = tail / norm_fold[2]
+    return torch.cat([head, out[..., edge : full - edge], tail], dim=-1)

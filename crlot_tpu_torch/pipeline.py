@@ -1,0 +1,256 @@
+"""Single-device STFT / iSTFT / round-trip pipeline, in torch.
+
+Counterpart of `crlot_tpu/pipeline.py`. The reference picks its formulation
+from `jax.default_backend()`; the port picks it from the config and the
+spectral fn alone (`formulation_for`), so the CPU tests run the same
+branches as the card. Only the innermost call depends on the tensor's
+device: a kernel on CUDA, its plain version on the CPU.
+
+Branches of `round_trip` (names returned by `formulation_for`):
+
+* "blocked": identity and fixed per-bin responses (EQ, FIR, gain) as one
+  hop-block Toeplitz product with the OLA and 1/COLA folded in
+  (`fft/matmul_backend.roundtrip_composed_blocked`);
+* "fused_rt_ola": a nonlinear packed fn whose packed chain has a full B2
+  epilogue menu, through the B2 kernel (`fft/fused_rt.py`);
+* "packed_parts": any other packed fn: folded forward, `fn.packed`, folded
+  inverse, then the B1 OLA kernel;
+* "stft_istft": everything else, `stft` -> fn -> `istft` (B1 for the OLA).
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from .core.consts import as_f32, const_on
+from .core.padding import pad_signal
+from .core.types import FftBackend, FftPrecision, StftConfig
+from .fft import dispatch as _fft
+from .fft.fused_rt import fused_rt_supported, roundtrip_signal_fused
+from .fft.matmul_backend import (
+    MAX_MATMUL_NFFT,
+    blocked_group_for,
+    composed_block_supported,
+    irfft_folded_parts,
+    rfft_folded_packed,
+    roundtrip_composed_blocked,
+)
+from .frame.framing import frame_signal
+from .ola.fused import ola_normalized_auto
+from .ola.norm import edge_norm
+from .spectral import epilogue_of, resolve_per_bin_response
+from .window.windows import get_window
+
+
+@lru_cache(maxsize=None)
+def _window_np(cfg: StftConfig) -> np.ndarray:
+    return get_window(cfg.window, cfg.frame_size, cfg.periodic)
+
+
+@lru_cache(maxsize=None)
+def _window_f64(cfg: StftConfig) -> np.ndarray:
+    return get_window(cfg.window, cfg.frame_size, cfg.periodic, dtype=np.float64)
+
+
+@lru_cache(maxsize=None)
+def _norm_np(cfg: StftConfig, num_frames: int, out_len: int) -> np.ndarray:
+    w = _window_np(cfg).astype(np.float64)
+    contrib = w * w if cfg.synthesis_window else w
+    return edge_norm(contrib, cfg.hop_size, num_frames, out_len)
+
+
+@lru_cache(maxsize=8)
+def _norm_on(cfg: StftConfig, num_frames: int, out_len: int,
+             device: torch.device) -> torch.Tensor:
+    return as_f32(_norm_np(cfg, num_frames, out_len), device)
+
+
+def _synthesis(frames: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
+    if not cfg.synthesis_window:
+        return frames
+    return frames * const_on(_window_np(cfg), frames.device)
+
+
+def stft(signal: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
+    """`[..., L]` real -> `[..., F, nfft//2+1]` complex64 spectrogram."""
+    frames = frame_signal(signal, cfg.frame_spec)
+    return _fft.rfft_windowed(
+        frames, cfg.frame_size, _window_f64(cfg), backend=cfg.fft_backend
+    )
+
+
+def istft(
+    spec: torch.Tensor, cfg: StftConfig, length: Optional[int] = None
+) -> torch.Tensor:
+    """`[..., F, nfft//2+1]` complex -> `[..., length]` real (default: the
+    span an stft of that many frames covers, minus center padding)."""
+    num_frames = spec.shape[-2]
+    frames = _fft.irfft(spec, cfg.frame_size, backend=cfg.fft_backend)
+    frames = _synthesis(frames, cfg)
+    pad = cfg.frame_spec.pad_amount
+    full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
+    if length is None:
+        length = full - 2 * pad
+    norm = _norm_on(cfg, num_frames, full, frames.device)
+    out = ola_normalized_auto(frames, norm, cfg.hop_size, full, cfg.eps)
+    return out[..., pad : pad + length]
+
+
+@lru_cache(maxsize=8)
+def blocked_norm_fold(cfg: StftConfig, num_frames: int):
+    """(norm_arr, full, edge, fold_ok): fold_ok when the interior COLA sum
+    is constant (to 1e-9 relative), so 1/norm folds into the blocked kernel
+    at design time and only the 2*(R-1)*hop edge samples divide by the true
+    norm. Cached: the check reads the whole norm."""
+    full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
+    norm_arr = _norm_np(cfg, num_frames, full)
+    edge = (cfg.frame_size // cfg.hop_size - 1) * cfg.hop_size
+    interior = norm_arr[edge : full - edge]
+    fold_ok = bool(
+        interior.size > 0
+        and interior[0] > 0
+        and np.max(np.abs(interior - interior[0])) <= 1e-9 * interior[0]
+    )
+    return norm_arr, full, edge, fold_ok
+
+
+@lru_cache(maxsize=8)
+def _norm_fold_on(cfg: StftConfig, num_frames: int, device: torch.device):
+    """`roundtrip_composed_blocked`'s norm_fold for this geometry, or None
+    when the interior norm is not constant."""
+    norm_arr, full, edge, fold_ok = blocked_norm_fold(cfg, num_frames)
+    if not fold_ok:
+        return None
+    return (
+        float(np.float64(norm_arr[edge])),
+        as_f32(np.maximum(norm_arr[:edge], cfg.eps), device),
+        as_f32(np.maximum(norm_arr[full - edge : full], cfg.eps), device),
+    )
+
+
+def blocked_composed_round_trip(
+    signal: torch.Tensor, cfg: StftConfig, per_bin: np.ndarray
+) -> torch.Tensor:
+    """round_trip's "blocked" branch as a gate-free program. Caller
+    contract: composed_block_supported(N, hop) and
+    num_frames >= 2*(N/hop - 1)."""
+    spec_ = cfg.frame_spec
+    num_frames = spec_.num_frames(signal.shape[-1])
+    w64 = _window_f64(cfg)
+    padded = pad_signal(
+        signal, spec_.pad_amount, spec_.pad_amount,
+        spec_.pad_mode, spec_.pad_value,
+    )
+    norm_fold = _norm_fold_on(cfg, num_frames, signal.device)
+    out = roundtrip_composed_blocked(
+        padded, cfg.frame_size, cfg.hop_size, num_frames, w64,
+        per_bin, w64 if cfg.synthesis_window else None,
+        group=blocked_group_for(cfg.frame_size, cfg.hop_size),
+        norm_fold=norm_fold,
+    )
+    pad = spec_.pad_amount
+    if norm_fold is None:
+        full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
+        out = out / torch.clamp_min(
+            _norm_on(cfg, num_frames, full, out.device), cfg.eps
+        )
+    return out[..., pad : pad + signal.shape[-1]]
+
+
+def _blocked_ok(cfg: StftConfig, n_samples: int) -> bool:
+    return composed_block_supported(cfg.frame_size, cfg.hop_size) and (
+        cfg.frame_spec.num_frames(n_samples)
+        >= 2 * (cfg.frame_size // cfg.hop_size - 1)
+    )
+
+
+def formulation_for(
+    cfg: StftConfig, spectral_fn: Optional[Callable], n_samples: int
+) -> str:
+    """The branch `round_trip(signal[..., n_samples], cfg, spectral_fn)`
+    takes: "blocked", "fused_rt_ola", "packed_parts" or "stft_istft". For
+    the configurations the reference's accelerator runs through its blocked
+    and fused kernels, this is the reference accelerator's choice; where the
+    reference would take one of its other frames-level matmul routes, the
+    port takes "stft_istft"."""
+    matmul_ok = cfg.fft_backend in (FftBackend.AUTO, FftBackend.MATMUL)
+    nfft, hop = cfg.frame_size, cfg.hop_size
+    if not matmul_ok:
+        return "stft_istft"
+    per_bin = (
+        resolve_per_bin_response(spectral_fn, nfft)
+        if nfft <= MAX_MATMUL_NFFT else None
+    )
+    if spectral_fn is None or per_bin is not None:
+        return "blocked" if _blocked_ok(cfg, n_samples) else "stft_istft"
+    if not hasattr(spectral_fn, "packed"):
+        return "stft_istft"
+    if (
+        not cfg.synthesis_window
+        and cfg.fft_precision == FftPrecision.HIGH
+        and fused_rt_supported(nfft, hop)
+        and cfg.frame_spec.num_frames(n_samples) > 0
+        and epilogue_of(spectral_fn) is not None
+    ):
+        return "fused_rt_ola"
+    if nfft % 256 == 0 and nfft <= MAX_MATMUL_NFFT:
+        return "packed_parts"
+    return "stft_istft"
+
+
+def round_trip(
+    signal: torch.Tensor,
+    cfg: StftConfig,
+    spectral_fn: Optional[Callable] = None,
+) -> torch.Tensor:
+    """stft -> (spectral processing) -> istft, output the length of the
+    input. The identity round-trip must reconstruct at > 60 dB SNR."""
+    if cfg.fused_roundtrip:
+        raise NotImplementedError(
+            "cfg.fused_roundtrip needs the frames-level fused kernel, not "
+            "ported yet (ROADMAP kernel K3)"
+        )
+    signal = torch.as_tensor(signal)
+    n = signal.shape[-1]
+    route = formulation_for(cfg, spectral_fn, n)
+    spec_ = cfg.frame_spec
+    pad = spec_.pad_amount
+    if route == "blocked":
+        per_bin = resolve_per_bin_response(spectral_fn, cfg.frame_size)
+        if per_bin is None:
+            per_bin = np.ones(cfg.frame_size // 2 + 1)
+        return blocked_composed_round_trip(signal, cfg, per_bin)
+    if route == "fused_rt_ola":
+        num_frames = spec_.num_frames(n)
+        padded = pad_signal(
+            signal, pad, pad, spec_.pad_mode, spec_.pad_value
+        )
+        full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
+        out = roundtrip_signal_fused(
+            padded, cfg.frame_size, cfg.hop_size, num_frames,
+            _window_f64(cfg), _norm_on(cfg, num_frames, full, signal.device),
+            cfg.eps, spectral_packed=spectral_fn.packed,
+        )
+        return out[..., pad : pad + n]
+    if route == "packed_parts":
+        frames = frame_signal(signal, spec_)
+        re, im = rfft_folded_packed(frames, cfg.frame_size, _window_np(cfg))
+        re, im = spectral_fn.packed(re, im)
+        out_frames = _synthesis(
+            irfft_folded_parts(re, im, cfg.frame_size), cfg
+        )
+        num_frames = frames.shape[-2]
+        full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
+        out = ola_normalized_auto(
+            out_frames, _norm_on(cfg, num_frames, full, signal.device),
+            cfg.hop_size, full, cfg.eps,
+        )
+        return out[..., pad : pad + n]
+    spec = stft(signal, cfg)
+    if spectral_fn is not None:
+        spec = spectral_fn(spec)
+    return istft(spec, cfg, length=n)

@@ -1,0 +1,104 @@
+"""Import hygiene of the port and its kernel loader.
+
+Importing `crlot_tpu_torch` must not import jax or crlot_tpu (the card's
+machine has no jax) nor triton, and must build nothing. The loader builds
+with nvcc at first use and lets every build error propagate.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from crlot_tpu_torch import cuda_build
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_import_pulls_in_no_jax_crlot_tpu_or_triton(tmp_path):
+    code = (
+        "import sys, crlot_tpu_torch, crlot_tpu_torch.pipeline, "
+        "crlot_tpu_torch.fft.fused_rt, crlot_tpu_torch.ola.fused, "
+        "crlot_tpu_torch.convert, crlot_tpu_torch.cuda_build as b\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'crlot_tpu', 'triton'))\n"
+        "print('BAD', bad)\n"
+        "print('LIB', b._LIB)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=tmp_path, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout
+    assert "LIB None" in out.stdout
+
+
+def test_missing_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.find_nvcc()
+
+
+def test_build_error_propagates_and_is_not_cached(monkeypatch, tmp_path):
+    monkeypatch.setattr(cuda_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_LIB", None)
+    calls = []
+
+    def failing(out_path):
+        calls.append(out_path)
+        raise RuntimeError("nvcc failed (2): simulated")
+
+    monkeypatch.setattr(cuda_build, "compile_library", failing)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="simulated"):
+            cuda_build.load_library()
+    assert len(calls) == 2 and cuda_build._LIB is None
+
+
+def test_nvcc_command_targets_sm90a_without_fast_math(monkeypatch, tmp_path):
+    seen = {}
+
+    class Proc:
+        returncode = 1
+        stdout = ""
+        stderr = "error: simulated"
+
+    def fake_run(cmd, **kw):
+        seen["cmd"] = cmd
+        return Proc()
+
+    monkeypatch.setattr(cuda_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda_build.subprocess, "run", fake_run)
+    with pytest.raises(RuntimeError, match="simulated"):
+        cuda_build.compile_library(tmp_path / "lib.so")
+    cmd = seen["cmd"]
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    assert not any("fast_math" in c for c in cmd)
+    assert {Path(c).name for c in cmd if c.endswith(".cu")} == {
+        "fused_rt.cu", "ola_fused.cu"}
+    assert not list(tmp_path.glob("*.so"))  # no half-written library left
+
+
+def test_sources_export_the_bound_symbols():
+    text = "".join(p.read_text() for p in cuda_build.sources())
+    for name in list(cuda_build._SIGNATURES) + ["crlot_error_string"]:
+        assert f' {name}(' in text, name
+
+
+def test_kernel_wrappers_refuse_non_cuda_devices():
+    """A tensor that is not on the CPU goes to the kernel path, which checks
+    its device and raises: no plain fallback for non-CPU tensors."""
+    from crlot_tpu_torch.fft import fused_rt
+
+    meta = torch.empty((1, 8192), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_rt.roundtrip_signal_fused(
+            meta, 1024, 256, 29, torch.ones(1024).numpy(),
+            torch.empty(8192, device="meta"),
+        )
