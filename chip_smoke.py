@@ -5,9 +5,11 @@
 
 Builds the port's CUDA kernels from `crlot_tpu_torch/csrc/` (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version on the card, then runs
-the main path through the public entry points (`round_trip`, `stft`,
-`istft`) on 2 channels x 60 s at 48 kHz, N=1024 / H=256, Hann, centered,
-with the kernels' launch counters reset just before and read just after.
+two paths through the public entry points on 2 channels x 60 s at 48 kHz,
+N=1024 / H=256, Hann, seed 0, each with the kernels' launch counters reset
+just before and read just after: the round-trip path (`round_trip`, `stft`,
+`istft`; centered) and the fused-frames and sharded path
+(`round_trip` with `fused_roundtrip`, `sharded_round_trip`).
 
 Phases (each prints one line; the script exits 1 if any fails):
   1. B1 (fused OLA + normalize) vs plain on [2, 11251, 1024] frames:
@@ -25,8 +27,25 @@ Phases (each prints one line; the script exits 1 if any fails):
   5. istft(stft(x)): SNR >= 60 dB, B1 launched.
   6. round_trip with noise_gate(-30) ("fused_rt_ola"): SNR vs input >=
      60 dB, B2 launched.
+  7. B3 (fused round-trip frames) vs plain for the identity and the three
+     fns of phase 2, on the centered signal ([2, 11251, 1024] frames):
+     max-abs <= 1e-5 against the plain version on the card and on the host
+     CPU; prints whether the card's result is bit-identical.
+  8. round_trip with cfg.fused_roundtrip ("fused_rt_frames"): SNR vs input
+     >= 60 dB, B3 and B1 launched.
+  9. sharded_round_trip with noise_gate(-30), center=False, T = 2879488
+     (59.99 s: every time block a multiple of 2*hop), on a (channel=2,
+     time=2) mesh whose four shards all sit on cuda:0: one B3 launch per
+     shard, torch.equal to the (1, 1) mesh, and within max-abs 1e-5 of the
+     one-shot round_trip (B2) over [N, T-N) (prints whether bit-identical).
+ 10. sharded identity (blocked route) on the same mesh and signal: blocked
+     engaged, interior SNR vs input >= 60 dB, within rtol 3e-6 of the
+     (1, 1) mesh with the first and last N-H samples exact, and the in-mesh
+     metrics' SNR within 0.01 dB of the host's SNR of the gathered output.
 Then CUDA-event timings (warm-up, median of 10): each kernel vs its plain
-version, and end-to-end samples/s of phases 3 and 6.
+version, and end-to-end samples/s of phases 3, 6, 8 and 9 (phase 9 on both
+meshes; the (2, 2) mesh runs its four shards one after another on one
+card, so it is no scaling figure).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -35,7 +54,9 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -48,6 +69,7 @@ SECONDS = 60
 NFFT, HOP = 1024, 256
 SEED = 0
 REPS = 10
+T_SHARDED = 2_879_488  # 59.99 s; T / 2 is a multiple of 2 * HOP
 
 
 def log(msg: str) -> None:
@@ -83,6 +105,7 @@ def main() -> int:
     from crlot_tpu_torch.core.padding import pad_signal
     from crlot_tpu_torch.fft import fused_rt as b2
     from crlot_tpu_torch.ola import fused as b1
+    from crlot_tpu_torch.distributed import sharded_pipeline as spl
     from crlot_tpu_torch.pipeline import _norm_np, _window_f64
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -98,9 +121,13 @@ def main() -> int:
     cuda_build.load_library()
     log(f"kernel build: {cuda_build.build_seconds:.2f} s "
         f"({len(cuda_build.sources())} sources, nvcc)")
+    kernel = "?"
     for line in cuda_build.build_log.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(r"(\w+_kernel)", line)
+            kernel = found.group(1) if found else line.strip()
         if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+            log(f"  ptxas {kernel}: {line.strip()}")
 
     cfg = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=True)
     rng = np.random.default_rng(SEED)
@@ -243,6 +270,132 @@ def main() -> int:
         failures.append("launch counts")
         log("FAIL launch counts: a kernel of the path was not launched")
 
+    # 7. B3 vs plain.
+    frames_fns = {"identity": None, **fns}
+
+    def p7():
+        worst, lines = 0.0, []
+        for name, fn in frames_fns.items():
+            packed = fn.packed if fn is not None else None
+            got = b2.roundtrip_frames_cuda(padded, NFFT, HOP, n_frames, w32,
+                                           packed)
+            sync()
+            want = b2.roundtrip_frames_plain(padded, NFFT, HOP, n_frames,
+                                             w32, packed)
+            finite(got, (2, n_frames, NFFT))
+            err = float((got - want).abs().max())
+            host = b2.roundtrip_frames_plain(padded.cpu(), NFFT, HOP,
+                                             n_frames, w32.cpu(), packed)
+            err_host = float((got.cpu() - host).abs().max())
+            lines.append(f"{name}: max-abs {err:.3e} (bit-identical "
+                         f"{torch.equal(got, want)}; vs plain on the host "
+                         f"CPU: max-abs {err_host:.3e})")
+            worst = max(worst, err)
+            check(err <= 1e-5 and err_host <= 1e-5, lines[-1])
+        # A signal shorter than its frames' span: reads past its end are 0.
+        short = padded[:, :5000].contiguous()
+        got = b2.roundtrip_frames_cuda(short, NFFT, HOP, 30, w32, None)
+        host = b2.roundtrip_frames_plain(short.cpu(), NFFT, HOP, 30,
+                                         w32.cpu(), None)
+        err = float((got.cpu() - host).abs().max())
+        lines.append(f"short signal (30 frames over 5000 samples): max-abs "
+                     f"{err:.3e} vs plain on the host CPU")
+        check(err <= 1e-5, lines[-1])
+        results["b3_err"] = worst
+        return "; ".join(lines)
+
+    phase("7 B3 vs plain", p7)
+
+    # The fused-frames and sharded path, counters reset just before.
+    cfg_frames = dataclasses.replace(cfg, fused_roundtrip=True)
+    cfg_nc = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=False)
+    x9 = x[:, :T_SHARDED].contiguous()
+    x9_np = x_np[:, :T_SHARDED]
+    mesh22 = pt.make_mesh(channel=2, time=2, devices=[dev] * 4)
+    mesh11 = pt.make_mesh(channel=1, time=1, devices=[dev])
+    inner = slice(NFFT, T_SHARDED - NFFT)
+    edge = NFFT - HOP
+    b1.launches = 0
+    b2.launches = 0
+    b2.frames_launches = 0
+
+    def p8():
+        check(pt.formulation_for(cfg_frames, None, n) == "fused_rt_frames",
+              "route")
+        b1_0, b3_0 = b1.launches, b2.frames_launches
+        y = pt.round_trip(x, cfg_frames)
+        finite(y, (2, n))
+        snr = pt.snr_db(x_np, y)
+        check(snr >= 60.0, f"snr {snr:.2f} dB")
+        check(b2.frames_launches > b3_0 and b1.launches > b1_0,
+              "B3 or B1 not launched")
+        return (f"route fused_rt_frames, snr {snr:.2f} dB, B3 launches "
+                f"+{b2.frames_launches - b3_0}, B1 +{b1.launches - b1_0}")
+
+    def p9():
+        gate = fns["noise_gate(-30)"]
+        check(spl.shard_route(cfg_nc, gate) == "fused_rt_frames", "route")
+        before = b2.frames_launches
+        y = pt.sharded_round_trip(x9, cfg_nc, mesh22, gate)
+        sync()
+        launched = b2.frames_launches - before
+        finite(y, (2, T_SHARDED))
+        check(launched == 4, f"{launched} B3 launches for 4 shards")
+        one = pt.sharded_round_trip(x9, cfg_nc, mesh11, gate)
+        check(torch.equal(y, one), "(2, 2) mesh != (1, 1) mesh")
+        check(pt.formulation_for(cfg_nc, gate, T_SHARDED) == "fused_rt_ola",
+              "one-shot route")
+        shot = pt.round_trip(x9, cfg_nc, gate)
+        err = float((y[:, inner] - shot[:, inner]).abs().max())
+        same = torch.equal(y[:, inner], shot[:, inner])
+        results["sharded_b2_err"] = err
+        check(err <= 1e-5, f"vs one-shot B2: max-abs {err:.3e}")
+        return (f"B3 launches +{launched}; (2, 2) == (1, 1) bit for bit; "
+                f"vs one-shot B2 over [N, T-N): max-abs {err:.3e}, "
+                f"bit-identical {same}")
+
+    def p10():
+        calls = []
+        orig = spl._blocked_local_round_trip
+
+        def spy(*a, **k):
+            calls.append(1)
+            return orig(*a, **k)
+
+        spl._blocked_local_round_trip = spy
+        try:
+            y, metrics = pt.sharded_round_trip(x9, cfg_nc, mesh22,
+                                               return_metrics=True)
+        finally:
+            spl._blocked_local_round_trip = orig
+        check(len(calls) == 2, f"blocked route engaged {len(calls)} times")
+        finite(y, (2, T_SHARDED))
+        one = pt.sharded_round_trip(x9, cfg_nc, mesh11)
+        snr = pt.snr_db(x9_np[:, inner], y[:, inner])
+        check(snr >= 60.0, f"interior snr {snr:.2f} dB")
+        check(torch.allclose(y, one, rtol=3e-6, atol=1e-6),
+              "(2, 2) mesh not within rtol 3e-6 of (1, 1)")
+        check(torch.equal(y[:, :edge], one[:, :edge])
+              and torch.equal(y[:, -edge:], one[:, -edge:]),
+              "edges not exact")
+        mesh_snr = pt.metrics_report(metrics)["snr_db"]
+        host_snr = pt.snr_db(x9_np, y)
+        check(abs(mesh_snr - host_snr) < 0.01,
+              f"metrics snr {mesh_snr:.4f} vs host {host_snr:.4f}")
+        return (f"blocked engaged; interior snr {snr:.2f} dB; (2, 2) vs "
+                f"(1, 1) bit-identical {torch.equal(y, one)}; metrics snr "
+                f"{mesh_snr:.4f} dB vs host {host_snr:.4f} dB")
+
+    phase("8 round_trip fused_roundtrip", p8)
+    phase("9 sharded noise_gate (B3)", p9)
+    phase("10 sharded identity (blocked)", p10)
+    counts2 = {"b1": b1.launches, "b3": b2.frames_launches}
+    log(f"fused-frames and sharded path launches: B3 {counts2['b3']}, "
+        f"B1 {counts2['b1']}")
+    if counts2["b1"] == 0 or counts2["b3"] == 0:
+        failures.append("launch counts (path 2)")
+        log("FAIL launch counts: a kernel of the path was not launched")
+
     # Timings.
     def cuda_ms(fn):
         for _ in range(2):
@@ -259,7 +412,7 @@ def main() -> int:
             times.append(e0.elapsed_time(e1))
         return statistics.median(times)
 
-    def e2e_rate(fn):
+    def e2e_rate(fn, samples=2 * n):
         fn()
         sync()
         times = []
@@ -268,7 +421,7 @@ def main() -> int:
             fn()
             sync()
             times.append(time.perf_counter() - t0)
-        return 2 * n / statistics.median(times)
+        return samples / statistics.median(times)
 
     gate = fns["noise_gate(-30)"]
     timing = {}
@@ -283,17 +436,34 @@ def main() -> int:
         timing["b2_plain"] = cuda_ms(lambda: b2.roundtrip_signal_plain(
             padded, NFFT, HOP, n_frames, w32, norm, cfg.eps, full,
             gate.packed))
+        timing["b3"] = cuda_ms(lambda: b2.roundtrip_frames_cuda(
+            padded, NFFT, HOP, n_frames, w32, gate.packed))
+        timing["b3_plain"] = cuda_ms(lambda: b2.roundtrip_frames_plain(
+            padded, NFFT, HOP, n_frames, w32, gate.packed))
         timing["rt_identity"] = e2e_rate(lambda: pt.round_trip(x, cfg))
         timing["rt_gate"] = e2e_rate(lambda: pt.round_trip(x, cfg, gate))
+        timing["rt_frames"] = e2e_rate(lambda: pt.round_trip(x, cfg_frames))
+        for name, mesh in (("sharded_11", mesh11), ("sharded_22", mesh22)):
+            timing[name] = e2e_rate(
+                lambda: pt.sharded_round_trip(x9, cfg_nc, mesh, gate),
+                2 * T_SHARDED)
         log(f"time B1 kernel {timing['b1']:.4f} ms, plain "
             f"{timing['b1_plain']:.4f} ms ([2, {n_frames}, {NFFT}] frames; "
             f"CUDA events, median of {REPS})")
         log(f"time B2 kernel {timing['b2']:.4f} ms, plain "
             f"{timing['b2_plain']:.4f} ms (noise_gate, 2 x {SECONDS} s; "
             f"CUDA events, median of {REPS})")
+        log(f"time B3 kernel {timing['b3']:.4f} ms, plain "
+            f"{timing['b3_plain']:.4f} ms (noise_gate, [2, {n_frames}, "
+            f"{NFFT}] frames; CUDA events, median of {REPS})")
         log(f"e2e round_trip identity {timing['rt_identity']:.4e} samples/s; "
-            f"noise_gate {timing['rt_gate']:.4e} samples/s (host clock, "
+            f"noise_gate {timing['rt_gate']:.4e} samples/s; fused_roundtrip "
+            f"{timing['rt_frames']:.4e} samples/s (host clock, "
             f"synchronized, median of {REPS})")
+        log(f"e2e sharded noise_gate (B3 route), 2 x {T_SHARDED} samples: "
+            f"(1, 1) mesh {timing['sharded_11']:.4e} samples/s; (2, 2) mesh "
+            f"on one card, shards run in turn, {timing['sharded_22']:.4e} "
+            f"samples/s (host clock, synchronized, median of {REPS})")
         log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     except Exception as e:
         failures.append("timings")
@@ -313,6 +483,11 @@ def main() -> int:
          "replaces": "crlot_tpu/fft/pallas_rt.py:429",
          "launches": counts["b2"], "max_abs_err": results["b2_err"],
          "ms": timing["b2"], "plain_ms": timing["b2_plain"]},
+        {"name": "rt_frames (B3)", "route": "cuda",
+         "source": "crlot_tpu_torch/csrc/fused_rt.cu",
+         "replaces": "crlot_tpu/fft/pallas_rt.py:277",
+         "launches": counts2["b3"], "max_abs_err": results["b3_err"],
+         "ms": timing["b3"], "plain_ms": timing["b3_plain"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,9 +1,9 @@
 """crlot-tpu-torch: the crlot-tpu STFT round-trip path on PyTorch + CUDA.
 
 A port of `crlot_tpu` (JAX on a TPU, kept beside it as the reference) to
-PyTorch on an NVIDIA H100. Plain tensor code is torch; the two Pallas
-kernels of the round-trip path are hand-written CUDA C++ for Hopper
-(`csrc/`), built with nvcc at first use. Importing this package imports
+PyTorch on an NVIDIA H100. Plain tensor code is torch; the Pallas kernels
+of the round-trip path are hand-written CUDA C++ for Hopper (`csrc/`),
+built with nvcc at first use. Importing this package imports
 neither jax, crlot_tpu nor triton, and builds nothing.
 """
 
@@ -16,6 +16,12 @@ from .core.types import (
     StftConfig,
     WindowType,
 )
+from .distributed import (
+    auto_mesh,
+    make_mesh,
+    metrics_report,
+    sharded_round_trip,
+)
 from .frame.framing import frame_signal, frame_windowed, num_frames
 from .io.wav import read_wav, write_wav
 from .metrics import snr_db
@@ -23,6 +29,8 @@ from .ola.reference import overlap_add, overlap_add_normalized
 from .pipeline import formulation_for, istft, round_trip, stft
 from .window.windows import get_window
 
-from . import convert, core, fft, frame, io, metrics, ola, spectral, window  # noqa: E402,F401
+from . import (  # noqa: E402,F401
+    convert, core, distributed, fft, frame, io, metrics, ola, spectral, window,
+)
 
 __version__ = "0.1.0"

@@ -105,8 +105,8 @@ class StftConfig:
     eps: float = 1e-8
     fft_backend: FftBackend = FftBackend.AUTO
     fft_precision: FftPrecision = FftPrecision.HIGH
-    # The reference's opt-in frames-level fused kernel; not ported yet
-    # (ROADMAP kernel K3). round_trip refuses a config that sets it.
+    # Opt-in: the identity round_trip through the frames-level fused
+    # kernel (B3) and the fused OLA (B1), route "fused_rt_frames".
     fused_roundtrip: bool = False
 
     def __post_init__(self) -> None:

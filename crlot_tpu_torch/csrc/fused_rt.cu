@@ -1,8 +1,12 @@
 // B2: fused nonlinear STFT round-trip + overlap-add + COLA normalize.
+// B3: the same round-trip without the OLA: [F, N] round-trip frames.
 //
-// Replaces the Pallas kernel crlot_tpu/fft/pallas_rt.py::_rt_ola_kernel.
+// B2 replaces the Pallas kernel crlot_tpu/fft/pallas_rt.py::_rt_ola_kernel,
+// B3 replaces pallas_rt.py::_rt_kernel. Both run stages 1-3 below through
+// one device function (rt_frames_to_planes); they differ in which frames a
+// CTA owns and in stage 4.
 //
-// Each CTA owns TB = NF - (R-1) output hop-blocks of one channel and
+// B2: each CTA owns TB = NF - (R-1) output hop-blocks of one channel and
 // computes the NF = 32 frames that touch them (R-1 of them are boundary
 // frames its neighbour recomputes too). Frames outside [0, n_frames) are
 // zero before the products, so phantom frames add nothing. Per CTA:
@@ -15,7 +19,17 @@
 //      or A[N-n] - B[N-n]; each output sample sums its R frames in
 //      ascending frame order and divides by max(norm, eps).
 //
-// What bounds it on an H100: fp32 FMA issue. Each frame costs
+// B3: each CTA owns NF = 32 consecutive frames of one channel and
+// recomputes nothing (a frame needs no neighbour). Its stage 4 unfolds
+// each frame with the same rounded steps as B2 and stores it as one
+// coalesced row of N floats, so B3 followed by the plain OLA can match B2
+// bit for bit. Its signal reads at or past the row length return 0.0 (the
+// zero padding the Pallas caller applies), since a sharded caller passes
+// exactly the samples its frames span. B3 does B2's useful FMAs without
+// B2's (R-1)/TB recompute and writes F * N * 4 bytes (92 MB at 2 x 60 s,
+// ~0.03 ms at 3.35 TB/s), so it is FMA-bound like B2.
+//
+// What bounds both on an H100: fp32 FMA issue. Each frame costs
 // 4 * K^2 ~ 1.05 M multiply-adds at N = 1024 against 4 KB of signal in and
 // 1 KB out, far above the memory roofline. The design keeps every
 // intermediate in shared memory and register-tiles the four products like
@@ -169,43 +183,43 @@ __device__ __forceinline__ void store_frame_major(float* plane, const Tile& t,
   }
 }
 
-__global__ void __launch_bounds__(MAX_THREADS, 1)
-rt_ola_kernel(const float* __restrict__ padded, long long lp,
-              const float* __restrict__ window,
-              const float* __restrict__ cb,    // C    [h+1, Kp]
-              const float* __restrict__ sb,    // S    [h-1, Kp]
-              const float* __restrict__ cinv,  // Cinv [K, Kp]
-              const float* __restrict__ sinv,  // Sinv [K, Kp], column j = sample j
-              const float* __restrict__ norm,
-              const int* __restrict__ desc, int n_ops,
-              const float* __restrict__ params,
-              float* __restrict__ out,
-              int nfft, int hop, int n_frames, int out_len, float eps) {
-  extern __shared__ float4 smem4[];
-  const int h = nfft / 2, K = h + 1, r_count = nfft / hop;
+// Stages 1-3 for the NF frames fbase .. fbase+NF-1 of one channel `x`:
+// on return plane0 holds A and plane2 holds B, both frame-major (row =
+// local frame, kp columns). Frames outside [0, n_frames) are zero before
+// the products. With kBounded, samples at or past `lp` read as 0.0 (the
+// zero padding of a signal shorter than its frames' span).
+template <bool kBounded>
+__device__ __forceinline__ void rt_frames_to_planes(
+    const float* __restrict__ x, long long lp,
+    const float* __restrict__ window,
+    const float* __restrict__ cb, const float* __restrict__ sb,
+    const float* __restrict__ cinv, const float* __restrict__ sinv,
+    const int* __restrict__ desc, int n_ops,
+    const float* __restrict__ params,
+    float* plane0, float* plane1, float* plane2,
+    int fbase, int nfft, int hop, int n_frames) {
+  const int h = nfft / 2, K = h + 1;
   const int kp = (K + TBIN - 1) / TBIN * TBIN;
-  const int tb = NF - (r_count - 1);
-  float* plane0 = reinterpret_cast<float*>(smem4);
-  float* plane1 = plane0 + kp * NF;
-  float* plane2 = plane1 + kp * NF;
   const int tid = threadIdx.x;
-  const float* x = padded + (long long)blockIdx.y * lp;
-  const int fbase = blockIdx.x * tb - (r_count - 1);  // frame of local 0
 
   // 1. Fold, k-major (lane = local frame); rows 0 and h of o are zero.
   {
     const int lane = tid & 31, n_warps = blockDim.x >> 5;
     const int fa = fbase + lane;
     const bool valid = fa >= 0 && fa < n_frames;
-    const float* xf = x + (long long)(valid ? fa : 0) * hop;
+    const long long start = (long long)(valid ? fa : 0) * hop;
+    const float* xf = x + start;
+    auto sample = [&](int n) -> float {
+      return !kBounded || start + n < lp ? xf[n] : 0.0f;
+    };
     for (int n = tid >> 5; n <= h; n += n_warps) {
       float e = 0.0f, o = 0.0f;
       if (valid) {
         if (n == 0 || n == h) {
-          e = __fmul_rn(xf[n], window[n]);
+          e = __fmul_rn(sample(n), window[n]);
         } else {
-          const float a = __fmul_rn(xf[n], window[n]);
-          const float b = __fmul_rn(xf[nfft - n], window[nfft - n]);
+          const float a = __fmul_rn(sample(n), window[n]);
+          const float b = __fmul_rn(sample(nfft - n), window[nfft - n]);
           e = __fadd_rn(a, b);
           o = __fsub_rn(a, b);
         }
@@ -244,10 +258,46 @@ rt_ola_kernel(const float* __restrict__ padded, long long lp,
   __syncthreads();
   if (active) store_frame_major(plane2, t1, kp, j0, f0);
   __syncthreads();
+}
+
+// Sample n of local frame lf: A[n] + B[n] (n <= N/2) or A[N-n] - B[N-n].
+__device__ __forceinline__ float unfold(const float* plane0,
+                                        const float* plane2, int lf, int kp,
+                                        int n, int nfft) {
+  const int h = nfft / 2;
+  return n <= h
+      ? __fadd_rn(plane0[lf * kp + n], plane2[lf * kp + n])
+      : __fsub_rn(plane0[lf * kp + nfft - n], plane2[lf * kp + nfft - n]);
+}
+
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+rt_ola_kernel(const float* __restrict__ padded, long long lp,
+              const float* __restrict__ window,
+              const float* __restrict__ cb,    // C    [h+1, Kp]
+              const float* __restrict__ sb,    // S    [h-1, Kp]
+              const float* __restrict__ cinv,  // Cinv [K, Kp]
+              const float* __restrict__ sinv,  // Sinv [K, Kp], column j = sample j
+              const float* __restrict__ norm,
+              const int* __restrict__ desc, int n_ops,
+              const float* __restrict__ params,
+              float* __restrict__ out,
+              int nfft, int hop, int n_frames, int out_len, float eps) {
+  extern __shared__ float4 smem4[];
+  const int K = nfft / 2 + 1, r_count = nfft / hop;
+  const int kp = (K + TBIN - 1) / TBIN * TBIN;
+  const int tb = NF - (r_count - 1);
+  float* plane0 = reinterpret_cast<float*>(smem4);
+  float* plane1 = plane0 + kp * NF;
+  float* plane2 = plane1 + kp * NF;
+  const int fbase = blockIdx.x * tb - (r_count - 1);  // frame of local 0
+  rt_frames_to_planes<false>(
+      padded + (long long)blockIdx.y * lp, lp, window, cb, sb, cinv, sinv,
+      desc, n_ops, params, plane0, plane1, plane2, fbase, nfft, hop,
+      n_frames);
 
   // 4. Unfold + OLA (ascending frame order) + normalize.
   float* o_ch = out + (long long)blockIdx.y * out_len;
-  for (int idx = tid; idx < tb * hop; idx += blockDim.x) {
+  for (int idx = threadIdx.x; idx < tb * hop; idx += blockDim.x) {
     const int jb = idx / hop, s = idx - jb * hop;
     const long long t = (long long)(blockIdx.x * tb + jb) * hop + s;
     if (t >= out_len) continue;
@@ -256,13 +306,44 @@ rt_ola_kernel(const float* __restrict__ padded, long long lp,
       const int lf = jb + r_count - 1 - r;
       const int fa = fbase + lf;
       if (fa < 0 || fa >= n_frames) continue;
-      const int n = r * hop + s;
-      const float v = n <= h
-          ? __fadd_rn(plane0[lf * kp + n], plane2[lf * kp + n])
-          : __fsub_rn(plane0[lf * kp + nfft - n], plane2[lf * kp + nfft - n]);
-      acc = __fadd_rn(acc, v);
+      acc = __fadd_rn(acc, unfold(plane0, plane2, lf, kp, r * hop + s, nfft));
     }
     o_ch[t] = __fdiv_rn(acc, fmaxf(__ldg(norm + t), eps));
+  }
+}
+
+// B3: the frames-level round-trip (replaces pallas_rt.py::_rt_kernel).
+// Each CTA owns NF consecutive frames of one channel; no neighbour is
+// needed, so nothing is recomputed. Stage 4 unfolds and stores each frame
+// as one coalesced row of N floats; frames >= n_frames are not stored.
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+rt_frames_kernel(const float* __restrict__ padded, long long lp,
+                 const float* __restrict__ window,
+                 const float* __restrict__ cb, const float* __restrict__ sb,
+                 const float* __restrict__ cinv,
+                 const float* __restrict__ sinv,
+                 const int* __restrict__ desc, int n_ops,
+                 const float* __restrict__ params,
+                 float* __restrict__ out,  // [channels, n_frames, nfft]
+                 int nfft, int hop, int n_frames) {
+  extern __shared__ float4 smem4[];
+  const int K = nfft / 2 + 1;
+  const int kp = (K + TBIN - 1) / TBIN * TBIN;
+  float* plane0 = reinterpret_cast<float*>(smem4);
+  float* plane1 = plane0 + kp * NF;
+  float* plane2 = plane1 + kp * NF;
+  const int fbase = blockIdx.x * NF;
+  rt_frames_to_planes<true>(
+      padded + (long long)blockIdx.y * lp, lp, window, cb, sb, cinv, sinv,
+      desc, n_ops, params, plane0, plane1, plane2, fbase, nfft, hop,
+      n_frames);
+
+  // 4. Unfold and store.
+  const int n_local = min(NF, n_frames - fbase);
+  float* o = out + ((long long)blockIdx.y * n_frames + fbase) * nfft;
+  for (int idx = threadIdx.x; idx < n_local * nfft; idx += blockDim.x) {
+    const int lf = idx / nfft, n = idx - lf * nfft;
+    o[idx] = unfold(plane0, plane2, lf, kp, n, nfft);
   }
 }
 
@@ -291,5 +372,28 @@ extern "C" int crlot_rt_ola(const float* padded, long long lp,
   rt_ola_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
       padded, lp, window, c, s, cinv, sinv, norm, desc, n_ops, params, out,
       nfft, hop, n_frames, out_len, eps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int crlot_rt_frames(const float* padded, long long lp,
+                               const float* window, const float* c,
+                               const float* s, const float* cinv,
+                               const float* sinv, const int* desc, int n_ops,
+                               const float* params, float* out, int channels,
+                               int nfft, int hop, int n_frames,
+                               void* stream) {
+  const int k = nfft / 2 + 1;
+  const int kp = (k + TBIN - 1) / TBIN * TBIN;
+  const int threads = ((kp / TBIN) * (NF / TF) + 31) / 32 * 32;
+  if (threads > MAX_THREADS || n_frames < 1 || lp < 1)
+    return (int)cudaErrorInvalidValue;
+  const int smem = 3 * kp * NF * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      rt_frames_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((n_frames + NF - 1) / NF, channels);
+  rt_frames_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      padded, lp, window, c, s, cinv, sinv, desc, n_ops, params, out, nfft,
+      hop, n_frames);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into one
-shared library with a plain C interface, loaded with `ctypes`. The build
+Every `csrc/*.cu` file is compiled by its own `nvcc` for Hopper (`sm_90a`),
+all started together, and the objects are linked into one shared library
+with a plain C interface, loaded with `ctypes`. The build
 happens at first use, never at import, into `build/crlot_tpu_torch/<digest>/`
 beside the package (listed in `.gitignore`); the digest covers the sources
 and the flags, so an edited kernel is rebuilt and an unchanged one is
@@ -21,15 +22,17 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "crlot_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 _LIB = None
 build_log = ""  # nvcc's output (ptxas register / shared-memory report)
@@ -46,6 +49,12 @@ _SIGNATURES = {
     "crlot_rt_ola": [
         _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
         _VP, _I, _I, _I, _I, _I, _F, _VP,
+    ],
+    # (padded, lp, window, c, s, cinv, sinv, desc, n_ops, params, out,
+    #  channels, nfft, hop, n_frames, stream)
+    "crlot_rt_frames": [
+        _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP,
+        _I, _I, _I, _I, _VP,
     ],
 }
 
@@ -69,31 +78,41 @@ def sources() -> list[Path]:
 
 
 def _digest(srcs: list[Path]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for p in srcs:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def compile_library(out_path: Path) -> str:
-    """Run nvcc over every source into `out_path`; returns its output."""
-    srcs = sources()
-    if not srcs:
-        raise RuntimeError(f"no CUDA sources under {CSRC}")
-    out_path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_path.parent)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+def _run(cmd: list[str]) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        os.unlink(tmp)
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
             f"{proc.stdout}{proc.stderr}"
         )
-    os.replace(tmp, out_path)
     return proc.stdout + proc.stderr
+
+
+def compile_library(out_path: Path) -> str:
+    """Compile every source with its own nvcc, all at once, and link the
+    objects into `out_path`; returns nvcc's output."""
+    srcs = sources()
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=out_path.parent) as tmp:
+        objs = [str(Path(tmp) / f"{p.stem}.o") for p in srcs]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                for p, o in zip(srcs, objs)]
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            logs = list(pool.map(_run, cmds))
+        so_tmp = str(Path(tmp) / out_path.name)
+        logs.append(_run([nvcc, *LINK_FLAGS, "-o", so_tmp, *objs]))
+        os.replace(so_tmp, out_path)
+    return "".join(logs)
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,18 +1,23 @@
-"""Fused nonlinear round-trip + OLA: the B2 kernel's wrapper and its plain
-version.
+"""Fused nonlinear round-trip: the B2 and B3 kernels' wrappers and their
+plain versions.
 
-Counterpart of `crlot_tpu/fft/pallas_rt.py`'s signal-level route
-(`roundtrip_signal_fused` -> `_rt_ola_call` -> `_rt_ola_kernel`). From the
-padded signal to the normalized output in one kernel (`csrc/fused_rt.cu`):
-frame, window, fold, forward half-size DFT, a per-bin epilogue from the
-spectral fn's menu (`spectral.EpilogueOp`), inverse, unfold, overlap-add in
-ascending frame order, divide by the COLA norm. The spectrum never reaches
+Counterpart of `crlot_tpu/fft/pallas_rt.py`. Both kernels live in
+`csrc/fused_rt.cu` and share its frame -> window -> fold -> forward
+half-size DFT -> per-bin epilogue from the spectral fn's menu
+(`spectral.EpilogueOp`) -> inverse stages; the spectrum never reaches
 device memory.
 
-A CPU tensor takes `roundtrip_signal_plain`; a CUDA tensor launches the
-kernel or raises. Which spectral fns take this route is decided up front
-(`pipeline.formulation_for`): a fn whose packed chain has a full epilogue
-menu. A failure inside the kernel raises; nothing falls back.
+* B2, the signal-level route (`roundtrip_signal_fused`, the reference's
+  `_rt_ola_call` -> `_rt_ola_kernel`), goes on to unfold, overlap-add in
+  ascending frame order and divide by the COLA norm.
+* B3, the frames-level route (`roundtrip_frames_fused`, the reference's
+  `_rt_call` -> `_rt_kernel`), stores the [F, N] round-trip frames; the
+  `cfg.fused_roundtrip` branch and the sharded round-trip overlap-add them.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. Which spectral fns take these routes is decided up front (a fn
+whose packed chain has a full epilogue menu). A failure inside a kernel
+raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import numpy as np
 import torch
 
 from .. import cuda_build
-from ..frame.framing import frame_padded
+from ..frame.framing import hop_block_frames
 from ..ola.reference import normalize, overlap_add
 from ..spectral import (
     OP_COMPLEX,
@@ -43,6 +48,7 @@ from .matmul_backend import (
 MAX_FUSED_NFFT = 1024
 
 launches = 0  # B2 kernel launches since import (or the caller's reset)
+frames_launches = 0  # B3 kernel launches, likewise
 
 # (opcode -> number of scalars, number of per-bin arrays)
 _MENU = {
@@ -118,21 +124,73 @@ def pack_epilogue(ops, k: int):
     return desc_a, params_a.astype(np.float32)
 
 
+def roundtrip_frames_plain(
+    padded: torch.Tensor, nfft: int, hop: int, n_frames: int,
+    window_f32: torch.Tensor, spectral_packed=None,
+) -> torch.Tensor:
+    """B3's function in torch ops: `[..., Lp]` -> `[..., n_frames, nfft]`
+    round-trip frames (frame -> window -> folded forward ->
+    `spectral_packed` -> folded inverse). A signal shorter than the frames'
+    span is zero-padded, as the reference's `_rt_call` does."""
+    frames = hop_block_frames(padded, nfft, hop, n_frames)
+    re, im = rfft_folded_packed(frames, nfft, window_f32)
+    if spectral_packed is not None:
+        re, im = spectral_packed(re, im)
+    return irfft_folded_parts(re, im, nfft)
+
+
 def roundtrip_signal_plain(
     padded: torch.Tensor, nfft: int, hop: int, n_frames: int,
     window_f32: torch.Tensor, norm: torch.Tensor, eps: float, out_len: int,
     spectral_packed=None,
 ) -> torch.Tensor:
-    """The same function in torch ops: frame -> window -> folded forward ->
-    `spectral_packed` -> folded inverse -> plain OLA -> divide."""
-    frames = frame_padded(padded, nfft, hop, n_frames)
-    re, im = rfft_folded_packed(frames, nfft, window_f32)
-    if spectral_packed is not None:
-        re, im = spectral_packed(re, im)
-    out_frames = irfft_folded_parts(re, im, nfft)
+    """B2's function in torch ops: the plain round-trip frames -> plain OLA
+    -> divide."""
+    out_frames = roundtrip_frames_plain(
+        padded, nfft, hop, n_frames, window_f32, spectral_packed
+    )
     full = (n_frames - 1) * hop + nfft
     acc = overlap_add(out_frames, hop, full)
     return normalize(acc, norm[:full], eps)[..., :out_len]
+
+
+def _launch_args(what: str, padded: torch.Tensor, nfft: int, hop: int,
+                 n_frames: int, window_f32: torch.Tensor, spectral_packed,
+                 *more: torch.Tensor):
+    """Check what B2 and B3 both take, and pack the spectral fn's menu:
+    returns (desc, n_ops, params, bases) on the signal's card. The menu is
+    checked first, so a fn outside it is refused on any device."""
+    ops = ()
+    if spectral_packed is not None:
+        ops = getattr(spectral_packed, "epilogue", None)
+        if ops is None:
+            raise ValueError(
+                f"spectral fn has no {what} epilogue menu; route it through "
+                "'packed_parts'"
+            )
+    dev = padded.device
+    tensors = (padded, window_f32) + more
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(
+            f"{what} needs its tensors on one CUDA device, got "
+            f"{[str(t.device) for t in tensors]}"
+        )
+    for t in tensors:
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{what} takes contiguous float32 tensors")
+    if padded.ndim != 2:
+        raise ValueError(
+            f"{what} takes padded [C, Lp], got {tuple(padded.shape)}"
+        )
+    if not fused_rt_supported(nfft, hop):
+        raise ValueError(f"{what} unsupported for N={nfft} H={hop}")
+    if n_frames <= 0 or window_f32.shape != (nfft,):
+        raise ValueError(f"{what}: bad n_frames {n_frames} or window")
+    desc_np, params_np = pack_epilogue(ops, nfft // 2 + 1)
+    return (
+        const_on(desc_np, dev, np.int32), desc_np.shape[0],
+        const_on(params_np, dev), _kernel_bases_on(nfft, dev),
+    )
 
 
 def roundtrip_signal_cuda(
@@ -143,52 +201,56 @@ def roundtrip_signal_cuda(
     """Launch B2 over `padded[C, Lp]` (f32, contiguous, CUDA): one grid row
     per channel. The spectral fn must carry an epilogue menu."""
     global launches
-    dev = padded.device
-    if dev.type != "cuda" or norm.device != dev or window_f32.device != dev:
-        raise ValueError(
-            f"B2 needs padded, window and norm on one CUDA device, got "
-            f"{padded.device}, {window_f32.device}, {norm.device}"
-        )
-    for name, t in (("padded", padded), ("window", window_f32), ("norm", norm)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"B2 takes contiguous float32 {name}")
-    if padded.ndim != 2:
-        raise ValueError(f"B2 takes padded [C, Lp], got {tuple(padded.shape)}")
-    if not fused_rt_supported(nfft, hop):
-        raise ValueError(f"B2 unsupported for N={nfft} H={hop}")
+    desc, n_ops, params, (c, s, cinv, sinv) = _launch_args(
+        "B2", padded, nfft, hop, n_frames, window_f32, spectral_packed, norm
+    )
     full = (n_frames - 1) * hop + nfft
-    if n_frames <= 0 or padded.shape[-1] < full:
+    if padded.shape[-1] < full:
         raise ValueError(
             f"padded length {padded.shape[-1]} < span {full} of "
             f"{n_frames} frames"
         )
-    if window_f32.shape != (nfft,) or norm.numel() < out_len or out_len > full:
-        raise ValueError("B2: bad window, norm or out_len")
-    k = nfft // 2 + 1
-    ops = ()
-    if spectral_packed is not None:
-        ops = getattr(spectral_packed, "epilogue", None)
-        if ops is None:
-            raise ValueError(
-                "spectral fn has no B2 epilogue menu; route it through "
-                "'packed_parts'"
-            )
-    desc_np, params_np = pack_epilogue(ops, k)
-    desc = const_on(desc_np, dev, np.int32)
-    params = const_on(params_np, dev)
-    c, s, cinv, sinv = _kernel_bases_on(nfft, dev)
+    if norm.numel() < out_len or out_len > full:
+        raise ValueError("B2: bad norm or out_len")
     channels = padded.shape[0]
-    out = torch.empty((channels, out_len), dtype=torch.float32, device=dev)
+    out = torch.empty((channels, out_len), dtype=torch.float32,
+                      device=padded.device)
     lib = cuda_build.load_library()
     status = lib.crlot_rt_ola(
         padded.data_ptr(), padded.shape[-1], window_f32.data_ptr(),
         c.data_ptr(), s.data_ptr(), cinv.data_ptr(), sinv.data_ptr(),
-        norm.data_ptr(), desc.data_ptr(), desc_np.shape[0], params.data_ptr(),
+        norm.data_ptr(), desc.data_ptr(), n_ops, params.data_ptr(),
         out.data_ptr(), channels, nfft, hop, n_frames, out_len, float(eps),
-        cuda_build.stream_handle(dev),
+        cuda_build.stream_handle(padded.device),
     )
     cuda_build.check(status, "crlot_rt_ola")
     launches += 1
+    return out
+
+
+def roundtrip_frames_cuda(
+    padded: torch.Tensor, nfft: int, hop: int, n_frames: int,
+    window_f32: torch.Tensor, spectral_packed=None,
+) -> torch.Tensor:
+    """Launch B3 over `padded[C, Lp]` (f32, contiguous, CUDA) ->
+    `[C, n_frames, nfft]`; samples past Lp read as zero. The spectral fn
+    must carry an epilogue menu."""
+    global frames_launches
+    desc, n_ops, params, (c, s, cinv, sinv) = _launch_args(
+        "B3", padded, nfft, hop, n_frames, window_f32, spectral_packed
+    )
+    channels = padded.shape[0]
+    out = torch.empty((channels, n_frames, nfft), dtype=torch.float32,
+                      device=padded.device)
+    lib = cuda_build.load_library()
+    status = lib.crlot_rt_frames(
+        padded.data_ptr(), padded.shape[-1], window_f32.data_ptr(),
+        c.data_ptr(), s.data_ptr(), cinv.data_ptr(), sinv.data_ptr(),
+        desc.data_ptr(), n_ops, params.data_ptr(), out.data_ptr(), channels,
+        nfft, hop, n_frames, cuda_build.stream_handle(padded.device),
+    )
+    cuda_build.check(status, "crlot_rt_frames")
+    frames_launches += 1
     return out
 
 
@@ -226,3 +288,29 @@ def roundtrip_signal_fused(
         spectral_packed,
     )
     return out.reshape(tuple(lead) + (out_len,))
+
+
+def roundtrip_frames_fused(
+    padded: torch.Tensor,
+    nfft: int,
+    hop: int,
+    n_frames: int,
+    analysis_window_f64: np.ndarray,
+    spectral_packed=None,
+) -> torch.Tensor:
+    """`[..., Lp]` padded signal -> `[..., n_frames, nfft]` round-trip
+    frames; frame f covers padded[f*hop : f*hop + nfft], zero past Lp. The
+    reference's `interpret` and `flip_mm` are TPU-only and not taken."""
+    if not fused_rt_supported(nfft, hop):
+        raise ValueError(f"fused round-trip unsupported for N={nfft} H={hop}")
+    w32 = const_on(analysis_window_f64, padded.device)
+    if padded.device.type == "cpu":
+        return roundtrip_frames_plain(
+            padded.float(), nfft, hop, n_frames, w32, spectral_packed
+        )
+    lead = padded.shape[:-1]
+    flat = padded.reshape(-1, padded.shape[-1]).float().contiguous()
+    out = roundtrip_frames_cuda(
+        flat, nfft, hop, n_frames, w32, spectral_packed
+    )
+    return out.reshape(tuple(lead) + (n_frames, nfft))

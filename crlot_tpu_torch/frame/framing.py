@@ -27,6 +27,16 @@ def frame_padded(padded: torch.Tensor, frame_size: int, hop: int,
     return padded.unfold(-1, frame_size, hop)[..., :n_frames, :]
 
 
+def hop_block_frames(x: torch.Tensor, frame_size: int, hop: int,
+                     n_frames: int) -> torch.Tensor:
+    """`[..., L] -> [..., n_frames, frame_size]` with frame f =
+    x[f*hop : f*hop + frame_size], zero past the end of a short signal."""
+    span = (n_frames - 1) * hop + frame_size
+    if x.shape[-1] < span:
+        x = torch.nn.functional.pad(x, (0, span - x.shape[-1]))
+    return frame_padded(x, frame_size, hop, n_frames)
+
+
 def frame_signal(signal: torch.Tensor, spec: FrameSpec) -> torch.Tensor:
     """Slice `signal[..., L]` into `[..., num_frames, frame_size]`, padding
     frame_size//2 on both sides first when `spec.center`. Raises if the

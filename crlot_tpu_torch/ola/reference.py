@@ -20,10 +20,19 @@ def overlap_count(frame_size: int, hop: int) -> int:
 
 
 def overlap_add(
-    frames: torch.Tensor, hop: int, out_len: Optional[int] = None
+    frames: torch.Tensor,
+    hop: int,
+    out_len: Optional[int] = None,
+    init_head: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Overlap-add `frames[..., F, N]` at spacing `hop` -> `[..., out_len]`
-    (default: the full span (F-1)*hop + N; longer is zero-padded)."""
+    (default: the full span (F-1)*hop + N; longer is zero-padded).
+
+    `init_head[..., h]` is added into the zeroed accumulator's first h
+    samples BEFORE any frame, so each of those positions sums "seed, then
+    the frames in ascending order": the sharded round-trip seeds the left
+    neighbour's OLA tail this way, which keeps N shards bit-identical to
+    one."""
     if frames.ndim < 2:
         raise ValueError("frames must be at least 2-D [F, N]")
     if hop <= 0:
@@ -41,6 +50,9 @@ def overlap_add(
     hops = frames.reshape(*frames.shape[:-1], r_count, hop)
     blocks = f + r_count - 1
     out = frames.new_zeros((*frames.shape[:-2], blocks, hop))
+    if init_head is not None:
+        flat = out.view(*out.shape[:-2], blocks * hop)
+        flat[..., : init_head.shape[-1]] += init_head
     for r in range(r_count - 1, -1, -1):
         out[..., r : r + f, :] += hops[..., :, r, :]
     flat = out.reshape(*out.shape[:-2], blocks * hop)

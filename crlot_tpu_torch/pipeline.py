@@ -8,6 +8,8 @@ device: a kernel on CUDA, its plain version on the CPU.
 
 Branches of `round_trip` (names returned by `formulation_for`):
 
+* "fused_rt_frames": the opt-in `cfg.fused_roundtrip` identity, through the
+  B3 kernel's round-trip frames (`fft/fused_rt.py`) and the B1 OLA kernel;
 * "blocked": identity and fixed per-bin responses (EQ, FIR, gain) as one
   hop-block Toeplitz product with the OLA and 1/COLA folded in
   (`fft/matmul_backend.roundtrip_composed_blocked`);
@@ -30,7 +32,11 @@ from .core.consts import as_f32, const_on
 from .core.padding import pad_signal
 from .core.types import FftBackend, FftPrecision, StftConfig
 from .fft import dispatch as _fft
-from .fft.fused_rt import fused_rt_supported, roundtrip_signal_fused
+from .fft.fused_rt import (
+    fused_rt_supported,
+    roundtrip_frames_fused,
+    roundtrip_signal_fused,
+)
 from .fft.matmul_backend import (
     MAX_MATMUL_NFFT,
     blocked_group_for,
@@ -172,15 +178,23 @@ def formulation_for(
     cfg: StftConfig, spectral_fn: Optional[Callable], n_samples: int
 ) -> str:
     """The branch `round_trip(signal[..., n_samples], cfg, spectral_fn)`
-    takes: "blocked", "fused_rt_ola", "packed_parts" or "stft_istft". For
-    the configurations the reference's accelerator runs through its blocked
-    and fused kernels, this is the reference accelerator's choice; where the
-    reference would take one of its other frames-level matmul routes, the
-    port takes "stft_istft"."""
+    takes: "fused_rt_frames", "blocked", "fused_rt_ola", "packed_parts" or
+    "stft_istft". For the configurations the reference's accelerator runs
+    through its blocked and fused kernels, this is the reference
+    accelerator's choice; where the reference would take one of its other
+    frames-level matmul routes, the port takes "stft_istft"."""
     matmul_ok = cfg.fft_backend in (FftBackend.AUTO, FftBackend.MATMUL)
     nfft, hop = cfg.frame_size, cfg.hop_size
     if not matmul_ok:
         return "stft_istft"
+    if (
+        spectral_fn is None
+        and cfg.fused_roundtrip
+        and cfg.fft_precision == FftPrecision.HIGH
+        and fused_rt_supported(nfft, hop)
+        and cfg.frame_spec.num_frames(n_samples) > 0
+    ):
+        return "fused_rt_frames"
     per_bin = (
         resolve_per_bin_response(spectral_fn, nfft)
         if nfft <= MAX_MATMUL_NFFT else None
@@ -209,16 +223,31 @@ def round_trip(
 ) -> torch.Tensor:
     """stft -> (spectral processing) -> istft, output the length of the
     input. The identity round-trip must reconstruct at > 60 dB SNR."""
-    if cfg.fused_roundtrip:
-        raise NotImplementedError(
-            "cfg.fused_roundtrip needs the frames-level fused kernel, not "
-            "ported yet (ROADMAP kernel K3)"
-        )
     signal = torch.as_tensor(signal)
     n = signal.shape[-1]
     route = formulation_for(cfg, spectral_fn, n)
     spec_ = cfg.frame_spec
     pad = spec_.pad_amount
+
+    def ola_crop(out_frames):
+        """OLA + COLA normalize (B1 on CUDA) + center crop."""
+        num_frames = out_frames.shape[-2]
+        full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
+        out = ola_normalized_auto(
+            _synthesis(out_frames, cfg),
+            _norm_on(cfg, num_frames, full, signal.device),
+            cfg.hop_size, full, cfg.eps,
+        )
+        return out[..., pad : pad + n]
+
+    if route == "fused_rt_frames":
+        padded = pad_signal(
+            signal, pad, pad, spec_.pad_mode, spec_.pad_value
+        )
+        return ola_crop(roundtrip_frames_fused(
+            padded, cfg.frame_size, cfg.hop_size, spec_.num_frames(n),
+            _window_f64(cfg),
+        ))
     if route == "blocked":
         per_bin = resolve_per_bin_response(spectral_fn, cfg.frame_size)
         if per_bin is None:
@@ -240,16 +269,7 @@ def round_trip(
         frames = frame_signal(signal, spec_)
         re, im = rfft_folded_packed(frames, cfg.frame_size, _window_np(cfg))
         re, im = spectral_fn.packed(re, im)
-        out_frames = _synthesis(
-            irfft_folded_parts(re, im, cfg.frame_size), cfg
-        )
-        num_frames = frames.shape[-2]
-        full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
-        out = ola_normalized_auto(
-            out_frames, _norm_on(cfg, num_frames, full, signal.device),
-            cfg.hop_size, full, cfg.eps,
-        )
-        return out[..., pad : pad + n]
+        return ola_crop(irfft_folded_parts(re, im, cfg.frame_size))
     spec = stft(signal, cfg)
     if spectral_fn is not None:
         spec = spectral_fn(spec)

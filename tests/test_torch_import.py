@@ -22,7 +22,8 @@ def test_import_pulls_in_no_jax_crlot_tpu_or_triton(tmp_path):
     code = (
         "import sys, crlot_tpu_torch, crlot_tpu_torch.pipeline, "
         "crlot_tpu_torch.fft.fused_rt, crlot_tpu_torch.ola.fused, "
-        "crlot_tpu_torch.convert, crlot_tpu_torch.cuda_build as b\n"
+        "crlot_tpu_torch.convert, crlot_tpu_torch.distributed, "
+        "crlot_tpu_torch.cuda_build as b\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'crlot_tpu', 'triton'))\n"
         "print('BAD', bad)\n"
@@ -62,27 +63,35 @@ def test_build_error_propagates_and_is_not_cached(monkeypatch, tmp_path):
 
 
 def test_nvcc_command_targets_sm90a_without_fast_math(monkeypatch, tmp_path):
-    seen = {}
+    """One nvcc per source, all started together, then one link, whose
+    failure here is simulated."""
+    seen = []
 
     class Proc:
-        returncode = 1
         stdout = ""
         stderr = "error: simulated"
 
+        def __init__(self, cmd):
+            self.returncode = 0 if "-c" in cmd else 1
+
     def fake_run(cmd, **kw):
-        seen["cmd"] = cmd
-        return Proc()
+        seen.append(cmd)
+        return Proc(cmd)
 
     monkeypatch.setattr(cuda_build, "find_nvcc", lambda: "nvcc")
     monkeypatch.setattr(cuda_build.subprocess, "run", fake_run)
     with pytest.raises(RuntimeError, match="simulated"):
         cuda_build.compile_library(tmp_path / "lib.so")
-    cmd = seen["cmd"]
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert not any("fast_math" in c for c in cmd)
-    assert {Path(c).name for c in cmd if c.endswith(".cu")} == {
+    compiles, link = seen[:-1], seen[-1]
+    assert "-shared" in link
+    for cmd in seen:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert not any("fast_math" in c for c in cmd)
+    for cmd in compiles:
+        assert sum(c.endswith(".cu") for c in cmd) == 1
+    assert {Path(c).name for cmd in seen for c in cmd if c.endswith(".cu")} == {
         "fused_rt.cu", "ola_fused.cu"}
-    assert not list(tmp_path.glob("*.so"))  # no half-written library left
+    assert not list(tmp_path.rglob("*.so"))  # no half-written library left
 
 
 def test_sources_export_the_bound_symbols():

@@ -111,3 +111,36 @@ def test_frame_signal_matches_reference(n, hop, center):
     want = np.asarray(j_frame_signal(jnp.asarray(x),
                                      JFrameSpec(n, hop, center, JPadMode.REFLECT)))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n,hop,seed_len", [(128, 32, 96), (256, 128, 128),
+                                            (1024, 256, 768)])
+def test_overlap_add_init_head_matches_reference(n, hop, seed_len):
+    """The seed is added before any frame, bit for bit as the reference."""
+    from crlot_tpu.ola.reference import overlap_add as j_overlap_add
+
+    rng = np.random.default_rng(n + seed_len)
+    frames = rng.standard_normal((2, 9, n)).astype(np.float32)
+    seed = rng.standard_normal((2, seed_len)).astype(np.float32)
+    out_len = 8 * hop
+    got = t_overlap_add(torch.from_numpy(frames), hop, out_len,
+                        init_head=torch.from_numpy(seed)).numpy()
+    want = np.asarray(j_overlap_add(jnp.asarray(frames), hop, out_len,
+                                    init_head=jnp.asarray(seed)))
+    np.testing.assert_array_equal(got, want)
+    plain = t_overlap_add(torch.from_numpy(frames), hop, out_len).numpy()
+    np.testing.assert_array_equal(got[:, seed_len:], plain[:, seed_len:])
+
+
+@pytest.mark.parametrize("length", [4096, 1000])
+def test_hop_block_frames_matches_reference(length):
+    """Frame f = x[f*hop : f*hop + N], zero past the end of a short signal."""
+    from crlot_tpu.frame.framing import hop_block_frames as j_hbf
+    from crlot_tpu_torch.frame.framing import hop_block_frames as t_hbf
+
+    x = np.random.default_rng(length).uniform(-1, 1, (2, length)).astype(
+        np.float32)
+    got = t_hbf(torch.from_numpy(x), 256, 64, 40).numpy()
+    want = np.asarray(j_hbf(jnp.asarray(x), 256, 64, 40))
+    assert got.shape == want.shape == (2, 40, 256)
+    np.testing.assert_array_equal(got, want)

@@ -212,9 +212,16 @@ def test_formulation_matches_reference_accelerator(cfg_kw,
 
 
 def test_fused_roundtrip_flag_refused():
-    cfg = pt.StftConfig(frame_size=1024, hop_size=256, fused_roundtrip=True)
-    with pytest.raises(NotImplementedError, match="K3"):
-        pt.round_trip(torch.zeros(4096), cfg)
+    """The flag is no longer refused: the identity takes the frames-level
+    fused route (B3 + B1); a spectral fn ignores the flag, as in the
+    reference."""
+    cfg = pt.StftConfig(frame_size=1024, hop_size=256, center=True,
+                        fused_roundtrip=True)
+    assert pt.formulation_for(cfg, None, 4096) == "fused_rt_frames"
+    assert pt.formulation_for(cfg, tsp.noise_gate(-30.0), 4096) == "fused_rt_ola"
+    x = _x(5, channels=1, n=4096)[0]
+    y = pt.round_trip(torch.from_numpy(x), cfg)
+    assert y.shape == x.shape and pt.snr_db(x, y) >= 60.0
 
 
 def test_wav_round_trip_matches_reference(tmp_path):
