@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's STFT round-trip path once on one CUDA card.
+"""Drive the PyTorch port's main paths once on one CUDA card.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `crlot_tpu_torch/csrc/` (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version on the card, then runs
-two paths through the public entry points on 2 channels x 60 s at 48 kHz,
-N=1024 / H=256, Hann, seed 0, each with the kernels' launch counters reset
-just before and read just after: the round-trip path (`round_trip`, `stft`,
-`istft`; centered) and the fused-frames and sharded path
-(`round_trip` with `fused_roundtrip`, `sharded_round_trip`).
+three paths through the public entry points, each with the kernels' launch
+counters reset just before and read just after: on 2 channels x 60 s at
+48 kHz, N=1024 / H=256, Hann, seed 0, the round-trip path (`round_trip`,
+`stft`, `istft`; centered) and the fused-frames and sharded path
+(`round_trip` with `fused_roundtrip`, `sharded_round_trip`); and the
+resample and demo path (`resample`, `resample_chunked`, `resampled_stft`,
+`convolve`, the demo).
 
 Phases (each prints one line; the script exits 1 if any fails):
   1. B1 (fused OLA + normalize) vs plain on [2, 11251, 1024] frames:
@@ -42,10 +44,42 @@ Phases (each prints one line; the script exits 1 if any fails):
      engaged, interior SNR vs input >= 60 dB, within rtol 3e-6 of the
      (1, 1) mesh with the first and last N-H samples exact, and the in-mesh
      metrics' SNR within 0.01 dB of the host's SNR of the gathered output.
-Then CUDA-event timings (warm-up, median of 10): each kernel vs its plain
-version, and end-to-end samples/s of phases 3, 6, 8 and 9 (phase 9 on both
-meshes; the (2, 2) mesh runs its four shards one after another on one
-card, so it is no scaling figure).
+The resample and demo path runs on 2 channels x 60 s at 44.1 kHz (uniform
+noise from seed 0 for the kernel checks, a 997 Hz / 1 kHz sine pair for
+fidelity), BASELINE config 3's long streams, fp32 with TF32 off:
+ 11. B4 (polyphase resampler) vs plain at 44.1 -> 48 kHz and 48 -> 16 kHz:
+     max-abs <= 1e-5 against `resample_bank_plain` on the card and on the
+     host CPU, and SNR >= 120 dB against a float64 scipy resample_poly
+     oracle over the first 1 s (computed on the first 1 s plus W input
+     samples, which gives the full-signal values there); prints whether
+     the card's result is bit-identical.
+ 12. B5 (axpy, axpy_windowed, normalize_and_clear) vs plain over the
+     reference's SIZES and n = 2 x 2 880 000, aligned and misaligned:
+     torch.equal (NaN positions equal), `cleared` all zero, norm rows with
+     a NaN and a zero.
+Then, with the B4 and B5 counters reset just before:
+ 13. resample(resample(x, 44100, 48000), 48000, 16000): one B4 launch per
+     stage, lengths equal output_length, sine fidelity away from the edges
+     (chain >= 90 dB, 44.1 -> 48 kHz >= 100 dB).
+ 14. resample_chunked(x, 44100, 48000, chunk=65536) on the card, tensor and
+     numpy input: torch.equal to one-shot resample, one B4 launch a chunk.
+ 15. resampled_stft(x, 44100, 48000, N=1024/H=256, center=False) vs
+     stft(resample(x)): max-abs <= 1e-5 * scale, B4 launched.
+ 16. convolve(x48, hamming(255)/127, "same") vs float64 numpy.convolve on
+     the first 1 s: rel RMSE < 1e-5 (no kernel of ours: torch.matmul).
+ 17. The demo (`crlot_tpu_torch.demo.main --device cuda`) on a 2-ch 60 s
+     44.1 kHz 16-bit WAV written from seed 0: exits 0, launches B4 and B5,
+     and writes a resampled WAV of output_length frames.
+Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
+busy card, so that host launch time is not counted, checked to have been
+queued before the card woke, and else reported as not queued; beside it
+the median of 10 runs timed one at a time, synchronized after each): each
+kernel vs its plain
+version (B4 at both rates against `resample_bank_plain` and against
+`resample_grouped_plain`, the JAX default's math; B5 at n = 5 760 000), and
+end-to-end samples/s of phases 3, 6, 8, 9 (phase 9 on both meshes; the
+(2, 2) mesh runs its four shards one after another on one card, so it is no
+scaling figure), 13, 14 and 15, and the demo's wall time.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. Without CUDA, or without the
@@ -56,6 +90,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -69,7 +104,11 @@ SECONDS = 60
 NFFT, HOP = 1024, 256
 SEED = 0
 REPS = 10
+SLEEP_CYCLES = 100_000_000  # ~50 ms of the card's clock: queue-ahead time
 T_SHARDED = 2_879_488  # 59.99 s; T / 2 is a multiple of 2 * HOP
+SR_IN = 44100  # the resample path's input rate
+SIZES = [1, 7, 15, 16, 17, 127, 128, 129, 1023, 1024, 1025, 4096, 16384]
+N_B5 = 2 * 2_880_000  # a 60 s stereo 48 kHz accumulator
 
 
 def log(msg: str) -> None:
@@ -83,6 +122,89 @@ def smi() -> str:
         capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def cuda_ms(fn) -> tuple:
+    """(queued, per call): median device time of fn over REPS runs after
+    two warm-ups (ms), timed two ways.
+
+    Queued: the card is first kept busy (`torch.cuda._sleep`) while the
+    host enqueues all REPS runs, so each event pair brackets the device's
+    work and not the host's time to launch it (tens of microseconds of
+    Python per call, as long as a short kernel). An event recorded after
+    the sleep must still be pending once the last run is queued. If it is
+    not, the host fell behind the card, and the runs are timed again
+    behind a sleep four times as long; if the host falls behind again,
+    queued is None. (A call of many hundred launches can fill CUDA's
+    launch queue, and the host then waits for the card, however long it
+    sleeps.)
+    Per call: each run alone, synchronized after it, so the host's launch
+    time counts where it exceeds the device's work."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    queued, cycles = None, SLEEP_CYCLES
+    for _ in range(2):
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
+        woke = torch.cuda.Event()
+        torch.cuda._sleep(cycles)
+        woke.record()
+        for e0, e1 in pairs:
+            e0.record()
+            fn()
+            e1.record()
+        behind = woke.query()
+        torch.cuda.synchronize()
+        if not behind:
+            queued = statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs)
+            break
+        cycles *= 4
+    per_call = []
+    for _ in range(REPS):
+        e0, e1 = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        per_call.append(e0.elapsed_time(e1))
+    return queued, statistics.median(per_call)
+
+
+def timed(timing, key, fn) -> None:
+    """Stores fn's time under key (queued, or per call where the host fell
+    behind the card), its per-call time under key + "_call", and whether
+    it was queued under key + "_queued"."""
+    queued, per_call = cuda_ms(fn)
+    timing[key] = per_call if queued is None else queued
+    timing[key + "_call"] = per_call
+    timing[key + "_queued"] = queued is not None
+
+
+def ms(timing, key) -> str:
+    """A timing as printed: queued ms, then the per-call ms."""
+    if not timing[key + "_queued"]:
+        return (f"{timing[key]:.4f} ms per call (not queued: the host fell "
+                f"behind the card)")
+    return f"{timing[key]:.4f} ms ({timing[key + '_call']:.4f} per call)"
+
+
+def e2e_seconds(fn) -> float:
+    """Median host-clock time of a synchronized call over REPS runs (s)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
 
 
 def main() -> int:
@@ -396,49 +518,28 @@ def main() -> int:
         failures.append("launch counts (path 2)")
         log("FAIL launch counts: a kernel of the path was not launched")
 
-    # Timings.
-    def cuda_ms(fn):
-        for _ in range(2):
-            fn()
-        sync()
-        times = []
-        for _ in range(REPS):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            e1.synchronize()
-            times.append(e0.elapsed_time(e1))
-        return statistics.median(times)
+    path3 = resample_path(dev, phase, check, failures)
 
+    # Timings.
     def e2e_rate(fn, samples=2 * n):
-        fn()
-        sync()
-        times = []
-        for _ in range(REPS):
-            t0 = time.perf_counter()
-            fn()
-            sync()
-            times.append(time.perf_counter() - t0)
-        return samples / statistics.median(times)
+        return samples / e2e_seconds(fn)
 
     gate = fns["noise_gate(-30)"]
     timing = {}
     try:
-        timing["b1"] = cuda_ms(
-            lambda: b1.ola_normalized_cuda(frames, norm, HOP, full, cfg.eps))
-        timing["b1_plain"] = cuda_ms(
-            lambda: b1.ola_normalized_plain(frames, norm, HOP, full, cfg.eps))
-        timing["b2"] = cuda_ms(lambda: b2.roundtrip_signal_cuda(
+        timed(timing, "b1",
+              lambda: b1.ola_normalized_cuda(frames, norm, HOP, full, cfg.eps))
+        timed(timing, "b1_plain",
+              lambda: b1.ola_normalized_plain(frames, norm, HOP, full, cfg.eps))
+        timed(timing, "b2", lambda: b2.roundtrip_signal_cuda(
             padded, NFFT, HOP, n_frames, w32, norm, cfg.eps, full,
             gate.packed))
-        timing["b2_plain"] = cuda_ms(lambda: b2.roundtrip_signal_plain(
+        timed(timing, "b2_plain", lambda: b2.roundtrip_signal_plain(
             padded, NFFT, HOP, n_frames, w32, norm, cfg.eps, full,
             gate.packed))
-        timing["b3"] = cuda_ms(lambda: b2.roundtrip_frames_cuda(
+        timed(timing, "b3", lambda: b2.roundtrip_frames_cuda(
             padded, NFFT, HOP, n_frames, w32, gate.packed))
-        timing["b3_plain"] = cuda_ms(lambda: b2.roundtrip_frames_plain(
+        timed(timing, "b3_plain", lambda: b2.roundtrip_frames_plain(
             padded, NFFT, HOP, n_frames, w32, gate.packed))
         timing["rt_identity"] = e2e_rate(lambda: pt.round_trip(x, cfg))
         timing["rt_gate"] = e2e_rate(lambda: pt.round_trip(x, cfg, gate))
@@ -447,15 +548,15 @@ def main() -> int:
             timing[name] = e2e_rate(
                 lambda: pt.sharded_round_trip(x9, cfg_nc, mesh, gate),
                 2 * T_SHARDED)
-        log(f"time B1 kernel {timing['b1']:.4f} ms, plain "
-            f"{timing['b1_plain']:.4f} ms ([2, {n_frames}, {NFFT}] frames; "
-            f"CUDA events, median of {REPS})")
-        log(f"time B2 kernel {timing['b2']:.4f} ms, plain "
-            f"{timing['b2_plain']:.4f} ms (noise_gate, 2 x {SECONDS} s; "
-            f"CUDA events, median of {REPS})")
-        log(f"time B3 kernel {timing['b3']:.4f} ms, plain "
-            f"{timing['b3_plain']:.4f} ms (noise_gate, [2, {n_frames}, "
-            f"{NFFT}] frames; CUDA events, median of {REPS})")
+        log(f"time B1 kernel {ms(timing, 'b1')}, plain "
+            f"{ms(timing, 'b1_plain')} ([2, {n_frames}, {NFFT}] frames; "
+            f"CUDA events, median of {REPS}, queued)")
+        log(f"time B2 kernel {ms(timing, 'b2')}, plain "
+            f"{ms(timing, 'b2_plain')} (noise_gate, 2 x {SECONDS} s; "
+            f"CUDA events, median of {REPS}, queued)")
+        log(f"time B3 kernel {ms(timing, 'b3')}, plain "
+            f"{ms(timing, 'b3_plain')} (noise_gate, [2, {n_frames}, "
+            f"{NFFT}] frames; CUDA events, median of {REPS}, queued)")
         log(f"e2e round_trip identity {timing['rt_identity']:.4e} samples/s; "
             f"noise_gate {timing['rt_gate']:.4e} samples/s; fused_roundtrip "
             f"{timing['rt_frames']:.4e} samples/s (host clock, "
@@ -464,6 +565,7 @@ def main() -> int:
             f"(1, 1) mesh {timing['sharded_11']:.4e} samples/s; (2, 2) mesh "
             f"on one card, shards run in turn, {timing['sharded_22']:.4e} "
             f"samples/s (host clock, synchronized, median of {REPS})")
+        timing.update(resample_timings(dev, path3))
         log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     except Exception as e:
         failures.append("timings")
@@ -488,13 +590,317 @@ def main() -> int:
          "replaces": "crlot_tpu/fft/pallas_rt.py:277",
          "launches": counts2["b3"], "max_abs_err": results["b3_err"],
          "ms": timing["b3"], "plain_ms": timing["b3_plain"]},
+        {"name": "resample (B4)", "route": "cuda",
+         "source": "crlot_tpu_torch/csrc/resample.cu",
+         "replaces": "crlot_tpu/resample/pallas_kernel.py:32",
+         "launches": path3["counts"]["b4"],
+         "max_abs_err": path3["results"]["b4_err"],
+         "ms": timing["b4_44.1->48"], "plain_ms": timing["b4_44.1->48_bank"]},
     ]
+    for name, line in (("axpy", 84), ("axpy_windowed", 135),
+                       ("normalize_and_clear", 182)):
+        kernels.append({
+            "name": f"{name} (B5)", "route": "cuda",
+            "source": "crlot_tpu_torch/csrc/ola_kernels.cu",
+            "replaces": f"crlot_tpu/ola/kernels.py:{line}",
+            "launches": path3["counts"][name],
+            "max_abs_err": path3["results"][f"{name}_err"],
+            "ms": timing[name], "plain_ms": timing[f"{name}_plain"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def resample_path(dev, phase, check, failures, seconds=SECONDS) -> dict:
+    """Phases 11-17 on 2 x `seconds` at 44.1 kHz: B4 and B5 against their
+    plain versions, then the resample and demo path through the public
+    entry points with the B4 and B5 counters reset just before. Returns
+    the inputs, errors and main-path launch counts for the timings."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy import signal as sps
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch import demo
+    from crlot_tpu_torch.ola import kernels as b5
+    from crlot_tpu_torch.resample import kernel as b4
+    from crlot_tpu_torch.resample.polyphase import (
+        _kernel_bank, design_lowpass, output_length)
+
+    n = SR_IN * seconds
+    rng = np.random.default_rng(SEED)
+    noise_np = rng.uniform(-1.0, 1.0, (2, n)).astype(np.float32)
+    noise48_np = rng.uniform(-1.0, 1.0, (2, 48000 * seconds)).astype(
+        np.float32)
+    t = np.arange(n, dtype=np.float64) / SR_IN
+    freqs = np.array([[997.0], [1000.0]])
+    sines_np = (0.7 * np.sin(2 * np.pi * freqs * t)).astype(np.float32)
+    noise, noise48, sines = (torch.from_numpy(a).to(dev)
+                             for a in (noise_np, noise48_np, sines_np))
+    rates = {"44.1->48": (44100, 48000, noise), "48->16": (48000, 16000, noise48)}
+    geometry = {}
+    for key, (sr_in, sr_out, x) in rates.items():
+        g = math.gcd(sr_in, sr_out)
+        geometry[key] = (x, sr_out // g, sr_in // g,
+                         output_length(x.shape[-1], sr_in, sr_out))
+    results = {}
+
+    # 11. B4 vs plain.
+    def p11():
+        lines = []
+        for key, (sr_in, sr_out, _) in rates.items():
+            x, l, m, n_out = geometry[key]
+            got = b4.resample_cuda(x, l, m, n_out)
+            want = b4.resample_bank_plain(x, l, m, n_out)
+            check(tuple(got.shape) == (2, n_out), f"shape {tuple(got.shape)}")
+            check(bool(torch.isfinite(got).all()), "non-finite output")
+            err = float((got - want).abs().max())
+            host = b4.resample_bank_plain(x.cpu(), l, m, n_out)
+            got_h = got.cpu()
+            err_host = float((got_h - host).abs().max())
+            _, _, w = _kernel_bank(l, m, None, 120.0)
+            h = design_lowpass(l, m)
+            prefix = x[:, : sr_in + w].cpu().numpy().astype(np.float64)
+            oracle = sps.resample_poly(prefix, l, m, window=h / l, axis=-1)
+            k = output_length(sr_in, sr_in, sr_out)
+            snr = min(pt.snr_db(oracle[c, :k], got_h[c, :k].numpy())
+                      for c in range(2))
+            lines.append(f"{key}: max-abs {err:.3e} (bit-identical "
+                         f"{torch.equal(got, want)}; vs plain on the host "
+                         f"CPU {err_host:.3e}); first 1 s vs f64 scipy "
+                         f"{snr:.2f} dB")
+            results["b4_err"] = max(results.get("b4_err", 0.0), err)
+            check(err <= 1e-5 and err_host <= 1e-5 and snr >= 120.0,
+                  lines[-1])
+        return "; ".join(lines)
+
+    # 12. B5 vs plain.
+    def same(a, b):
+        return (torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0)))
+
+    def p12():
+        worst = {"axpy": 0.0, "axpy_windowed": 0.0, "normalize_and_clear": 0.0}
+        for size in SIZES + [N_B5]:
+            g = torch.Generator(device=dev).manual_seed(size)
+            a, b, c = (torch.rand(size + 1, generator=g, device=dev) * 4 - 2
+                       for _ in range(3))
+            norm = c.abs()
+            norm[::5] = 0.0
+            norm[3::7] = float("nan")
+            for off in (0, 1):  # 16-byte aligned (float4 path) and not
+                av, bv, cv, nv = (v[off : off + size] for v in (a, b, c, norm))
+                pairs = {
+                    "axpy": (b5.axpy_cuda(av, bv, 1.5),
+                             b5.axpy_reference(av, bv, 1.5)),
+                    "axpy_windowed": (b5.axpy_windowed_cuda(av, bv, cv, 0.75),
+                                      b5.axpy_windowed_reference(av, bv, cv,
+                                                                 0.75)),
+                }
+                out, cleared = b5.normalize_and_clear_cuda(av, nv, 1e-8)
+                pairs["normalize_and_clear"] = (
+                    out, b5.normalize_and_clear_reference(av, nv, 1e-8)[0])
+                check(not bool(cleared.any()), f"cleared not zero, n={size}")
+                for name, (got, want) in pairs.items():
+                    check(same(got, want),
+                          f"{name} n={size} offset {off}: not bit-identical")
+                    diff = (got - want).nan_to_num(0.0).abs().max()
+                    worst[name] = max(worst[name], float(diff))
+        rows = b5.normalize_and_clear_cuda(
+            torch.tensor([1.0, 1.0, -3.0], device=dev),
+            torch.tensor([float("nan"), 0.0, 2.0], device=dev), 0.5)[0]
+        check(bool(torch.isnan(rows[0])) and rows[1:].tolist() == [2.0, -1.5],
+              f"NaN / zero norm rows: {rows.tolist()}")
+        for name, err in worst.items():
+            results[f"{name}_err"] = err
+        return (f"axpy, axpy_windowed, normalize_and_clear bit-identical to "
+                f"plain over {len(SIZES)} sizes and n={N_B5}, aligned and "
+                f"misaligned; NaN and zero norm rows as plain")
+
+    phase("11 B4 vs plain", p11)
+    phase("12 B5 vs plain", p12)
+
+    # The resample and demo path, counters reset just before.
+    b4.launches = 0
+    for name in b5.launches:
+        b5.launches[name] = 0
+    cfg15 = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=False)
+
+    def ideal(sr, length, f):
+        return 0.7 * np.sin(2 * np.pi * f * np.arange(length) / sr)
+
+    def p13():
+        before = b4.launches
+        y48 = pt.resample(sines, 44100, 48000)
+        y16 = pt.resample(y48, 48000, 16000)
+        launched = b4.launches - before
+        check(launched == 2, f"{launched} B4 launches for 2 stages")
+        n48, n16 = output_length(n, 44100, 48000), output_length(
+            output_length(n, 44100, 48000), 48000, 16000)
+        check(tuple(y48.shape) == (2, n48) and tuple(y16.shape) == (2, n16),
+              f"lengths {tuple(y48.shape)} {tuple(y16.shape)}")
+        y48_h, y16_h = y48.cpu().numpy(), y16.cpu().numpy()
+        snr48 = pt.snr_db(ideal(48000, n48, 1000.0)[4800:-4800],
+                          y48_h[1, 4800:-4800])
+        snr16 = pt.snr_db(ideal(16000, n16, 997.0)[1600:-1600],
+                          y16_h[0, 1600:-1600])
+        msg = (f"B4 launches +{launched}; 44.1 -> 48 kHz 1 kHz sine "
+               f"{snr48:.2f} dB; chain 997 Hz {snr16:.2f} dB")
+        check(snr48 >= 100.0 and snr16 >= 90.0, msg)
+        return msg
+
+    def p14():
+        chunk = 65536
+        aligned = -(-chunk // 147) * 147
+        before = b4.launches
+        got = pt.resample_chunked(noise, 44100, 48000, chunk=chunk)
+        launched = b4.launches - before
+        n_chunks = -(-n // aligned)
+        check(launched == n_chunks, f"{launched} B4 launches, {n_chunks} chunks")
+        one = pt.resample(noise, 44100, 48000)
+        check(got.device == dev and torch.equal(got, one),
+              f"chunked != one-shot, max-abs "
+              f"{float((got - one).abs().max()):.3e}")
+        host = pt.resample_chunked(noise_np, 44100, 48000, chunk=chunk,
+                                   device=dev)
+        check(isinstance(host, np.ndarray)
+              and np.array_equal(host, one.cpu().numpy()),
+              "numpy input on the card != one-shot")
+        return (f"torch.equal to one-shot, tensor and numpy input; B4 "
+                f"launches +{launched} for {n_chunks} chunks")
+
+    def p15():
+        before = b4.launches
+        spec = pt.resampled_stft(noise, 44100, 48000, cfg15)
+        check(b4.launches > before, "B4 not launched")
+        seq = pt.stft(pt.resample(noise, 44100, 48000), cfg15)
+        n48 = output_length(n, 44100, 48000)
+        shape = (2, cfg15.frame_spec.num_frames(n48), NFFT // 2 + 1)
+        check(tuple(spec.shape) == shape, f"shape {tuple(spec.shape)}")
+        err = float((spec - seq).abs().max())
+        scale = float(seq.abs().max())
+        check(err <= 1e-5 * scale, f"max-abs {err:.3e}, scale {scale:.3e}")
+        return f"{tuple(spec.shape)} max-abs {err:.3e} (scale {scale:.3e})"
+
+    def p16():
+        taps = (np.hamming(255) / 127.0).astype(np.float32)
+        y = pt.convolve(noise48, taps, "same")
+        check(tuple(y.shape) == tuple(noise48.shape), f"shape {tuple(y.shape)}")
+        k = 48000
+        worst = 0.0
+        for c in range(2):
+            want = np.convolve(noise48_np[c, : k + 255].astype(np.float64),
+                               taps.astype(np.float64), "full")[127 : 127 + k]
+            got = y[c, :k].cpu().numpy()
+            rel = np.sqrt(np.mean((got - want) ** 2) / np.mean(want**2))
+            worst = max(worst, float(rel))
+        check(worst < 1e-5, f"rel RMSE {worst:.3e}")
+        return (f"first 1 s vs f64 numpy.convolve: rel RMSE {worst:.3e} "
+                f"(no kernel of ours: torch.matmul)")
+
+    demo_wall = []
+
+    def p17():
+        with tempfile.TemporaryDirectory() as tmp:
+            wav = os.path.join(tmp, "in.wav")
+            pt.write_wav(wav, 0.5 * sines_np + 0.05 * noise_np, SR_IN,
+                         bits=16)
+            b4_0, axw_0 = b4.launches, b5.launches["axpy_windowed"]
+            t0 = time.perf_counter()
+            rc = demo.main([wav, "--out-dir", tmp, "--device", str(dev)])
+            demo_wall.append(time.perf_counter() - t0)
+            check(rc == 0, f"demo exit code {rc}")
+            check(b4.launches > b4_0 and b5.launches["axpy_windowed"] > axw_0,
+                  "B4 or axpy_windowed not launched")
+            y, sr = pt.read_wav(os.path.join(tmp, "resampled_48000.wav"))
+            want = output_length(n, SR_IN, 48000)
+            check(sr == 48000 and y.shape[-1] == want,
+                  f"resampled wav {y.shape} @ {sr}")
+        return (f"exit 0 in {demo_wall[0]:.3f} s; B4 launches "
+                f"+{b4.launches - b4_0}; resampled wav {want} frames")
+
+    phase("13 resample chain", p13)
+    phase("14 resample_chunked", p14)
+    phase("15 resampled_stft", p15)
+    phase("16 convolve", p16)
+    phase("17 demo", p17)
+    counts = {"b4": b4.launches, **b5.launches}
+    log("resample and demo path launches: " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()))
+    if not all(counts.values()):
+        failures.append("launch counts (path 3)")
+        log("FAIL launch counts: a kernel of the path was not launched")
+    return {"counts": counts, "results": results, "geometry": geometry,
+            "noise": noise, "sines": sines, "cfg": cfg15,
+            "demo_wall": demo_wall, "n": n}
+
+
+def resample_timings(dev, path3) -> dict:
+    """CUDA-event times of B4 (both rates, against both plain versions)
+    and B5 (n = N_B5) against their plain versions, end-to-end rates of
+    the resample path, and the demo's wall time; logs them."""
+    import torch
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch.ola import kernels as b5
+    from crlot_tpu_torch.resample import kernel as b4
+    from crlot_tpu_torch.resample.polyphase import resample_grouped_plain
+
+    timing = {}
+    for key, (x, l, m, n_out) in path3["geometry"].items():
+        timed(timing, f"b4_{key}", lambda: b4.resample_cuda(x, l, m, n_out))
+        timed(timing, f"b4_{key}_bank",
+              lambda: b4.resample_bank_plain(x, l, m, n_out))
+        timed(timing, f"b4_{key}_grouped",
+              lambda: resample_grouped_plain(x, l, m, n_out))
+        log(f"time B4 {key} kernel {ms(timing, f'b4_{key}')}, plain "
+            f"(resample_bank_plain) {ms(timing, f'b4_{key}_bank')} "
+            f"([2, {x.shape[-1]}] -> [2, {n_out}]; CUDA events, median of "
+            f"{REPS}, queued)")
+        log(f"time B4 {key} vs the JAX default's math (resample_grouped_plain)"
+            f" {ms(timing, f'b4_{key}_grouped')}")
+    g = torch.Generator(device=dev).manual_seed(0)
+    a, b, c = (torch.rand(N_B5, generator=g, device=dev) * 4 - 2
+               for _ in range(3))
+    norm = c.abs()
+    timed(timing, "axpy", lambda: b5.axpy_cuda(a, b, 1.5))
+    timed(timing, "axpy_plain", lambda: b5.axpy_reference(a, b, 1.5))
+    timed(timing, "axpy_windowed",
+          lambda: b5.axpy_windowed_cuda(a, b, c, 0.75))
+    timed(timing, "axpy_windowed_plain",
+          lambda: b5.axpy_windowed_reference(a, b, c, 0.75))
+    timed(timing, "normalize_and_clear",
+          lambda: b5.normalize_and_clear_cuda(a, norm, 1e-8))
+    timed(timing, "normalize_and_clear_plain",
+          lambda: b5.normalize_and_clear_reference(a, norm, 1e-8))
+    log("time B5 at n=" + str(N_B5) + ": " + "; ".join(
+        f"{k} kernel {ms(timing, k)}, plain {ms(timing, k + '_plain')}"
+        for k in ("axpy", "axpy_windowed", "normalize_and_clear"))
+        + f" (CUDA events, median of {REPS}, queued)")
+    noise, sines, n = path3["noise"], path3["sines"], path3["n"]
+    samples = 2 * n
+    timing["chain"] = samples / e2e_seconds(lambda: pt.resample(
+        pt.resample(sines, 44100, 48000), 48000, 16000))
+    timing["resampled_stft"] = samples / e2e_seconds(
+        lambda: pt.resampled_stft(noise, 44100, 48000, path3["cfg"]))
+    timing["chunked"] = samples / e2e_seconds(
+        lambda: pt.resample_chunked(noise, 44100, 48000, chunk=65536))
+    log(f"e2e resample chain 44.1 -> 48 -> 16 kHz {timing['chain']:.4e} "
+        f"samples/s; resampled_stft {timing['resampled_stft']:.4e} "
+        f"samples/s; resample_chunked (chunk 65536) {timing['chunked']:.4e} "
+        f"samples/s (input samples, 2 x {n}; host clock, synchronized, "
+        f"median of {REPS})")
+    walls = path3["demo_wall"]
+    log(f"e2e demo wall time on a 2-ch {n / SR_IN:.0f} s WAV: "
+        + (f"{walls[0]:.3f} s (one run, first use in the process)"
+           if walls else "not measured (phase 17 failed)"))
+    return timing
 
 
 def _oracle(x_np, gains_f64, cfg):

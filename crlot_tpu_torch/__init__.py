@@ -1,8 +1,8 @@
-"""crlot-tpu-torch: the crlot-tpu STFT round-trip path on PyTorch + CUDA.
+"""crlot-tpu-torch: crlot-tpu's round-trip, resample and demo paths on PyTorch + CUDA.
 
 A port of `crlot_tpu` (JAX on a TPU, kept beside it as the reference) to
 PyTorch on an NVIDIA H100. Plain tensor code is torch; the Pallas kernels
-of the round-trip path are hand-written CUDA C++ for Hopper (`csrc/`),
+of those paths are hand-written CUDA C++ for Hopper (`csrc/`),
 built with nvcc at first use. Importing this package imports
 neither jax, crlot_tpu nor triton, and builds nothing.
 """
@@ -26,7 +26,9 @@ from .frame.framing import frame_signal, frame_windowed, num_frames
 from .io.wav import read_wav, write_wav
 from .metrics import snr_db
 from .ola.reference import overlap_add, overlap_add_normalized
-from .pipeline import formulation_for, istft, round_trip, stft
+from .pipeline import formulation_for, istft, resampled_stft, round_trip, stft
+from .resample.polyphase import resample, resample_chunked
+from .convolve import convolve
 from .window.windows import get_window
 
 from . import (  # noqa: E402,F401

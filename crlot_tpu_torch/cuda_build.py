@@ -41,21 +41,33 @@ build_seconds = 0.0
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGNATURES = {
     # (frames, norm, out, batch, n_frames, nfft, hop, out_len, eps, stream)
     "crlot_ola_normalized": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP],
     # (padded, lp, window, c, s, cinv, sinv, norm, desc, n_ops, params, out,
     #  channels, nfft, hop, n_frames, out_len, eps, stream)
     "crlot_rt_ola": [
-        _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
+        _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
         _VP, _I, _I, _I, _I, _I, _F, _VP,
     ],
     # (padded, lp, window, c, s, cinv, sinv, desc, n_ops, params, out,
     #  channels, nfft, hop, n_frames, stream)
     "crlot_rt_frames": [
-        _VP, ctypes.c_longlong, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP,
+        _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP,
         _I, _I, _I, _I, _VP,
     ],
+    # (x, t_in, taps_t, offsets, out, channels, n_out, l, m, tp, w, tau_min,
+    #  stream)
+    "crlot_resample": [
+        _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP,
+    ],
+    # (dst, src, gain, out, n, stream)
+    "crlot_axpy": [_VP, _VP, _F, _VP, _LL, _VP],
+    # (dst, src, win, gain, out, n, stream)
+    "crlot_axpy_windowed": [_VP, _VP, _VP, _F, _VP, _LL, _VP],
+    # (acc, norm, eps, out, cleared, n, stream)
+    "crlot_normalize_and_clear": [_VP, _VP, _F, _VP, _VP, _LL, _VP],
 }
 
 

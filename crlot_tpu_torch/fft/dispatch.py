@@ -33,6 +33,21 @@ def _check_matmul(nfft: int) -> None:
         )
 
 
+def rfft(
+    x: torch.Tensor, nfft: int, backend: FftBackend = FftBackend.AUTO
+) -> torch.Tensor:
+    """rfft(x, n=nfft) -> complex64 [..., nfft//2+1] (x cropped or
+    zero-padded to nfft, as numpy does)."""
+    if _pick(backend, nfft, x.device) == FftBackend.MATMUL:
+        _check_matmul(nfft)
+        t = x.shape[-1]
+        y = x[..., :nfft] if t >= nfft else torch.nn.functional.pad(
+            x, (0, nfft - t))
+        re, im = _mm.rfft_folded_packed(y, nfft)
+        return torch.complex(re, im)
+    return torch.fft.rfft(x.float(), n=nfft, dim=-1)
+
+
 def rfft_windowed(
     x: torch.Tensor, nfft: int, window_f64: np.ndarray,
     backend: FftBackend = FftBackend.AUTO,

@@ -48,6 +48,7 @@ from .fft.matmul_backend import (
 from .frame.framing import frame_signal
 from .ola.fused import ola_normalized_auto
 from .ola.norm import edge_norm
+from .resample.polyphase import resample
 from .spectral import epilogue_of, resolve_per_bin_response
 from .window.windows import get_window
 
@@ -87,6 +88,21 @@ def stft(signal: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
     return _fft.rfft_windowed(
         frames, cfg.frame_size, _window_f64(cfg), backend=cfg.fft_backend
     )
+
+
+def resampled_stft(
+    signal: torch.Tensor,
+    sr_in: int,
+    sr_out: int,
+    cfg: StftConfig,
+    taps_per_phase: Optional[int] = None,
+    atten_db: float = 120.0,
+) -> torch.Tensor:
+    """Polyphase resample (B4 on CUDA) -> frame -> window -> rFFT: the
+    `[..., F, nfft//2+1]` spectrogram at the OUTPUT rate sr_out. The
+    resampled signal stays on the device between the two stages."""
+    y = resample(signal, sr_in, sr_out, taps_per_phase, atten_db)
+    return stft(y, cfg)
 
 
 def istft(
