@@ -5,13 +5,15 @@
 
 Builds the port's CUDA kernels from `crlot_tpu_torch/csrc/` (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version on the card, then runs
-three paths through the public entry points, each with the kernels' launch
+four paths through the public entry points, each with the kernels' launch
 counters reset just before and read just after: on 2 channels x 60 s at
 48 kHz, N=1024 / H=256, Hann, seed 0, the round-trip path (`round_trip`,
 `stft`, `istft`; centered) and the fused-frames and sharded path
-(`round_trip` with `fused_roundtrip`, `sharded_round_trip`); and the
-resample and demo path (`resample`, `resample_chunked`, `resampled_stft`,
-`convolve`, the demo).
+(`round_trip` with `fused_roundtrip`, `sharded_round_trip`); the resample
+and demo path (`resample`, `resample_chunked`, `resampled_stft`,
+`convolve`, the demo); and the streaming, wire and probe path
+(`BlockedChunkStreamer`, `I16BlockedStreamer`, `i16_round_trip`,
+`process_wav_file`, `python -m crlot_tpu_torch.int8_probe`'s `run`).
 
 Phases (each prints one line; the script exits 1 if any fails):
   1. B1 (fused OLA + normalize) vs plain on [2, 11251, 1024] frames:
@@ -70,6 +72,36 @@ Then, with the B4 and B5 counters reset just before:
  17. The demo (`crlot_tpu_torch.demo.main --device cuda`) on a 2-ch 60 s
      44.1 kHz 16-bit WAV written from seed 0: exits 0, launches B4 and B5,
      and writes a resampled WAV of output_length frames.
+Kernel checks of B6 and B4's unstaged path (not counted on a path):
+ 18. B6 vs plain at the int8 probe's full shape (F = 11264, N = K = 512,
+     inputs from seed 0 as `scripts/bench_pallas_int8_probe.py` makes
+     them): K9, K10, K11 torch.equal, K8 within 1e-6 of sum|x||b|; B6-i8
+     at the wire geometry (lda 512, K 2048, 1 and 2 x 4096 rows)
+     torch.equal.
+ 19. B4 at 48 kHz -> 300 Hz (M = 160: the input segment outgrows shared
+     memory, so B4 reads each window from L2) vs `resample_bank_plain` and
+     the grouped form on 2 x 60 s: max-abs <= 1e-5.
+Then the streaming, wire and probe path on the reference bench's stream
+(`crlot_tpu/bench/suite.py`: mono 48 kHz, center=False, 13 chunks of
+2 097 152 samples of uniform noise in +-0.9 from seed 9, device-resident),
+with the B6 counters reset just before:
+ 20. BlockedChunkStreamer (identity) vs the one-shot
+     `blocked_composed_round_trip`: within rtol 3e-6 with the first and
+     last N-H samples exact; prints whether bit-identical.
+ 21. The wire tier on the same stream as int16, int8x2 and int8x1: one
+     B6-limb launch per chunk; chunks of 2 097 152, 524 288 and one chunk
+     bit-identical (int16 egress); identity interior >= 90 dB vs the float
+     source; int8x2 vs the f32 streamer >= 85 dB.
+ 22. band_gain EQ int8x2 vs the f32 EQ streamer >= 60 dB; a full-scale
+     square wave with the codes -32768, 32639, 32640, 32767 (both tiers):
+     interior within 2e-6 of a float64 oracle of the exact product and
+     bit-identical to the plain version on the host CPU.
+ 23. process_wav_file on a 2-ch 60 s 48 kHz 16-bit WAV from seed 0 vs the
+     unbroken stream: 16-bit codes within one code (prints whether all
+     equal).
+ 24. The int8 probe (`int8_probe.run`): each variant held against its
+     plain version, then its us per call, TOPS and library time
+     (`torch._int_mm`, `torch.mm(..., out_dtype=float32)`).
 Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
 busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
@@ -79,11 +111,18 @@ version (B4 at both rates against `resample_bank_plain` and against
 `resample_grouped_plain`, the JAX default's math; B5 at n = 5 760 000), and
 end-to-end samples/s of phases 3, 6, 8, 9 (phase 9 on both meshes; the
 (2, 2) mesh runs its four shards one after another on one card, so it is no
-scaling figure), 13, 14 and 15, and the demo's wall time.
+scaling figure), 13, 14 and 15, and the demo's wall time; the library
+calls beside B4 (`conv1d`) and B5 (`torch.add`, `torch.addcmul`); the
+sustained samples/s of the f32 streamer and both wire tiers (phases 20,
+21); B6's plain versions at the probe shape, B6-limb at one wire chunk
+and B4 at 48 kHz -> 300 Hz against theirs.
 
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}. Without CUDA, or without the
-package beside it, the script exits non-zero and prints no result.
+The last three lines: a JSON object describing each kernel (with its
+bound from this run's bytes and operations at the H100 SXM peaks, and the
+one library call's time or null); the card's name and power limit; and
+{"ok": true, "device": {...}}. Without
+CUDA, or without the package beside it, the script exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -104,11 +143,14 @@ SECONDS = 60
 NFFT, HOP = 1024, 256
 SEED = 0
 REPS = 10
-SLEEP_CYCLES = 100_000_000  # ~50 ms of the card's clock: queue-ahead time
 T_SHARDED = 2_879_488  # 59.99 s; T / 2 is a multiple of 2 * HOP
 SR_IN = 44100  # the resample path's input rate
 SIZES = [1, 7, 15, 16, 17, 127, 128, 129, 1023, 1024, 1025, 4096, 16384]
 N_B5 = 2 * 2_880_000  # a 60 s stereo 48 kHz accumulator
+# H100 SXM peaks for the bounds (NVIDIA's data sheet, dense): HBM bytes/s,
+# and operations/s by type.
+HBM_BPS = 3.35e12
+PEAK_OPS = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
 
 def log(msg: str) -> None:
@@ -124,61 +166,13 @@ def smi() -> str:
     return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def cuda_ms(fn) -> tuple:
-    """(queued, per call): median device time of fn over REPS runs after
-    two warm-ups (ms), timed two ways.
-
-    Queued: the card is first kept busy (`torch.cuda._sleep`) while the
-    host enqueues all REPS runs, so each event pair brackets the device's
-    work and not the host's time to launch it (tens of microseconds of
-    Python per call, as long as a short kernel). An event recorded after
-    the sleep must still be pending once the last run is queued. If it is
-    not, the host fell behind the card, and the runs are timed again
-    behind a sleep four times as long; if the host falls behind again,
-    queued is None. (A call of many hundred launches can fill CUDA's
-    launch queue, and the host then waits for the card, however long it
-    sleeps.)
-    Per call: each run alone, synchronized after it, so the host's launch
-    time counts where it exceeds the device's work."""
-    import torch
-
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    queued, cycles = None, SLEEP_CYCLES
-    for _ in range(2):
-        pairs = [(torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
-        woke = torch.cuda.Event()
-        torch.cuda._sleep(cycles)
-        woke.record()
-        for e0, e1 in pairs:
-            e0.record()
-            fn()
-            e1.record()
-        behind = woke.query()
-        torch.cuda.synchronize()
-        if not behind:
-            queued = statistics.median(e0.elapsed_time(e1) for e0, e1 in pairs)
-            break
-        cycles *= 4
-    per_call = []
-    for _ in range(REPS):
-        e0, e1 = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-        e0.record()
-        fn()
-        e1.record()
-        e1.synchronize()
-        per_call.append(e0.elapsed_time(e1))
-    return queued, statistics.median(per_call)
-
-
 def timed(timing, key, fn) -> None:
     """Stores fn's time under key (queued, or per call where the host fell
     behind the card), its per-call time under key + "_call", and whether
     it was queued under key + "_queued"."""
-    queued, per_call = cuda_ms(fn)
+    from crlot_tpu_torch.timing import cuda_ms
+
+    queued, per_call = cuda_ms(fn, REPS)
     timing[key] = per_call if queued is None else queued
     timing[key + "_call"] = per_call
     timing[key + "_queued"] = queued is not None
@@ -190,6 +184,20 @@ def ms(timing, key) -> str:
         return (f"{timing[key]:.4f} ms per call (not queued: the host fell "
                 f"behind the card)")
     return f"{timing[key]:.4f} ms ({timing[key + '_call']:.4f} per call)"
+
+
+def bound(nbytes, ops=0.0, kind="fp32") -> dict:
+    """The least time the card could take for the work: the larger of its
+    bytes (each input read once, each output written once) over the HBM
+    rate and its operations over the type's peak rate, in ms."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def e2e_seconds(fn) -> float:
@@ -519,6 +527,8 @@ def main() -> int:
         log("FAIL launch counts: a kernel of the path was not launched")
 
     path3 = resample_path(dev, phase, check, failures)
+    path_b6 = b6_checks(dev, phase, check)
+    path4 = wire_path(dev, phase, check, failures)
 
     # Timings.
     def e2e_rate(fn, samples=2 * n):
@@ -566,6 +576,7 @@ def main() -> int:
             f"on one card, shards run in turn, {timing['sharded_22']:.4e} "
             f"samples/s (host clock, synchronized, median of {REPS})")
         timing.update(resample_timings(dev, path3))
+        timing.update(wire_timings(dev, path4, path_b6))
         log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     except Exception as e:
         failures.append("timings")
@@ -574,29 +585,68 @@ def main() -> int:
     if failures:
         log(f"chip_smoke: {len(failures)} phase(s) failed: {failures}")
         return 1
+    # Bounds from this run's inputs. The folded DFT round-trip of B2 / B3
+    # does four products per frame: 4 * frames * (N/2 + 1) * N * 2 / 2.
+    from crlot_tpu_torch.fft.matmul_backend import folded_consts_on
+    from crlot_tpu_torch.resample import kernel as b4
+
+    bases = folded_consts_on(NFFT, dev)
+    dft_ops = 4.0 * 2 * n_frames * (NFFT // 2 + 1) * NFFT
+    x44, l44, m44, n44 = path3["geometry"]["44.1->48"]
+    taps44, offs44, _, _ = b4.compact_bank(l44, m44, None, 120.0)
+    pt_ = path_b6["probe_inputs"]
+    f_, n_ = pt_["x_f32"].shape
+    k_ = pt_["bt_i8"].shape[0]
+    out_f32 = f_ * k_ * 4
+    probe_rows = {r["variant"]: r for r in path4["probe"]["rows"]
+                  if "variant" in r}
+
+    def probe_ms(name):
+        return probe_rows[name]["us_per_call"] / 1e3
+
+    def probe_lib(name):
+        us = probe_rows[name]["library_us"]
+        return None if us is None else us / 1e3
+
+    n5 = 4 * N_B5
     kernels = [
         {"name": "ola_normalized (B1)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/ola_fused.cu",
          "replaces": "crlot_tpu/ola/fused.py:39", "launches": counts["b1"],
          "max_abs_err": results["b1_err"], "ms": timing["b1"],
-         "plain_ms": timing["b1_plain"]},
+         "plain_ms": timing["b1_plain"],
+         **bound(nbytes(frames, norm) + 2 * full * 4, frames.numel()),
+         "library_ms": None},
         {"name": "rt_ola (B2)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/fused_rt.cu",
          "replaces": "crlot_tpu/fft/pallas_rt.py:429",
          "launches": counts["b2"], "max_abs_err": results["b2_err"],
-         "ms": timing["b2"], "plain_ms": timing["b2_plain"]},
+         "ms": timing["b2"], "plain_ms": timing["b2_plain"],
+         **bound(nbytes(padded, w32, norm, *bases) + 2 * full * 4, dft_ops),
+         "library_ms": None},
         {"name": "rt_frames (B3)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/fused_rt.cu",
          "replaces": "crlot_tpu/fft/pallas_rt.py:277",
          "launches": counts2["b3"], "max_abs_err": results["b3_err"],
-         "ms": timing["b3"], "plain_ms": timing["b3_plain"]},
+         "ms": timing["b3"], "plain_ms": timing["b3_plain"],
+         **bound(nbytes(padded, w32, *bases) + 2 * n_frames * NFFT * 4,
+                 dft_ops),
+         "library_ms": None},
         {"name": "resample (B4)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/resample.cu",
          "replaces": "crlot_tpu/resample/pallas_kernel.py:32",
          "launches": path3["counts"]["b4"],
-         "max_abs_err": path3["results"]["b4_err"],
-         "ms": timing["b4_44.1->48"], "plain_ms": timing["b4_44.1->48_bank"]},
+         "max_abs_err": max(path3["results"]["b4_err"],
+                            path_b6["results"]["b4_300_err"]),
+         "ms": timing["b4_44.1->48"], "plain_ms": timing["b4_44.1->48_bank"],
+         **bound(nbytes(x44) + x44.shape[0] * n44 * 4 + taps44.nbytes
+                 + offs44.nbytes, 2.0 * x44.shape[0] * n44 * taps44.shape[0]),
+         "library_ms": timing["b4_conv1d"]},
     ]
+    b5_io = {"axpy": 3, "axpy_windowed": 4, "normalize_and_clear": 4}
+    b5_lib = {"axpy": timing["axpy_library"],
+              "axpy_windowed": timing["axpy_windowed_library"],
+              "normalize_and_clear": None}
     for name, line in (("axpy", 84), ("axpy_windowed", 135),
                        ("normalize_and_clear", 182)):
         kernels.append({
@@ -605,7 +655,32 @@ def main() -> int:
             "replaces": f"crlot_tpu/ola/kernels.py:{line}",
             "launches": path3["counts"][name],
             "max_abs_err": path3["results"][f"{name}_err"],
-            "ms": timing[name], "plain_ms": timing[f"{name}_plain"]})
+            "ms": timing[name], "plain_ms": timing[f"{name}_plain"],
+            **bound(b5_io[name] * n5, 2.0 * N_B5),
+            "library_ms": b5_lib[name]})
+    probe_src = "scripts/bench_pallas_int8_probe.py"
+    b6_rows = [
+        ("bf16 (B6, K8)", "bf16", "pl_bf16", 32,
+         bound(2 * f_ * n_ + 2 * k_ * n_ + out_f32, 2.0 * f_ * n_ * k_,
+               "bf16")),
+        ("i8 (B6, K9)", "i8", "pl_i8", 41,
+         bound(f_ * n_ + k_ * n_ + out_f32, 2.0 * f_ * n_ * k_, "int8")),
+        ("limb (B6, K10)", "limb", "pl_i8_3dot", 50,
+         bound(2 * f_ * n_ + 2 * k_ * n_ + out_f32, 6.0 * f_ * n_ * k_,
+               "int8")),
+        ("fusedq (B6, K11)", "fusedq", "pl_i8_fusedq", 64,
+         bound(4 * f_ * n_ + 2 * k_ * n_ + out_f32, 6.0 * f_ * n_ * k_,
+               "int8")),
+    ]
+    for name, key, variant, line, bnd in b6_rows:
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "crlot_tpu_torch/csrc/int8_gemm.cu",
+            "replaces": f"{probe_src}:{line}",
+            "launches": path4["counts"][key],
+            "max_abs_err": path_b6["results"][variant],
+            "ms": probe_ms(variant), "plain_ms": timing[f"{variant}_plain"],
+            **bnd, "library_ms": probe_lib(variant)})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -850,7 +925,8 @@ def resample_timings(dev, path3) -> dict:
     import crlot_tpu_torch as pt
     from crlot_tpu_torch.ola import kernels as b5
     from crlot_tpu_torch.resample import kernel as b4
-    from crlot_tpu_torch.resample.polyphase import resample_grouped_plain
+    from crlot_tpu_torch.resample.polyphase import (
+        _kernel_bank, resample_grouped_plain)
 
     timing = {}
     for key, (x, l, m, n_out) in path3["geometry"].items():
@@ -865,10 +941,33 @@ def resample_timings(dev, path3) -> dict:
             f"{REPS}, queued)")
         log(f"time B4 {key} vs the JAX default's math (resample_grouped_plain)"
             f" {ms(timing, f'b4_{key}_grouped')}")
+    # The one PyTorch call computing B4's sum: a strided conv1d (cuDNN,
+    # TF32 off) with the [L, W] bank as L output channels, on the
+    # zero-padded input; the phase interleave (a view) is not timed.
+    x, l, m, n_out = path3["geometry"]["44.1->48"]
+    bank, tau_min, w = _kernel_bank(l, m, None, 120.0)
+    blocks = -(-n_out // l)
+    xp = torch.nn.functional.pad(
+        x, (-tau_min, max(0, (blocks - 1) * m + w - x.shape[-1] + tau_min)))
+    xp = xp[:, None, :].contiguous()
+    wt = torch.from_numpy(bank).to(dev)[:, None, :].contiguous()
+    lib = torch.nn.functional.conv1d(xp, wt, stride=m)[..., :blocks]
+    got = lib.transpose(1, 2).reshape(x.shape[0], -1)[:, :n_out]
+    err = float((got - b4.resample_cuda(x, l, m, n_out)).abs().max())
+    timed(timing, "b4_conv1d",
+          lambda: torch.nn.functional.conv1d(xp, wt, stride=m))
+    log(f"time B4 44.1->48 library conv1d {ms(timing, 'b4_conv1d')} "
+        f"(max-abs {err:.3e} from B4)")
     g = torch.Generator(device=dev).manual_seed(0)
     a, b, c = (torch.rand(N_B5, generator=g, device=dev) * 4 - 2
                for _ in range(3))
     norm = c.abs()
+    timed(timing, "axpy_library", lambda: torch.add(a, b, alpha=1.5))
+    timed(timing, "axpy_windowed_library",
+          lambda: torch.addcmul(a, b, c, value=0.75))
+    log(f"time B5 library calls: torch.add(dst, src, alpha) "
+        f"{ms(timing, 'axpy_library')}; torch.addcmul(dst, src, win, value) "
+        f"{ms(timing, 'axpy_windowed_library')}")
     timed(timing, "axpy", lambda: b5.axpy_cuda(a, b, 1.5))
     timed(timing, "axpy_plain", lambda: b5.axpy_reference(a, b, 1.5))
     timed(timing, "axpy_windowed",
@@ -900,6 +999,338 @@ def resample_timings(dev, path3) -> dict:
     log(f"e2e demo wall time on a 2-ch {n / SR_IN:.0f} s WAV: "
         + (f"{walls[0]:.3f} s (one run, first use in the process)"
            if walls else "not measured (phase 17 failed)"))
+    return timing
+
+
+# The wire and probe path: the reference bench's stream (`bench/suite.py`
+# :471-482, 699-733, 800-857): mono 48 kHz, N=1024 / H=256, center=False,
+# 13 chunks of 2 097 152 samples of uniform noise in +-0.9 from seed 9.
+WIRE_CHUNK = 2_097_152
+WIRE_CHUNKS = 13
+WIRE_SEED = 9
+FULL_RANGE = [-32768, 32639, 32640, 32767]
+
+
+def b6_checks(dev, phase, check) -> dict:
+    """Phase 18: B6 vs plain at the probe's full shape and at the wire
+    geometry; phase 19: B4 at 48 kHz -> 300 Hz (its unstaged path) vs both
+    plain forms. Kernel-vs-plain launches: not counted on a path."""
+    import numpy as np
+    import torch
+
+    from crlot_tpu_torch import int8_gemm as b6
+    from crlot_tpu_torch import int8_probe
+    from crlot_tpu_torch.resample import kernel as b4
+    from crlot_tpu_torch.resample.polyphase import resample_grouped_plain
+
+    results = {}
+    t = int8_probe.probe_inputs(int8_probe.F, dev)
+
+    def p18():
+        lines = []
+        for name, (kern, plain) in int8_probe.variants(t).items():
+            got = kern()
+            torch.cuda.synchronize()
+            ok, err = int8_probe.check(name, got, plain(), t)
+            extra = (f", rel to sum|x||b| "
+                     f"{int8_probe.bf16_rel_err(got, t):.3e}"
+                     if name == "pl_bf16" else "")
+            lines.append(f"{name}: {'equal' if ok else 'DIFFERS'} "
+                         f"(max-abs {err:.3e}{extra})")
+            results[name] = err
+            check(ok, lines[-1])
+        rng = np.random.default_rng(18)
+        for c in (1, 2):  # the wire's rows: lda 512, K 2048, 4096 rows
+            x = torch.from_numpy(rng.integers(
+                -128, 128, (c, 4095 * 512 + 2048), dtype=np.int8)).to(dev)
+            kt = torch.from_numpy(rng.integers(
+                -127, 128, (512, 2048), dtype=np.int8)).to(dev)
+            got = b6.i8_gemm_cuda(x, kt, rows=4096, lda=512)
+            want = b6.i8_gemm_plain(x, kt, rows=4096, lda=512)
+            check(torch.equal(got, want), f"B6-i8 wire geometry, {c} ch")
+            lines.append(f"B6-i8 at lda 512, K 2048, {c} x 4096 rows: equal")
+        return "; ".join(lines)
+
+    def p19():
+        x = torch.from_numpy(np.random.default_rng(19).uniform(
+            -1, 1, (2, 48000 * SECONDS)).astype(np.float32)).to(dev)
+        l, m = 1, 160
+        n_out = -(-x.shape[-1] * l // m)
+        _, _, _, w = b4.compact_bank(l, m, None, 120.0)
+        check(b4.geometry(l, m, w)[1] is False, "expected the unstaged path")
+        got = b4.resample_cuda(x, l, m, n_out)
+        bank = b4.resample_bank_plain(x, l, m, n_out)
+        grouped = resample_grouped_plain(x, l, m, n_out)
+        e1 = float((got - bank).abs().max())
+        e2 = float((got - grouped).abs().max())
+        results["b4_300_err"] = max(e1, e2)
+        results["b4_300"] = (x, l, m, n_out)
+        msg = (f"48 kHz -> 300 Hz (M = 160, W = {w}, windows read from L2):"
+               f" max-abs {e1:.3e} vs resample_bank_plain (bit-identical "
+               f"{torch.equal(got, bank)}), {e2:.3e} vs the grouped form")
+        check(e1 <= 1e-5 and e2 <= 1e-5, msg)
+        return msg
+
+    phase("18 B6 vs plain", p18)
+    phase("19 B4 high decimation", p19)
+    return {"results": results, "probe_inputs": t}
+
+
+def wire_path(dev, phase, check, failures) -> dict:
+    """Phases 20-24, with the B6 counters reset just before: the f32
+    blocked streamer, the born-int16 wire tier (both tiers), the full-range
+    codes, `process_wav_file`, and the int8 probe."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch import int8_gemm as b6
+    from crlot_tpu_torch import int8_probe, spectral, wire
+    from crlot_tpu_torch.pipeline import blocked_composed_round_trip
+    from crlot_tpu_torch.streaming_pipeline import BlockedChunkStreamer
+
+    cfg = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=False)
+    edge = NFFT - HOP
+    total = WIRE_CHUNK * WIRE_CHUNKS
+    rng = np.random.default_rng(WIRE_SEED)
+    x_np = rng.uniform(-0.9, 0.9, total + edge).astype(np.float32)[:total]
+    x16_np = np.clip(np.rint(x_np * 32768.0), -32768, 32767).astype(np.int16)
+    x = torch.from_numpy(x_np).to(dev)
+    x16 = torch.from_numpy(x16_np).to(dev)
+    chunks = list(x.split(WIRE_CHUNK))
+    eq = spectral.band_gain([4000.0, 12000.0], [1.0, 0.4, 0.1], SR, NFFT)
+    out = {"results": {}, "rates": {}}
+
+    def stream_f32(fn=None, src=None):
+        st = BlockedChunkStreamer(cfg, fn)
+        ys = [st.feed(c, force=False)
+              for c in (chunks if src is None else src)]
+        ys.append(st.finish(force=False))
+        return torch.cat([y for y in ys if y is not None])
+
+    def stream_i16(tier, chunk=WIRE_CHUNK, fn=None, emit=True):
+        st = wire.I16BlockedStreamer(cfg, fn, tier, emit)
+        ys = [st.feed(c, force=False) for c in x16.split(chunk)]
+        ys.append(st.finish(force=False))
+        return torch.cat([y for y in ys if y is not None])
+
+    def snr(ref, got):
+        ref, got = ref.double(), got.double()
+        return float(10 * torch.log10((ref * ref).sum()
+                                      / ((got - ref) ** 2).sum()))
+
+    def finite(t, shape):
+        check(tuple(t.shape) == tuple(shape), f"shape {tuple(t.shape)}")
+        check(bool(torch.isfinite(t.float()).all()), "non-finite output")
+
+    for k in b6.launches:
+        b6.launches[k] = 0
+    y_f32 = {}
+
+    def p20():
+        y = stream_f32()
+        one = blocked_composed_round_trip(x[None], cfg,
+                                          np.ones(NFFT // 2 + 1))[0]
+        finite(y, (total,))
+        same = torch.equal(y, one)
+        close = torch.allclose(y, one, rtol=3e-6, atol=1e-6)
+        edges = (torch.equal(y[:edge], one[:edge])
+                 and torch.equal(y[-edge:], one[-edge:]))
+        err = float((y - one).abs().max())
+        y_f32["identity"] = y
+        out["results"]["streamer_bitexact"] = same
+        msg = (f"{WIRE_CHUNKS} chunks of {WIRE_CHUNK} vs one-shot: "
+               f"bit-identical {same}, max-abs {err:.3e}, edges exact "
+               f"{edges}; interior snr vs input "
+               f"{snr(x[edge:-edge], y[edge:-edge]):.2f} dB")
+        check(close and edges, msg)
+        return msg
+
+    def p21():
+        lines = []
+        for tier in ("int8x2", "int8x1"):
+            before = b6.launches["limb"]
+            y16 = stream_i16(tier)
+            launched = b6.launches["limb"] - before
+            check(launched == WIRE_CHUNKS,
+                  f"{tier}: {launched} B6-limb launches, {WIRE_CHUNKS} chunks")
+            finite(y16, (total,))
+            small = stream_i16(tier, 524_288)
+            one = stream_i16(tier, total)
+            check(torch.equal(y16, small) and torch.equal(y16, one),
+                  f"{tier}: chunkings differ")
+            yf = stream_i16(tier, emit=False)
+            s_id = snr(x[edge:-edge], yf[edge:-edge])
+            check(s_id >= 90.0, f"{tier}: identity {s_id:.2f} dB")
+            line = (f"{tier}: B6-limb launches +{launched} for {WIRE_CHUNKS}"
+                    f" chunks; 2097152 / 524288 / one chunk bit-identical "
+                    f"(int16 egress); identity interior {s_id:.2f} dB")
+            if tier == "int8x2":
+                s_f = snr(y_f32["identity"], y16.float() / 32768.0)
+                check(s_f >= 85.0, f"vs f32 streamer {s_f:.2f} dB")
+                line += f"; vs the f32 streamer {s_f:.2f} dB"
+            out["results"][f"snr_{tier}"] = s_id
+            lines.append(line)
+        return "; ".join(lines)
+
+    def p22():
+        x_deq = x16.float() * (1.0 / 32768.0)
+        ref = stream_f32(eq, list(x_deq.split(WIRE_CHUNK)))
+        got = stream_i16("int8x2", fn=eq, emit=False)
+        s_eq = snr(ref, got)
+        check(s_eq >= 60.0, f"EQ int8x2 vs f32 EQ stream {s_eq:.2f} dB")
+        # Full range: a full-scale square wave with the codes the
+        # reference's split wraps, one chunk, against a float64 oracle of
+        # the exact interior product and against the plain version.
+        n_full = 16384
+        sq = np.where((np.arange(n_full) // 300) % 2 == 0, 32767, -32768)
+        sq[4000:4000 + 64 * len(FULL_RANGE)] = np.repeat(FULL_RANGE, 64)
+        sq = sq.astype(np.int16)
+        lines = [f"band_gain EQ int8x2 vs the f32 EQ streamer {s_eq:.2f} dB"]
+        inner = slice(edge, n_full - edge)
+        for tier in ("int8x2", "int8x1"):
+            y = wire.i16_round_trip(torch.from_numpy(sq).to(dev), cfg,
+                                    tier=tier, emit_i16=False,
+                                    chunk_samples=n_full).cpu()
+            host = wire.i16_round_trip(torch.from_numpy(sq), cfg, tier=tier,
+                                       emit_i16=False, chunk_samples=n_full)
+            c = wire._i16_kernel_consts(
+                cfg, wire._resolve_blocked_per_bin(cfg, None), tier)
+            kq = (c["k_i8"].astype(np.float64) if tier == "int8x1"
+                  else c["k_hi"].astype(np.float64) * 128 + c["k_lo"])
+            x_ext = np.concatenate([np.zeros(edge), sq.astype(np.float64),
+                                    np.zeros(edge)])
+            rows = np.stack([x_ext[r * 512 : r * 512 + 2048]
+                             for r in range(n_full // 512)])
+            oracle = (rows @ kq).reshape(-1) * (c["k_scale"] / 32768.0)
+            err = float(np.max(np.abs(y.numpy()[inner] - oracle[inner])))
+            same = torch.equal(y[inner], host[inner])
+            check(err <= 2e-6 and same,
+                  f"full range {tier}: vs oracle {err:.3e}, vs host {same}")
+            lines.append(f"full-range codes {FULL_RANGE} {tier}: interior "
+                         f"vs float64 oracle {err:.3e}, bit-identical to the "
+                         f"plain version on the host CPU")
+        return "; ".join(lines)
+
+    def p23():
+        with tempfile.TemporaryDirectory() as tmp:
+            src = np.random.default_rng(SEED).uniform(
+                -0.8, 0.8, (2, SR * SECONDS)).astype(np.float32)
+            infile = os.path.join(tmp, "in.wav")
+            outfile = os.path.join(tmp, "out.wav")
+            pt.write_wav(infile, src, SR, bits=16)
+            data, _ = pt.read_wav(infile)
+            n_written = pt.process_wav_file(infile, outfile, cfg)
+            y, _ = pt.read_wav(outfile)
+            check(n_written == data.shape[-1] and y.shape == data.shape,
+                  f"wrote {n_written}, shape {y.shape}")
+            chunk = 64 * 16 * HOP
+            frames = -(-data.shape[-1] // chunk) * (chunk // HOP)
+            need = (frames - 1) * HOP + NFFT
+            xp = np.pad(data, [(0, 0), (0, need - data.shape[-1])])
+            want = np.stack([
+                pt.streaming_round_trip(torch.from_numpy(xp[c]).to(dev),
+                                        cfg)[0][: data.shape[-1]].cpu().numpy()
+                for c in range(2)])
+            codes = np.rint(np.clip(want, -1, 1) * 32767.0)
+            got_codes = np.rint(y * 32767.0)
+            diff = np.abs(codes - got_codes)
+            check(diff.max() <= 1,
+                  f"codes differ by up to {diff.max()}")
+            return (f"2 ch x {SECONDS} s 16-bit WAV: {n_written} samples per "
+                    f"channel; 16-bit codes equal to the unbroken stream's at "
+                    f"{int((diff == 0).sum())} of {diff.size} "
+                    f"(bit-identical {bool((diff == 0).all())}; max 1 code)")
+
+    probe = {}
+
+    def p24():
+        probe["rows"] = int8_probe.run()
+        lines = []
+        for r in probe["rows"]:
+            if "variant" in r:
+                check(r["match_plain"], f"{r['variant']} differs from plain")
+                lib = ("null" if r["library_us"] is None
+                       else f"{r['library_us']:.2f} us, {r['library']}")
+                lines.append(f"{r['variant']} {r['us_per_call']:.2f} us "
+                             f"{r['tops_1dot']:.1f} TOPS (library {lib})")
+            else:
+                lines.append(f"int8/bf16 rate {r['i8_over_bf16']:.3f}, "
+                             f"3-dot/bf16 {r['i8_3dot_over_bf16']:.3f}")
+        return "; ".join(lines)
+
+    phase("20 blocked f32 streamer", p20)
+    phase("21 wire tier, both tiers", p21)
+    phase("22 wire EQ and full range", p22)
+    phase("23 process_wav_file", p23)
+    phase("24 int8 probe", p24)
+    counts = dict(b6.launches)
+    log("wire and probe path launches: " + ", ".join(
+        f"B6-{k} {v}" for k, v in counts.items()))
+    if not all(counts.values()):
+        failures.append("launch counts (path 4)")
+        log("FAIL launch counts: a kernel of the path was not launched")
+    out.update(counts=counts, probe=probe, x=x, x16=x16, chunks=chunks,
+               stream_f32=stream_f32, stream_i16=stream_i16)
+    return out
+
+
+def wire_timings(dev, path4, path_b6) -> dict:
+    """Sustained samples/s of the f32 streamer and both wire tiers on the
+    device-resident stream; B6's plain versions at the probe shape (the
+    kernels were timed by the probe, phase 24); B6-limb at one wire chunk
+    and B4 at 48 kHz -> 300 Hz against their plain versions; logs them."""
+    import torch
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch import int8_gemm as b6
+    from crlot_tpu_torch import int8_probe, wire
+
+    cfg = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=False)
+    timing = {}
+    total = WIRE_CHUNK * WIRE_CHUNKS
+    timing["stream_f32"] = total / e2e_seconds(path4["stream_f32"])
+    for tier in ("int8x2", "int8x1"):
+        timing[f"stream_{tier}"] = total / e2e_seconds(
+            lambda: path4["stream_i16"](tier))
+    log(f"e2e sustained stream, {WIRE_CHUNKS} device-resident chunks of "
+        f"{WIRE_CHUNK} (mono, {total} samples): f32 BlockedChunkStreamer "
+        f"{timing['stream_f32']:.4e} samples/s; wire int8x2 "
+        f"{timing['stream_int8x2']:.4e}; wire int8x1 "
+        f"{timing['stream_int8x1']:.4e} (int16 egress; host clock, "
+        f"synchronized, median of {REPS})")
+    t = path_b6["probe_inputs"]
+    for name, (_, plain) in int8_probe.variants(t).items():
+        timed(timing, f"{name}_plain", plain)
+    log("time B6 plain versions at the probe shape: " + "; ".join(
+        f"{name} {ms(timing, name + '_plain')}"
+        for name in int8_probe.variants(t)))
+    x16 = path4["x16"][: WIRE_CHUNK + 2 * (NFFT - HOP)][None].contiguous()
+    hi, lo = wire.i16_limbs(x16)
+    rb = wire._resolve_blocked_per_bin(cfg, None)
+    kh, kl = wire._i16_limbs_on(cfg, rb, "int8x2", hi.device)
+    rows = WIRE_CHUNK // 512
+    timed(timing, "limb_wire", lambda: b6.limb_gemm_cuda(
+        hi, lo, kh, kl, "wire2", 1e-5, rows=rows, lda=512))
+    timed(timing, "limb_wire_plain", lambda: b6.limb_gemm_plain(
+        hi, lo, kh, kl, "wire2", 1e-5, rows=rows, lda=512))
+    ops = 4 * 2.0 * rows * 512 * 2048
+    log(f"time B6-limb at one wire chunk (int8x2, {rows} rows x 512 x 2048, "
+        f"4 limb products, {ops / 1e9:.1f} G int8 ops): kernel "
+        f"{ms(timing, 'limb_wire')}, plain {ms(timing, 'limb_wire_plain')}; "
+        f"{ops / (timing['limb_wire'] * 1e-3) / 1e12:.1f} TOPS")
+    x300, l, m, n_out = path_b6["results"]["b4_300"]
+    from crlot_tpu_torch.resample import kernel as b4
+
+    timed(timing, "b4_300", lambda: b4.resample_cuda(x300, l, m, n_out))
+    timed(timing, "b4_300_bank",
+          lambda: b4.resample_bank_plain(x300, l, m, n_out))
+    log(f"time B4 48->0.3 kHz (unstaged) kernel {ms(timing, 'b4_300')}, "
+        f"plain (resample_bank_plain) {ms(timing, 'b4_300_bank')} "
+        f"([2, {x300.shape[-1]}] -> [2, {n_out}])")
     return timing
 
 

@@ -1,10 +1,11 @@
-"""crlot-tpu-torch: crlot-tpu's round-trip, resample and demo paths on PyTorch + CUDA.
+"""crlot-tpu-torch: crlot-tpu's round-trip, streaming, wire, resample and demo paths on PyTorch + CUDA.
 
 A port of `crlot_tpu` (JAX on a TPU, kept beside it as the reference) to
 PyTorch on an NVIDIA H100. Plain tensor code is torch; the Pallas kernels
 of those paths are hand-written CUDA C++ for Hopper (`csrc/`),
-built with nvcc at first use. Importing this package imports
-neither jax, crlot_tpu nor triton, and builds nothing.
+built with nvcc at first use. Array-like input goes to the card unless the
+caller passes `device="cpu"` (`core/device.py`). Importing this package
+imports neither jax, crlot_tpu nor triton, and builds nothing.
 """
 
 from .core.types import (
@@ -29,6 +30,12 @@ from .ola.reference import overlap_add, overlap_add_normalized
 from .pipeline import formulation_for, istft, resampled_stft, round_trip, stft
 from .resample.polyphase import resample, resample_chunked
 from .convolve import convolve
+from .streaming_pipeline import (
+    BlockedChunkStreamer,
+    process_wav_file,
+    streaming_round_trip,
+)
+from .wire import I16BlockedStreamer, i16_round_trip
 from .window.windows import get_window
 
 from . import (  # noqa: E402,F401

@@ -20,6 +20,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .core import device as _device
+from .core.types import FftPrecision
 from .fft.matmul_backend import hopblock_apply
 
 _HOP = 256  # output block, as in the reference
@@ -49,18 +51,41 @@ def _toeplitz_on(taps_bytes: bytes, hop: int,
     return torch.from_numpy(_toeplitz_kernel(taps_bytes, hop)).to(device)
 
 
-def convolve(x, taps, mode: str = "full") -> torch.Tensor:
+# The reference's `precision=` values: None, its FftPrecision tiers, and
+# jax.lax.Precision's DEFAULT / HIGH / HIGHEST (by name or as a string).
+_PRECISION_NAMES = ("default", "high", "highest")
+
+
+def _check_precision(precision) -> None:
+    """Accept the reference's precision argument. Every tier is an IEEE
+    fp32 product here (HIGHEST and HIGH alike, never TF32: ROADMAP's ground
+    rule; DEFAULT, a single bf16 pass on the TPU, gets fp32 too). An
+    unknown value raises."""
+    if precision is None or precision in (FftPrecision.HIGHEST,
+                                          FftPrecision.HIGH):
+        return
+    name = getattr(precision, "name", precision)
+    if not (isinstance(name, str) and name.lower() in _PRECISION_NAMES):
+        raise ValueError(f"unknown precision {precision!r}; one of None, "
+                         f"FftPrecision.HIGHEST / HIGH, {_PRECISION_NAMES}")
+
+
+def convolve(x, taps, mode: str = "full", precision=None,
+             device=None) -> torch.Tensor:
     """Linear convolution of `[..., T]` with 1-D `taps` (len L <= a few
-    thousand -- kernel memory is ~L*hop floats), on x's device. Matches
-    numpy.convolve semantics for `mode` in {"full", "same", "valid"}."""
+    thousand -- kernel memory is ~L*hop floats), on x's device (an
+    array-like goes to `device`, default "cuda"). Matches numpy.convolve
+    semantics for `mode` in {"full", "same", "valid"}. `precision` takes
+    the reference's values; every tier is an IEEE fp32 product here."""
     if mode not in ("full", "same", "valid"):
         raise ValueError(f"unknown mode: {mode}")
+    _check_precision(precision)
     if isinstance(taps, torch.Tensor):
         taps = taps.detach().cpu().numpy()
     taps64 = np.asarray(taps, np.float64)
     if taps64.ndim != 1 or taps64.size == 0:
         raise ValueError("taps must be a non-empty 1-D array")
-    x = torch.as_tensor(x, dtype=torch.float32)
+    x = _device.place(x, device, torch.float32)
     t = x.shape[-1]
     ll = taps64.size
     hop = _HOP

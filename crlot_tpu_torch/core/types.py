@@ -6,8 +6,9 @@ a `crlot_tpu` config field by field. Configs are frozen and hashable: they key
 the host-side constant caches.
 
 Precision on CUDA: `FftPrecision.HIGH` and `HIGHEST` both mean IEEE fp32
-matrix products (TF32 is never enabled by this package). `INT8X2` has no
-CUDA formulation yet and is refused at construction.
+matrix products (TF32 is never enabled by this package). `INT8X2` (the
+reference's int8 DFT tier, `fft/int8_backend.py`) has no CUDA formulation
+yet and is refused at construction; its dots would run on B6-fusedq.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ class PadMode(enum.Enum):
 
 class FftPrecision(enum.Enum):
     """HIGH and HIGHEST are both IEEE fp32 on CUDA. INT8X2 (the reference's
-    int8 two-limb tier) is not ported: ROADMAP queue B, kernel B6."""
+    int8 two-limb DFT tier) is not ported yet (ROADMAP queue A11)."""
 
     HIGHEST = "highest"
     HIGH = "high"
@@ -121,7 +122,7 @@ class StftConfig:
         if self.fft_precision == FftPrecision.INT8X2:
             raise NotImplementedError(
                 "FftPrecision.INT8X2 is not ported to CUDA yet "
-                "(ROADMAP queue B, kernel B6: the int8 wire tier)"
+                "(ROADMAP queue A11: int8_backend.dot_i8x2 on B6-fusedq)"
             )
 
     @property

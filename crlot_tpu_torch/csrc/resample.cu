@@ -32,6 +32,16 @@
 //    conflicts. R is the largest of 8, 4, 2, 1 whose segment fits in
 //    shared memory.
 //
+// Where no segment fits in shared memory, even at R = 1 (integer
+// decimation by M above 141, e.g. 48 kHz -> 300 Hz: M = 160, W = 25 k
+// taps), `windows_kernel` takes over: the segment is not staged; each
+// thread owns one output and reads its own window of x from L2 in tiles of
+// 32 taps, which the CTA loads cooperatively (one warp load = 32
+// consecutive samples of one window, coalesced) and transposes through
+// shared memory, so each thread then reads its 32 samples without bank
+// conflicts. (Read straight from global memory, the windows of a warp's
+// outputs lie M floats apart: every load touched 32 cache lines.)
+//
 // Numerics: each output is one fp32 FMA chain in ascending k (ascending w),
 // starting from 0.0f, in an order that does not depend on where the output
 // sits in its tile or on R. Chunked and one-shot resampling therefore agree
@@ -85,6 +95,51 @@ resample_kernel(const float* __restrict__ x, long long t_in,
   }
 }
 
+constexpr int kTileK = 32;  // taps of one window per shared tile
+
+__global__ void __launch_bounds__(kThreads)
+windows_kernel(const float* __restrict__ x, long long t_in,
+               const float* __restrict__ taps_t,
+               const int* __restrict__ offsets, float* __restrict__ out,
+               int n_out, int l, int m, int tp, int tau_min, int p, int q) {
+  __shared__ float tile[kTileK][kThreads + 1];
+  __shared__ long long win0[kThreads];  // x index of each thread's tap 0
+  const long long c = blockIdx.y;
+  const float* xc = x + c * t_in;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i = blockIdx.z * p + tid % p;
+  const int b = blockIdx.x * q + tid / p;
+  const long long j = (long long)b * l + i;
+  const bool active = tid < p * q && i < l && j < n_out;
+  win0[tid] = active ? (long long)b * m + __ldg(offsets + i) + tau_min
+                     : (long long)-1 << 62;
+  __syncthreads();
+  const float* tap = taps_t + i;
+  float acc = 0.0f;
+  for (int k0 = 0; k0 < tp; k0 += kTileK) {
+    // Warp w fills the columns of threads 32w .. 32w + 31, one window
+    // each: all 32 loads are issued before the first store, so their L2
+    // latencies overlap.
+    float v[32];
+#pragma unroll
+    for (int jj = 0; jj < 32; ++jj) {
+      const long long g = win0[warp * 32 + jj] + k0 + lane;
+      v[jj] = (k0 + lane < tp && g >= 0 && g < t_in) ? __ldg(xc + g) : 0.0f;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 32; ++jj) tile[lane][warp * 32 + jj] = v[jj];
+    __syncthreads();
+    const int kn = tp - k0 < kTileK ? tp - k0 : kTileK;
+    if (active) {
+      for (int k = 0; k < kn; ++k)
+        acc = __fmaf_rn(__ldg(tap + (long long)(k0 + k) * l), tile[k][tid],
+                        acc);
+    }
+    __syncthreads();
+  }
+  if (active) out[c * n_out + j] = acc;
+}
+
 template <int R>
 int launch(const float* x, long long t_in, const float* taps_t,
            const int* offsets, float* out, int channels, int n_out, int l,
@@ -129,5 +184,10 @@ extern "C" int crlot_resample(const float* x, long long t_in,
                                 n_out, l, m, tp, w, tau_min, p, q, bytes, st);
     }
   }
-  return (int)cudaErrorInvalidValue;  // the wrapper checks this first
+  // No segment fits in shared memory: each thread reads its own window.
+  const long long blocks = ((long long)n_out + l - 1) / l;
+  dim3 grid((unsigned)((blocks + q - 1) / q), channels, (l + p - 1) / p);
+  windows_kernel<<<grid, kThreads, 0, st>>>(x, t_in, taps_t, offsets, out,
+                                            n_out, l, m, tp, tau_min, p, q);
+  return (int)cudaGetLastError();
 }

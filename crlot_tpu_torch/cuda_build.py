@@ -68,6 +68,14 @@ _SIGNATURES = {
     "crlot_axpy_windowed": [_VP, _VP, _VP, _F, _VP, _LL, _VP],
     # (acc, norm, eps, out, cleared, n, stream)
     "crlot_normalize_and_clear": [_VP, _VP, _F, _VP, _VP, _LL, _VP],
+    # (mode, a0, a1, lda, a_batch, b0, b1, k_bytes, out, ldc, c_batch, m, n,
+    #  batch, scale, stream)
+    "crlot_b6_gemm": [
+        _I, _VP, _VP, _LL, _LL, _VP, _VP, _I, _VP, _LL, _LL, _I, _I, _I, _F,
+        _VP,
+    ],
+    # (x, ldx, b0, b1, k, out, ldc, m, n, stream)
+    "crlot_b6_fusedq": [_VP, _LL, _VP, _VP, _I, _VP, _LL, _I, _I, _VP],
 }
 
 

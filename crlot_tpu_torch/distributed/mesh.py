@@ -40,11 +40,20 @@ class Mesh:
 
 
 def visible_devices() -> list:
-    """Every visible CUDA device, else the CPU."""
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    """Every visible CUDA device (none without a card). The CPU is never a
+    default: a CPU mesh lists its devices (`devices=["cpu"] * n`)."""
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _default_devices() -> list:
+    devices = visible_devices()
+    if not devices:
+        raise RuntimeError(
+            "no CUDA device is visible; pass devices=[...] (e.g. ['cpu'] * n) "
+            "to build a mesh on the CPU")
+    return devices
 
 
 def make_mesh(
@@ -53,10 +62,10 @@ def make_mesh(
     devices: Optional[Sequence] = None,
 ) -> Mesh:
     """Build a (channel, time) mesh from the first channel*time entries of
-    `devices` (default: `visible_devices()`). `time=None` uses all
-    remaining devices."""
+    `devices` (default: `visible_devices()`, which raises without a card).
+    `time=None` uses all remaining devices."""
     devices = [torch.device(d) for d in
-               (devices if devices is not None else visible_devices())]
+               (devices if devices is not None else _default_devices())]
     n = len(devices)
     if time is None:
         if n % channel != 0:
@@ -81,7 +90,7 @@ def auto_mesh(
     a longer time axis; with `channels` (the data's channel count) the
     channel axis divides it."""
     if devices is None:
-        devices = visible_devices()
+        devices = _default_devices()
     n = n_devices if n_devices is not None else len(devices)
     channel = 1
     for c in range(int(n**0.5), 0, -1):

@@ -39,6 +39,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..core import device as _device
 from ..core.consts import as_f32, const_on
 from ..core.types import FftBackend, FftPrecision, StftConfig
 from ..fft import dispatch as _fft
@@ -253,6 +254,7 @@ def sharded_round_trip(
     valid_start: int = 0,
     return_metrics: bool = False,
     allow_blocked: bool = True,
+    device=None,
 ):
     """Distributed round-trip over a (channel, time) mesh.
 
@@ -263,14 +265,17 @@ def sharded_round_trip(
 
     With `return_metrics=True` returns `(y, metrics)`: `metrics` holds
     {signal_energy, noise_energy, peak} reduced over the mesh (0-d tensors
-    on the output's device; `metrics_report` converts them to dB)."""
+    on the output's device; `metrics_report` converts them to dB).
+
+    A tensor is sharded from its own device; an array-like first goes to
+    `device` (default "cuda", which raises without a card)."""
     if mesh is None:
         mesh = auto_mesh()
     if cfg.center:
         raise ValueError(
             "sharded pipeline requires center=False; pad on the host first"
         )
-    x = torch.as_tensor(x, dtype=torch.float32)
+    x = _device.place(x, device, torch.float32)
     channels, total_len = x.shape
     if valid_len is None:
         valid_len = total_len
@@ -396,7 +401,7 @@ def sharded_round_trip_jit(cfg: StftConfig, mesh: Mesh, spectral_fn=None):
     """A closure over (cfg, mesh, spectral_fn) for repeated use (the
     reference jits it; PyTorch runs eagerly)."""
 
-    def run(x):
-        return sharded_round_trip(x, cfg, mesh, spectral_fn)
+    def run(x, device=None):
+        return sharded_round_trip(x, cfg, mesh, spectral_fn, device=device)
 
     return run

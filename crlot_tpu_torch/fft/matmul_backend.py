@@ -9,7 +9,8 @@ Counterpart of the slice's part of `crlot_tpu/fft/matmul_backend.py`:
 * the blocked formulation: that map plus the overlap-add folded into a
   hop-block Toeplitz kernel applied straight to the padded signal
   (`hopblock_apply`), with the head/tail blocks recomputed exactly from the
-  real boundary frames (`blocked_edge_patch`).
+  real boundary frames (`blocked_edge_patch`), and the halo a streaming
+  chunk carries to reproduce it (`blocked_chunk_geometry`).
 
 The float64 host design code is copied, not imported (the port never
 imports the JAX package); the tests hold every array byte-identical to the
@@ -290,6 +291,29 @@ def hopblock_apply(
         )
         acc = term if acc is None else acc + term
     return acc.reshape(acc.shape[:-2] + (nb * block,))[..., :n_out]
+
+
+def blocked_chunk_geometry(nfft: int, hop: int, group=None) -> dict:
+    """Context a halo-extended streaming chunk must carry so its hop-block
+    Toeplitz rows read exactly what the one-shot's rows read: output block
+    bg consumes input [bg*gh - left_ctx, bg*gh - left_ctx + mg*gh). With
+    G | 2(R-1) (`blocked_group_for`) right_ctx == N - hop."""
+    if group is None:
+        group = blocked_group_for(nfft, hop)
+        assert group is not None, (nfft, hop)
+    r_count = nfft // hop
+    gh = group * hop
+    edge = (r_count - 1) * hop
+    l_g = edge + nfft + (group - 1) * hop
+    mg = -(-l_g // gh)
+    return {
+        "group": group,
+        "gh": gh,
+        "mg": mg,
+        "left_ctx": edge,
+        "right_ctx": mg * gh - gh - edge,
+        "edge": edge,
+    }
 
 
 def blocked_patch_span(nfft: int, hop: int) -> int:

@@ -1,0 +1,303 @@
+"""B6: the int8 limb dots and their bf16 twin -- wrappers and plain versions.
+
+Counterpart of the four Pallas kernels of `scripts/bench_pallas_int8_probe.py`
+(K8 `_kernel_bf16`, K9 `_kernel_i8`, K10 `_kernel_i8_3dot`, K11
+`_kernel_i8_fusedq`) and of the born-int16 wire tier's interior dots
+(`crlot_tpu/wire.py:105-179`). The kernels live in `csrc/int8_gemm.cu`.
+
+Operands. A product is C = A @ B with B given as `bt` [N, K] (K-contiguous,
+laid out once at design time). A is either a matrix [..., M, K] or, with
+`rows` and `lda`, the overlapping windows of a signal [..., L]: row r is
+x[..., r*lda : r*lda + K], read in place. The wire tier calls it with
+lda = gh and K = mg*gh, which is the reference's m-ordered sum of mg
+shifted dots (`_hopblock_apply_i8`) in one exact int32 product.
+
+* `i8_gemm` (B6-i8, K9): int8 x int8 -> int32.
+* `limb_gemm` (B6-limb, K10 and the wire): several limb-pair products in
+  one launch, each an exact int32 accumulator, and a fixed f32 epilogue
+  picked by name (`EPILOGUES`): "probe3" f32(hh)*128 + f32(hl + lh);
+  "wire2" (hh*32768 + lh*128 + hl*256 + ll) * scale; "wire1"
+  (h*256 + l) * scale. The wire's low limb is unsigned (0..255).
+* `bf16_gemm` (B6-bf16, K8): bf16 x bf16 -> f32.
+* `fusedq_gemm` (B6-fusedq, K11): f32 rows quantized per row to two int8
+  limbs in the kernel, then the three dots of "probe3", times s*128.
+
+Plain versions. Integer products are exact: int32 `torch.matmul` on the
+CPU, float64 on any other device cast back (every sum is far below 2^53).
+The f32 epilogues convert the same accumulators and combine them in the
+same order as the kernels, so kernel and plain agree bit for bit on every
+integer variant. A CPU tensor takes the plain version; any other tensor
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from . import cuda_build
+
+# B6 kernel launches since import (or the caller's reset), per kernel.
+launches: Dict[str, int] = {"i8": 0, "limb": 0, "bf16": 0, "fusedq": 0}
+
+# Epilogue descriptors of B6-limb: (kernel mode, B operands); every limb
+# product takes two A operands, the high and the low limb.
+EPILOGUES = {"probe3": (1, 2), "wire2": (2, 2), "wire1": (3, 1)}
+_MODE_I32, _MODE_BF16 = 0, 4
+TILE = 64  # the kernel's N and K-byte granularity
+FUSEDQ_MAX_K = 1024
+
+# K11's quantization constants (the probe's :68-70). XLA folds the probe's
+# `/ 16256.0` (a division by a constant) into a product by the float32
+# reciprocal; the kernel and the plain version do the same, which the tests
+# hold bit for bit against the interpreted kernel. `x / s` stays a divide.
+_INV_QMAX = float(np.float32(1.0 / 16256.0))  # 127 * 128 = 16256
+_AMAX_FLOOR = 1e-30
+
+
+def windows(x: torch.Tensor, rows: int, lda: int, k: int) -> torch.Tensor:
+    """[..., L] -> [..., rows, K] view: row r = x[..., r*lda : r*lda + K]."""
+    if rows < 1 or (rows - 1) * lda + k > x.shape[-1]:
+        raise ValueError(
+            f"{rows} rows of {k} at stride {lda} need "
+            f"{(rows - 1) * lda + k} samples, have {x.shape[-1]}")
+    return x.unfold(-1, k, lda)[..., :rows, :]
+
+
+def _as_signal(a: torch.Tensor, rows, lda):
+    """(x [..., L], rows, lda) for a matrix [..., M, K] (rows None) or a
+    signal with its window geometry."""
+    if rows is None:
+        if a.ndim < 2:
+            raise ValueError(f"A must be [..., M, K], got {tuple(a.shape)}")
+        return a.contiguous().flatten(-2), a.shape[-2], a.shape[-1]
+    return a, rows, lda
+
+
+def int_dot(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """Exact integer a @ bt.T as int32 (a [..., M, K] int, bt [N, K])."""
+    if a.device.type == "cpu":
+        return torch.matmul(a.to(torch.int32), bt.to(torch.int32).T)
+    return torch.matmul(a.double(), bt.double().T).to(torch.int32)
+
+
+def combine(accs, epilogue: str, scale: float = 1.0) -> torch.Tensor:
+    """The f32 epilogue of B6-limb on its int32 accumulators, in the
+    kernel's order (each product by a power of two is exact)."""
+    f = [a.float() for a in accs]
+    if epilogue == "probe3":
+        return f[0] * 128.0 + f[1]
+    s = torch.tensor(scale, dtype=torch.float32, device=f[0].device)
+    if epilogue == "wire2":
+        return (f[0] * 32768.0 + f[1] * 128.0 + f[2] * 256.0 + f[3]) * s
+    if epilogue == "wire1":
+        return (f[0] * 256.0 + f[1]) * s
+    raise ValueError(f"unknown epilogue {epilogue!r}; one of "
+                     f"{list(EPILOGUES)}")
+
+
+def _accumulators(epilogue, a, b):
+    """The int32 accumulators of an epilogue from the A rows and B
+    operands, as the kernel pairs them."""
+    if epilogue == "probe3":  # hh, and hl + lh summed in int32
+        return [int_dot(a[0], b[0]), int_dot(a[0], b[1]) + int_dot(a[1], b[0])]
+    if epilogue == "wire2":  # hh, lh, hl, ll
+        return [int_dot(a[0], b[0]), int_dot(a[1], b[0]),
+                int_dot(a[0], b[1]), int_dot(a[1], b[1])]
+    if epilogue == "wire1":
+        return [int_dot(a[0], b[0]), int_dot(a[1], b[0])]
+    raise ValueError(f"unknown epilogue {epilogue!r}; one of "
+                     f"{list(EPILOGUES)}")
+
+
+# --- plain versions -------------------------------------------------------
+
+
+def i8_gemm_plain(a, bt, rows=None, lda=None) -> torch.Tensor:
+    x, rows, lda = _as_signal(a, rows, lda)
+    return int_dot(windows(x, rows, lda, bt.shape[1]), bt)
+
+
+def limb_gemm_plain(a0, a1, b0, b1, epilogue, scale=1.0, rows=None,
+                    lda=None) -> torch.Tensor:
+    x0, _, _ = _as_signal(a0, rows, lda)
+    x1, rows, lda = _as_signal(a1, rows, lda)
+    k = b0.shape[1]
+    a = [windows(x0, rows, lda, k), windows(x1, rows, lda, k)]
+    return combine(_accumulators(epilogue, a, [b0, b1]), epilogue, scale)
+
+
+def bf16_gemm_plain(a, bt) -> torch.Tensor:
+    """a [..., M, K] bf16 @ bt.T in f32 (each bf16 product is exact in
+    f32; the sums run in the backend's order)."""
+    return torch.matmul(a.float(), bt.float().T)
+
+
+def quantize_rows(x: torch.Tensor):
+    """K11's in-kernel quantization of f32 rows: (hi, lo) int8 limbs and
+    the per-row s*128 (the probe's :66-70; round = half to even)."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    inv = torch.tensor(_INV_QMAX, dtype=torch.float32, device=x.device)
+    s = torch.clamp_min(amax, _AMAX_FLOOR) * inv
+    q = torch.round(x / s)
+    hi = torch.clamp(torch.round(q * (1.0 / 128.0)), -127.0, 127.0)
+    lo = q - hi * 128.0
+    return hi.to(torch.int8), lo.to(torch.int8), s * 128.0
+
+
+def fusedq_gemm_plain(x, bt, b2t) -> torch.Tensor:
+    xh, xl, s128 = quantize_rows(x.float())
+    acc = combine(_accumulators("probe3", [xh, xl], [bt, b2t]), "probe3")
+    return acc * s128
+
+
+# --- kernels ---------------------------------------------------------------
+
+
+def _check_cuda(what, *tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{what} needs CUDA tensors, got {t.device}")
+        if t.device != dev:
+            raise ValueError(f"{what}: tensors on {dev} and {t.device}")
+
+
+def _check_b(what, bt, dtype, k=None):
+    if bt.dtype != dtype or bt.ndim != 2 or not bt.is_contiguous():
+        raise ValueError(f"{what}: B must be a contiguous {dtype} [N, K], got "
+                         f"{bt.dtype} {tuple(bt.shape)}")
+    n, kb = bt.shape[0], bt.shape[1] * bt.element_size()
+    if n % TILE or kb % TILE or (k is not None and bt.shape[1] != k):
+        raise ValueError(f"{what}: B [N, K] = {tuple(bt.shape)} must have N "
+                         f"and K bytes multiples of {TILE}")
+
+
+def _launch(what, mode, xs, bts, rows, lda, out_dtype, scale=1.0):
+    """One B6 gemm launch on signals xs [..., L] (same shape) and Bt's."""
+    x0 = xs[0]
+    _check_cuda(what, *xs, *bts)
+    n, k = bts[0].shape
+    es = x0.element_size()
+    lead = x0.shape[:-1]
+    batch = int(np.prod(lead)) if lead else 1
+    length = x0.shape[-1]
+    for x in xs:
+        if x.shape != x0.shape or not x.is_contiguous():
+            raise ValueError(f"{what}: A operands must be contiguous and of "
+                             f"one shape, got {[tuple(v.shape) for v in xs]}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what}: A must be 16-byte aligned")
+    windows(x0, rows, lda, k)  # raises if the rows overrun the signal
+    if (lda * es) % 16 or (batch > 1 and (length * es) % 16):
+        raise ValueError(f"{what}: row stride {lda} and signal length "
+                         f"{length} must be multiples of 16 bytes")
+    out = torch.empty(lead + (rows, n), dtype=out_dtype, device=x0.device)
+    lib = cuda_build.load_library()
+    status = lib.crlot_b6_gemm(
+        mode, x0.data_ptr(), xs[-1].data_ptr(), lda * es, length * es,
+        bts[0].data_ptr(), bts[-1].data_ptr(), k * es, out.data_ptr(), n,
+        rows * n, rows, n, batch, float(np.float32(scale)),
+        cuda_build.stream_handle(x0.device))
+    cuda_build.check(status, "crlot_b6_gemm")
+    return out
+
+
+def i8_gemm_cuda(a, bt, rows=None, lda=None) -> torch.Tensor:
+    """Launch B6-i8: int8 A (matrix or windows) @ bt.T -> int32."""
+    global launches
+    x, rows, lda = _as_signal(a, rows, lda)
+    if x.dtype != torch.int8:
+        raise ValueError(f"B6-i8 takes int8 A, got {x.dtype}")
+    _check_b("B6-i8", bt, torch.int8)
+    out = _launch("B6-i8", _MODE_I32, [x], [bt], rows, lda, torch.int32)
+    launches["i8"] += 1
+    return out
+
+
+def limb_gemm_cuda(a0, a1, b0, b1, epilogue, scale=1.0, rows=None,
+                   lda=None) -> torch.Tensor:
+    """Launch B6-limb: the limb pairs of `epilogue` in one launch."""
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"unknown epilogue {epilogue!r}; one of "
+                         f"{list(EPILOGUES)}")
+    mode, nb = EPILOGUES[epilogue]
+    x0, _, _ = _as_signal(a0, rows, lda)
+    x1, rows, lda = _as_signal(a1, rows, lda)
+    if x0.dtype != torch.int8:
+        raise ValueError(f"B6-limb: the high limb must be int8, got "
+                         f"{x0.dtype}")
+    low = torch.uint8 if epilogue.startswith("wire") else torch.int8
+    if x1.dtype != low:
+        raise ValueError(f"B6-limb {epilogue}: the low limb must be {low}, "
+                         f"got {x1.dtype}")
+    bts = [b0, b1][:nb]
+    for bt in bts:
+        _check_b("B6-limb", bt, torch.int8, k=b0.shape[1])
+    out = _launch("B6-limb", mode, [x0, x1], bts, rows, lda, torch.float32,
+                  scale)
+    launches["limb"] += 1
+    return out
+
+
+def bf16_gemm_cuda(a, bt) -> torch.Tensor:
+    """Launch B6-bf16: a [..., M, K] bf16 @ bt.T -> f32."""
+    x, rows, lda = _as_signal(a, None, None)
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"B6-bf16 takes bf16 A, got {x.dtype}")
+    _check_b("B6-bf16", bt, torch.bfloat16)
+    out = _launch("B6-bf16", _MODE_BF16, [x], [bt], rows, lda, torch.float32)
+    launches["bf16"] += 1
+    return out
+
+
+def fusedq_gemm_cuda(x, bt, b2t) -> torch.Tensor:
+    """Launch B6-fusedq: x f32 [M, K] quantized per row in the kernel."""
+    _check_cuda("B6-fusedq", x, bt, b2t)
+    if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
+        raise ValueError(f"B6-fusedq takes contiguous f32 [M, K], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    m, k = x.shape
+    if k % 128 or k > FUSEDQ_MAX_K or x.data_ptr() % 16:
+        raise ValueError(f"B6-fusedq: K = {k} must be a multiple of 128, at "
+                         f"most {FUSEDQ_MAX_K}, 16-byte aligned")
+    for b in (bt, b2t):
+        _check_b("B6-fusedq", b, torch.int8, k=k)
+    n = bt.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    lib = cuda_build.load_library()
+    status = lib.crlot_b6_fusedq(
+        x.data_ptr(), k, bt.data_ptr(), b2t.data_ptr(), k, out.data_ptr(), n,
+        m, n, cuda_build.stream_handle(x.device))
+    cuda_build.check(status, "crlot_b6_fusedq")
+    launches["fusedq"] += 1
+    return out
+
+
+# --- dispatch: the plain version for a CPU tensor, else the kernel ---------
+
+
+def i8_gemm(a, bt, rows: Optional[int] = None, lda: Optional[int] = None):
+    if a.device.type == "cpu":
+        return i8_gemm_plain(a, bt, rows, lda)
+    return i8_gemm_cuda(a, bt, rows, lda)
+
+
+def limb_gemm(a0, a1, b0, b1, epilogue, scale=1.0, rows=None, lda=None):
+    if a0.device.type == "cpu":
+        return limb_gemm_plain(a0, a1, b0, b1, epilogue, scale, rows, lda)
+    return limb_gemm_cuda(a0, a1, b0, b1, epilogue, scale, rows, lda)
+
+
+def bf16_gemm(a, bt):
+    if a.device.type == "cpu":
+        return bf16_gemm_plain(a, bt)
+    return bf16_gemm_cuda(a, bt)
+
+
+def fusedq_gemm(x, bt, b2t):
+    if x.device.type == "cpu":
+        return fusedq_gemm_plain(x, bt, b2t)
+    return fusedq_gemm_cuda(x, bt, b2t)

@@ -1,7 +1,9 @@
 """WAV I/O: host-side reader/writer with the reference's format contract.
 
 A numpy copy of `crlot_tpu/io/wav.py` (the port never imports the JAX
-package); arrays are [channels, frames] float32, as there.
+package): `read_wav`, `write_wav` and the reader / writer classes
+`WavReader`, `WavWriter` and `WavStreamReader` (chunked decode for long
+streams); arrays are [channels, frames] float32, as there.
 
 Reference: io/wav.{h,cc} over dr_wav. Contract carried over:
   - reader validates channels in {1,2} (strict mode), bits in {16,24,32},
@@ -186,3 +188,176 @@ def write_wav(
         "float" if float_format else "pcm",
     )
 
+
+class WavReader:
+    """Open/inspect/read API mirroring the reference (io/wav.h:11-40)."""
+
+    def __init__(self, path: str, strict: bool = True) -> None:
+        self._data, self._rate = read_wav(path, strict=strict)
+        self.path = path
+
+    @property
+    def channels(self) -> int:
+        return self._data.shape[0]
+
+    @property
+    def sample_rate(self) -> int:
+        return self._rate
+
+    @property
+    def num_frames(self) -> int:
+        return self._data.shape[1]
+
+    def read_all(self) -> np.ndarray:
+        """All samples as float32 [channels, frames]."""
+        return self._data
+
+    def read(self, start: int, count: int) -> np.ndarray:
+        return self._data[:, start : start + count]
+
+
+class WavWriter:
+    """Open-with-format/write API mirroring the reference (io/wav.h:42-72)."""
+
+    def __init__(
+        self,
+        path: str,
+        channels: int,
+        sample_rate: int,
+        bits: int = 16,
+        float_format: bool = False,
+        strict: bool = True,
+    ) -> None:
+        if channels < 1 or (strict and channels > 2):
+            raise WavFormatError(f"unsupported channel count {channels}")
+        if not float_format and bits not in _VALID_BITS:
+            raise WavFormatError(f"unsupported bit depth {bits}")
+        self.path = path
+        self.channels = channels
+        self.sample_rate = sample_rate
+        self.bits = bits
+        self.float_format = float_format
+        self.strict = strict
+        self._blocks = []
+
+    def write(self, data: np.ndarray) -> None:
+        x = np.asarray(data, dtype=np.float32)
+        if x.ndim == 1:
+            x = x[None, :]
+        if x.shape[0] != self.channels:
+            raise ValueError(f"expected {self.channels} channels, got {x.shape[0]}")
+        self._blocks.append(x)
+
+    def close(self) -> None:
+        data = (
+            np.concatenate(self._blocks, axis=1)
+            if self._blocks
+            else np.zeros((self.channels, 0), dtype=np.float32)
+        )
+        write_wav(
+            self.path,
+            data,
+            self.sample_rate,
+            bits=self.bits,
+            float_format=self.float_format,
+            strict=self.strict,
+        )
+
+    def __enter__(self) -> "WavWriter":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class WavStreamReader:
+    """Chunked WAV reader for streams too long to hold in memory.
+
+    Parses the header once, then decodes `read_chunk(frames)` windows
+    straight from the file -- the host loader for hour-long streaming jobs.
+    Same format guards as `read_wav`.
+    """
+
+    def __init__(self, path: str, strict: bool = True) -> None:
+        self.path = path
+        with open(path, "rb") as f:
+            head = f.read(12)
+            if len(head) < 12 or head[:4] != b"RIFF" or head[8:12] != b"WAVE":
+                raise WavFormatError(f"{path}: not a RIFF/WAVE file")
+            fmt = None
+            self._data_off = None
+            self._data_len = 0
+            pos = 12
+            while True:
+                f.seek(pos)
+                hdr = f.read(8)
+                if len(hdr) < 8:
+                    break
+                cid = hdr[:4]
+                (size,) = struct.unpack("<I", hdr[4:])
+                if cid == b"fmt ":
+                    fmt = f.read(size)
+                elif cid == b"data":
+                    self._data_off = pos + 8
+                    self._data_len = size
+                pos += 8 + size + (size & 1)
+        if fmt is None or self._data_off is None:
+            raise WavFormatError(f"{path}: missing fmt/data chunk")
+        tag, ch, rate, _, ba, bits = struct.unpack_from("<HHIIHH", fmt, 0)
+        if tag == _FMT_EXTENSIBLE and len(fmt) >= 26:
+            (tag,) = struct.unpack_from("<H", fmt, 24)
+        if tag not in (_FMT_PCM, _FMT_IEEE_FLOAT):
+            raise WavFormatError(f"{path}: unsupported format tag {tag}")
+        if bits not in _VALID_BITS or (tag == _FMT_IEEE_FLOAT and bits != 32):
+            raise WavFormatError(f"{path}: unsupported bit depth {bits}")
+        if ch < 1 or (strict and ch > 2):
+            raise WavFormatError(f"{path}: unsupported channel count {ch}")
+        self.channels = ch
+        self.sample_rate = int(rate)
+        self.bits = bits
+        self.is_float = tag == _FMT_IEEE_FLOAT
+        self._block = ba
+        self.num_frames = self._data_len // ba
+        self._pos = 0  # frame cursor
+
+    def _decode(self, raw: bytes) -> np.ndarray:
+        n = len(raw) // self._block
+        if self.is_float:
+            x = np.frombuffer(raw, dtype="<f4").astype(np.float32)
+        elif self.bits == 16:
+            x = np.frombuffer(raw, dtype="<i2").astype(np.float32) / _full_scale(16)
+        elif self.bits == 32:
+            x = np.frombuffer(raw, dtype="<i4").astype(np.float32) / _full_scale(32)
+        else:
+            b = np.frombuffer(raw, dtype=np.uint8).reshape(-1, 3)
+            i32 = (
+                b[:, 0].astype(np.int32)
+                | (b[:, 1].astype(np.int32) << 8)
+                | (b[:, 2].astype(np.int32) << 16)
+            )
+            i32 = np.where(i32 & 0x800000, i32 - (1 << 24), i32)
+            x = i32.astype(np.float32) / _full_scale(24)
+        return np.ascontiguousarray(x.reshape(n, self.channels).T)
+
+    def read_chunk(self, frames: int) -> np.ndarray:
+        """Next [channels, <=frames] block; empty array at EOF."""
+        frames = min(frames, self.num_frames - self._pos)
+        if frames <= 0:
+            return np.zeros((self.channels, 0), dtype=np.float32)
+        with open(self.path, "rb") as f:
+            f.seek(self._data_off + self._pos * self._block)
+            raw = f.read(frames * self._block)
+        self._pos += frames
+        return self._decode(raw)
+
+    def seek(self, frame: int) -> None:
+        if not 0 <= frame <= self.num_frames:
+            raise ValueError(f"seek {frame} out of range [0, {self.num_frames}]")
+        self._pos = frame
+
+    def __iter__(self):
+        while True:
+            chunk = self.read_chunk(1 << 16)
+            if chunk.shape[1] == 0:
+                return
+            yield chunk

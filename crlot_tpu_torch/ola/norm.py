@@ -1,7 +1,9 @@
-"""COLA normalization for offline reconstruction (numpy, float64 design).
+"""COLA normalization builders (numpy, float64 design).
 
-A copy of `crlot_tpu/ola/norm.py::edge_norm`; the tests hold it
-byte-identical to the reference's.
+Copies of `crlot_tpu/ola/norm.py`: `edge_norm` (actual coverage, offline
+reconstruction) and `build_norm_linear` (full, steady-state coverage: the
+streaming round-trip's norm). The tests hold both byte-identical to the
+reference's.
 """
 
 from __future__ import annotations
@@ -25,3 +27,26 @@ def edge_norm(
         if stop > start:
             norm[start:stop] += w[: stop - start]
     return norm.astype(np.float32)
+
+
+def build_norm_linear(
+    window: np.ndarray, ring_len: int, frame_size: int, hop: int
+) -> np.ndarray:
+    """Full-coverage per-position window sum, float32[ring_len]: every
+    position's norm assumes steady-state frame coverage, which is periodic
+    with period `hop`: norm[p] = sum_j w[(p mod hop) + j*hop]. `window` is
+    w (norm = sum w) or w^2 (with a synthesis window)."""
+    w = np.asarray(window, dtype=np.float64)
+    if w.shape != (frame_size,):
+        raise ValueError(f"window shape {w.shape} != ({frame_size},)")
+    if hop <= 0 or ring_len <= 0:
+        raise ValueError("hop and ring_len must be > 0")
+    if ring_len % hop != 0:
+        raise ValueError(
+            f"ring_len ({ring_len}) must be a multiple of hop ({hop})"
+        )
+    n_pad = -(-frame_size // hop) * hop
+    wp = np.zeros(n_pad, dtype=np.float64)
+    wp[:frame_size] = w
+    period = wp.reshape(-1, hop).sum(axis=0)
+    return np.tile(period, ring_len // hop).astype(np.float32)

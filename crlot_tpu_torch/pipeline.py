@@ -28,6 +28,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .core import device as _device
 from .core.consts import as_f32, const_on
 from .core.padding import pad_signal
 from .core.types import FftBackend, FftPrecision, StftConfig
@@ -82,8 +83,10 @@ def _synthesis(frames: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
     return frames * const_on(_window_np(cfg), frames.device)
 
 
-def stft(signal: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
-    """`[..., L]` real -> `[..., F, nfft//2+1]` complex64 spectrogram."""
+def stft(signal, cfg: StftConfig, device=None) -> torch.Tensor:
+    """`[..., L]` real -> `[..., F, nfft//2+1]` complex64 spectrogram. An
+    array-like goes to `device` (default "cuda"; `core/device.py`)."""
+    signal = _device.place(signal, device)
     frames = frame_signal(signal, cfg.frame_spec)
     return _fft.rfft_windowed(
         frames, cfg.frame_size, _window_f64(cfg), backend=cfg.fft_backend
@@ -97,19 +100,22 @@ def resampled_stft(
     cfg: StftConfig,
     taps_per_phase: Optional[int] = None,
     atten_db: float = 120.0,
+    device=None,
 ) -> torch.Tensor:
     """Polyphase resample (B4 on CUDA) -> frame -> window -> rFFT: the
     `[..., F, nfft//2+1]` spectrogram at the OUTPUT rate sr_out. The
     resampled signal stays on the device between the two stages."""
-    y = resample(signal, sr_in, sr_out, taps_per_phase, atten_db)
+    y = resample(signal, sr_in, sr_out, taps_per_phase, atten_db,
+                 device=device)
     return stft(y, cfg)
 
 
 def istft(
-    spec: torch.Tensor, cfg: StftConfig, length: Optional[int] = None
+    spec, cfg: StftConfig, length: Optional[int] = None, device=None
 ) -> torch.Tensor:
     """`[..., F, nfft//2+1]` complex -> `[..., length]` real (default: the
     span an stft of that many frames covers, minus center padding)."""
+    spec = _device.place(spec, device)
     num_frames = spec.shape[-2]
     frames = _fft.irfft(spec, cfg.frame_size, backend=cfg.fft_backend)
     frames = _synthesis(frames, cfg)
@@ -233,13 +239,16 @@ def formulation_for(
 
 
 def round_trip(
-    signal: torch.Tensor,
+    signal,
     cfg: StftConfig,
     spectral_fn: Optional[Callable] = None,
+    device=None,
 ) -> torch.Tensor:
     """stft -> (spectral processing) -> istft, output the length of the
-    input. The identity round-trip must reconstruct at > 60 dB SNR."""
-    signal = torch.as_tensor(signal)
+    input. The identity round-trip must reconstruct at > 60 dB SNR. A
+    tensor is processed on its own device; an array-like goes to `device`
+    (default "cuda", which raises without a card; "cpu" asks for the CPU)."""
+    signal = _device.place(signal, device)
     n = signal.shape[-1]
     route = formulation_for(cfg, spectral_fn, n)
     spec_ = cfg.frame_spec

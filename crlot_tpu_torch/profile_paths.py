@@ -17,6 +17,10 @@ Inputs, made from seed 0: 2 channels x `--seconds` of uniform noise at
 sharded rows center=False on T rounded down to a multiple of 4*H) and at
 44.1 kHz (resample rows); the demo reads a 2-ch 44.1 kHz 16-bit WAV of a
 997 Hz / 1 kHz sine pair plus noise, as `chip_smoke.py` phase 17 writes it.
+The streaming rows run the reference bench's stream (`--stream-chunks`
+device-resident chunks of 2 097 152 mono samples, uniform noise in +-0.9
+from seed 9, N=1024, H=256, center=False) through `BlockedChunkStreamer`
+and, as int16, through both tiers of `I16BlockedStreamer`.
 On a CPU device the device time is "not measured".
 """
 
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 WARMUPS, CALLS = 3, 5
+STREAM_CHUNK = 2_097_152
 
 
 def _sync(dev: torch.device) -> None:
@@ -133,6 +138,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seconds", type=float, default=60.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--stream-chunks", type=int, default=13,
+                    help=f"chunks of {STREAM_CHUNK} samples in the "
+                    f"streaming rows (default 13, the bench's 9.47 min)")
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -196,6 +204,28 @@ def main(argv=None) -> int:
     for name, fn in calls.items():
         print(profile_call(f"{name}, 2 x {args.seconds:g} s", fn, dev),
               flush=True)
+
+    total = args.stream_chunks * STREAM_CHUNK
+    xs = torch.from_numpy(np.random.default_rng(9).uniform(
+        -0.9, 0.9, total).astype(np.float32)).to(dev)
+    x16 = torch.clamp(torch.round(xs * 32768.0), -32768, 32767).to(
+        torch.int16)
+
+    def stream(st, x):
+        ys = [st.feed(c, force=False) for c in x.split(STREAM_CHUNK)]
+        return ys + [st.finish(force=False)]
+
+    streams = {
+        "BlockedChunkStreamer (f32)": lambda: stream(
+            pt.BlockedChunkStreamer(cfg_nc), xs),
+        "I16BlockedStreamer int8x2": lambda: stream(
+            pt.I16BlockedStreamer(cfg_nc, tier="int8x2"), x16),
+        "I16BlockedStreamer int8x1": lambda: stream(
+            pt.I16BlockedStreamer(cfg_nc, tier="int8x1"), x16),
+    }
+    for name, fn in streams.items():
+        print(profile_call(f"{name}, {args.stream_chunks} x {STREAM_CHUNK} "
+                           f"mono", fn, dev), flush=True)
     return 0
 
 

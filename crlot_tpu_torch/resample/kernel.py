@@ -16,6 +16,10 @@ with x read as 0 outside [0, T) (the reference's left pad of -tau_min).
   phase, so each tap it loads feeds R FMAs. Every output sums its products in
   ascending w with fp32 FMAs, in one order independent of its position,
   so chunked and one-shot resampling agree bit for bit on the card.
+  Where the input segment outgrows shared memory (integer decimation above
+  M = 141), B4 does not stage it: each thread reads its own output's window
+  from L2 in tiles of 32 taps, transposed through shared memory
+  (`geometry`).
 
 Both take `[T]` or `[C, T]`; the channels go into one launch.
 """
@@ -70,9 +74,21 @@ def _bank_t_on(l, m, taps_per_phase, atten_db,
 def shared_bytes(l: int, m: int, w: int, r: int = 1) -> int:
     """Shared memory of one B4 CTA taking r outputs per thread: the input
     segment of its Q*r blocks, (Q*r - 1)*M + W floats, Q = 256 // min(L,
-    256). The kernel takes the largest r of 8, 4, 2, 1 that fits."""
+    256)."""
     q = THREADS // min(l, THREADS)
     return ((q * r - 1) * m + w) * 4
+
+
+def geometry(l: int, m: int, w: int) -> tuple:
+    """(R, staged): B4's outputs per thread and whether it stages the input
+    segment in shared memory -- the largest R of 8, 4, 2, 1 whose segment
+    fits, else one output per thread, each reading its own window from L2
+    (integer decimation above M = 141, e.g. 48 kHz -> 300 Hz). Mirrors
+    `crlot_resample`'s choice; never raises."""
+    for r in (8, 4, 2, 1):
+        if shared_bytes(l, m, w, r) <= MAX_SHARED_BYTES:
+            return r, True
+    return 1, False
 
 
 def resample_bank_plain(
@@ -129,11 +145,6 @@ def resample_cuda(
         raise ValueError(f"B4 takes < 2^31 samples and <= 65535 channels, "
                          f"got [{channels}, {t_in}] -> {n_out}")
     taps_t, offsets, tau_min, w = compact_bank(l, m, taps_per_phase, atten_db)
-    if shared_bytes(l, m, w) > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"B4: the input segment of L={l} M={m} W={w} needs "
-            f"{shared_bytes(l, m, w)} bytes of shared memory, more than "
-            f"{MAX_SHARED_BYTES}")
     out = torch.empty((channels, n_out), dtype=torch.float32, device=x.device)
     if n_out == 0 or channels == 0:
         return out[0] if squeeze else out

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core import device as _device
 from .kernel import resample_cuda
 
 
@@ -182,14 +183,15 @@ def resample(
     sr_out: int,
     taps_per_phase: int | None = None,
     atten_db: float = 120.0,
+    device=None,
 ) -> torch.Tensor:
     """Resample `[T]` or `[C, T]` from sr_in to sr_out (zero-phase,
-    ceil(T*L/M) out), on the tensor's device; the channels go in one
-    launch.
+    ceil(T*L/M) out), on the tensor's device (an array-like goes to
+    `device`, default "cuda"); the channels go in one launch.
 
     Matches scipy.signal.resample_poly(x, L, M, window=<same filter>) on the
     interior; edges use zero padding (same as scipy)."""
-    x = torch.as_tensor(x, dtype=torch.float32)
+    x = _device.place(x, device, torch.float32)
     l, m = _rate(sr_in, sr_out)
     squeeze = x.ndim == 1
     if squeeze:
@@ -215,19 +217,13 @@ def resample_chunked(
     """Streaming variant: resample a long signal in overlapping M-aligned
     chunks, with output identical to one-shot `resample`.
 
-    A numpy (or other array-like) input is moved to `device` (default the
-    CPU) and the result comes back as numpy, as in the reference. A tensor
-    input stays on its own device and the result is a tensor there; it
-    takes no `device`. A card that was asked for is never replaced by the
-    CPU: on CUDA every chunk launches B4 or raises."""
-    if isinstance(x, torch.Tensor):
-        if device is not None:
-            raise ValueError("device= applies to array input; a tensor "
-                             "is resampled on its own device")
-        xt, as_numpy = x.float(), False
-    else:
-        xt = torch.from_numpy(np.asarray(x, dtype=np.float32))
-        xt, as_numpy = xt.to(device if device is not None else "cpu"), True
+    A numpy (or other array-like) input is moved to `device` (default
+    "cuda", which raises without a card; "cpu" asks for the CPU) and the
+    result comes back as numpy, as in the reference. A tensor input stays
+    on its own device and the result is a tensor there; it takes no
+    `device`. On CUDA every chunk launches B4 or raises."""
+    as_numpy = not isinstance(x, torch.Tensor)
+    xt = _device.place(x, device, torch.float32)
     l, m = _rate(sr_in, sr_out)
     if chunk <= 0:
         raise ValueError(f"chunk must be > 0, got {chunk}")

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from crlot_tpu.convolve import convolve as j_convolve
 
 from crlot_tpu_torch.convolve import _toeplitz_kernel, convolve
+from crlot_tpu_torch.core.types import FftPrecision
 
 
 def _rel_rmse(got, want):
@@ -41,7 +42,7 @@ def test_convolve_batched_and_tensor_taps():
     rng = np.random.default_rng(0)
     x = rng.uniform(-1, 1, (3, 2, 500)).astype(np.float32)
     taps = rng.uniform(-1, 1, 31).astype(np.float32)
-    got = convolve(x, torch.from_numpy(taps), mode="same").numpy()
+    got = convolve(x, torch.from_numpy(taps), mode="same", device="cpu").numpy()
     assert got.shape == (3, 2, 500)
     for i in range(3):
         for c in range(2):
@@ -51,14 +52,16 @@ def test_convolve_batched_and_tensor_taps():
 
 def test_convolve_identity_and_lowpass():
     x = np.arange(10, dtype=np.float32)
-    np.testing.assert_allclose(convolve(x, np.ones(1)).numpy(), x, atol=1e-6)
+    np.testing.assert_allclose(convolve(x, np.ones(1), device="cpu").numpy(),
+                               x, atol=1e-6)
     sr = 48000
     t = np.arange(sr // 2) / sr
     taps = (np.hamming(255) * np.sinc(np.arange(-127, 128) * 2 * 4000 / sr)
             * 2 * 4000 / sr).astype(np.float32)
-    lo = convolve(np.sin(2 * np.pi * 500 * t).astype(np.float32), taps, "same")
+    lo = convolve(np.sin(2 * np.pi * 500 * t).astype(np.float32), taps,
+                  "same", device="cpu")
     hi = convolve(np.sin(2 * np.pi * 20000 * t).astype(np.float32), taps,
-                  "same")
+                  "same", device="cpu")
     mid = slice(2048, -2048)
     assert float(lo[mid].abs().max()) > 0.5
     assert float(hi[mid].abs().max()) < float(lo[mid].abs().max()) * 1e-3
@@ -79,3 +82,29 @@ def test_toeplitz_kernel_byte_identical_and_cache_bounded():
 def test_convolve_errors(taps, mode):
     with pytest.raises(ValueError):
         convolve(torch.ones(16), taps, mode=mode)
+
+
+@pytest.mark.parametrize("precision", [
+    None, "highest", "HIGH", "default", FftPrecision.HIGHEST,
+    FftPrecision.HIGH])
+def test_convolve_precision_accepted_values_give_fp32(precision):
+    """The reference's `precision=` values all map to IEEE fp32 products:
+    the result equals the default call bit for bit (jax.lax.Precision
+    members pass by name)."""
+    import jax
+
+    x = np.random.default_rng(5).uniform(-1, 1, (2, 3000)).astype(np.float32)
+    taps = np.hanning(63)
+    want = convolve(x, taps, "same", device="cpu")
+    got = convolve(x, taps, "same", precision=precision, device="cpu")
+    assert torch.equal(got, want)
+    lax = convolve(x, taps, "same", precision=jax.lax.Precision.HIGHEST,
+                   device="cpu")
+    assert torch.equal(lax, want)
+
+
+@pytest.mark.parametrize("precision", ["tf32", 3, FftPrecision.INT8X2])
+def test_convolve_unknown_precision_raises(precision):
+    with pytest.raises(ValueError, match="precision"):
+        convolve(np.zeros(64, np.float32), np.ones(3), precision=precision,
+                 device="cpu")

@@ -72,8 +72,8 @@ def test_sharded_matches_single_shard_bitexact(nfft, hop, total, channel,
                                                time):
     cfg = pt.StftConfig(frame_size=nfft, hop_size=hop)
     x = _sig(max(channel, 2), total, seed=nfft + channel)
-    got = pt.sharded_round_trip(x, cfg, _mesh(channel, time))
-    one = pt.sharded_round_trip(x, cfg, _mesh(1, 1))
+    got = pt.sharded_round_trip(x, cfg, _mesh(channel, time), device="cpu")
+    one = pt.sharded_round_trip(x, cfg, _mesh(1, 1), device="cpu")
     assert got.shape == x.shape
     assert torch.equal(got, one)
     if pt.formulation_for(cfg, None, total) == "stft_istft":
@@ -87,7 +87,7 @@ def test_sharded_matches_reference_sharded(nfft, hop, total):
     default) and the reference's CPU its FFT route: same math."""
     jcfg, cfg = _cfgs(frame_size=nfft, hop_size=hop)
     x = _sig(2, total, seed=nfft + 2)
-    got = pt.sharded_round_trip(x, cfg, _mesh(2, 4))
+    got = pt.sharded_round_trip(x, cfg, _mesh(2, 4), device="cpu")
     want = _reference(x, jcfg, 2, 4)
     assert _interior_err(got, want, nfft) <= 1e-5
 
@@ -95,7 +95,8 @@ def test_sharded_matches_reference_sharded(nfft, hop, total):
 def test_sharded_spectral_fn():
     jcfg, cfg = _cfgs(frame_size=128, hop_size=32)
     x = _sig(2, 8192, seed=2)
-    got = pt.sharded_round_trip(x, cfg, _mesh(1, 8), lambda s: s * 0.25)
+    got = pt.sharded_round_trip(x, cfg, _mesh(1, 8), lambda s: s * 0.25,
+                                device="cpu")
     assert spl.shard_route(cfg, lambda s: s) == "stft_istft"
     want = pt.round_trip(torch.from_numpy(x), cfg, lambda s: s * 0.25)
     assert torch.equal(got, want)
@@ -106,7 +107,8 @@ def test_sharded_spectral_fn():
 def test_sharded_reconstruction_quality():
     cfg = pt.StftConfig(frame_size=128, hop_size=32)
     x = _sig(2, 8192, seed=3)
-    y = pt.sharded_round_trip(x, cfg, pt.auto_mesh(8, devices=[CPU] * 8))
+    y = pt.sharded_round_trip(x, cfg, pt.auto_mesh(8, devices=[CPU] * 8),
+                              device="cpu")
     covered = (cfg.frame_spec.num_frames(8192) - 1) * 32 + 128
     assert pt.snr_db(x[:, 128:covered - 128], y[:, 128:covered - 128]) > 80
 
@@ -143,10 +145,16 @@ def test_mesh_helpers():
         pt.make_mesh(channel=16, time=16, devices=[CPU] * 8)
     with pytest.raises(ValueError):
         pt.make_mesh(channel=3, devices=[CPU] * 8)
-    # Default devices: every visible CUDA device, else the CPU.
-    assert visible_devices() == [CPU]
-    m = pt.make_mesh()
-    assert m.shape == {"channel": 1, "time": 1} and m.device(0, 0) == CPU
+    # Default devices: every visible CUDA device; without a card the
+    # defaults raise (never a silent CPU mesh).
+    assert visible_devices() == []
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pt.auto_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pt.sharded_round_trip(_sig(2, 4096), pt.StftConfig(128, 32),
+                              _mesh(1, 1))
     two = pt.make_mesh(2, 3, devices=["cpu"] * 6)
     assert two.device(1, 2) == CPU
 
@@ -156,7 +164,8 @@ def test_sharded_round_trip_jit_closure():
     mesh = _mesh(2, 4)
     run = spl.sharded_round_trip_jit(cfg, mesh)
     x = _sig(2, 4096, seed=12)
-    assert torch.equal(run(x), pt.sharded_round_trip(x, cfg, mesh))
+    assert torch.equal(run(x, device="cpu"),
+                       pt.sharded_round_trip(x, cfg, mesh, device="cpu"))
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +177,7 @@ def test_sharded_metrics_match_host(channel, time):
     cfg = pt.StftConfig(frame_size=128, hop_size=32)
     x = _sig(max(channel, 2), 4096, seed=3)
     y, m = pt.sharded_round_trip(x, cfg, _mesh(channel, time),
-                                 return_metrics=True)
+                                 return_metrics=True, device="cpu")
     rep = pt.metrics_report(m)
     assert rep["peak"] == float(torch.max(torch.abs(y)))
     assert abs(rep["snr_db"] - pt.snr_db(x, y)) < 0.01
@@ -179,8 +188,9 @@ def test_sharded_metrics_output_identical_to_plain_call():
     cfg = pt.StftConfig(frame_size=128, hop_size=32)
     mesh = _mesh(2, 4)
     x = _sig(2, 4096, seed=4)
-    plain = pt.sharded_round_trip(x, cfg, mesh)
-    y, _ = pt.sharded_round_trip(x, cfg, mesh, return_metrics=True)
+    plain = pt.sharded_round_trip(x, cfg, mesh, device="cpu")
+    y, _ = pt.sharded_round_trip(x, cfg, mesh, return_metrics=True,
+                                 device="cpu")
     assert torch.equal(y, plain)
 
 
@@ -224,7 +234,7 @@ def test_sharded_blocked_eq_engages_and_matches_unsharded(monkeypatch):
 
     _, cfg, _, eq, x = _blocked_setup()
     calls = _spy(monkeypatch, "_blocked_local_round_trip")
-    got = pt.sharded_round_trip(x, cfg, _mesh(1, 1), eq)
+    got = pt.sharded_round_trip(x, cfg, _mesh(1, 1), eq, device="cpu")
     assert calls, "blocked route did not engage"
     n, hop = cfg.frame_size, cfg.hop_size
     num_frames = (x.shape[1] - n) // hop + 1
@@ -243,8 +253,9 @@ def test_sharded_blocked_eq_engages_and_matches_unsharded(monkeypatch):
 def test_sharded_blocked_eq_mesh_consistency(channel, time, monkeypatch):
     _, cfg, _, eq, x = _blocked_setup()
     calls = _spy(monkeypatch, "_blocked_local_round_trip")
-    one = pt.sharded_round_trip(x, cfg, _mesh(1, 1), eq).numpy()
-    got = pt.sharded_round_trip(x, cfg, _mesh(channel, time), eq).numpy()
+    one = pt.sharded_round_trip(x, cfg, _mesh(1, 1), eq, device="cpu").numpy()
+    got = pt.sharded_round_trip(x, cfg, _mesh(channel, time), eq,
+                                device="cpu").numpy()
     assert len(calls) == 1 + channel
     np.testing.assert_allclose(got, one, rtol=3e-6, atol=1e-6)
     edge = cfg.frame_size - cfg.hop_size
@@ -255,7 +266,7 @@ def test_sharded_blocked_eq_mesh_consistency(channel, time, monkeypatch):
 def test_sharded_blocked_eq_vs_reference():
     """Against the reference's one-shot CPU round-trip (its FFT route)."""
     jcfg, cfg, jeq, eq, x = _blocked_setup()
-    got = pt.sharded_round_trip(x, cfg, _mesh(2, 4), eq)
+    got = pt.sharded_round_trip(x, cfg, _mesh(2, 4), eq, device="cpu")
     j_auto = JStftConfig(frame_size=512, hop_size=128, center=False)
     want = np.asarray(j_round_trip(jnp.asarray(x), j_auto, jeq))
     assert _interior_err(got, want, cfg.frame_size) <= 1e-5
@@ -270,7 +281,7 @@ def test_sharded_blocked_identity_with_auto_backend_is_config_decided(
     assert spl.blocked_per_bin(cfg, None, t_block=2048, num_frames=63) is not None
     calls = _spy(monkeypatch, "_blocked_local_round_trip")
     x = _sig(2, 8192, seed=33)
-    pt.sharded_round_trip(x, cfg, _mesh(1, 4))
+    pt.sharded_round_trip(x, cfg, _mesh(1, 4), device="cpu")
     assert calls
     xla = pt.StftConfig(frame_size=256, hop_size=128,
                         fft_backend=pt.FftBackend.XLA)
@@ -280,11 +291,11 @@ def test_sharded_blocked_identity_with_auto_backend_is_config_decided(
 def test_sharded_blocked_matches_composed_route_within_tier(monkeypatch):
     _, cfg, _, eq, x = _blocked_setup()
     mesh = _mesh(2, 4)
-    blocked = pt.sharded_round_trip(x, cfg, mesh, eq).numpy()
+    blocked = pt.sharded_round_trip(x, cfg, mesh, eq, device="cpu").numpy()
     assert spl.shard_route(cfg, eq) == "composed"
     calls = _spy(monkeypatch, "_blocked_local_round_trip")
     composed = pt.sharded_round_trip(x, cfg, mesh, eq,
-                                     allow_blocked=False).numpy()
+                                     allow_blocked=False, device="cpu").numpy()
     assert not calls
     interior = slice(cfg.frame_size, x.shape[1] - cfg.frame_size)
     err = np.abs(blocked[:, interior] - composed[:, interior])
@@ -297,7 +308,7 @@ def test_sharded_blocked_falls_back_when_unaligned(monkeypatch):
     jcfg, cfg, jeq, eq, _ = _blocked_setup()
     x = _sig(2, 8 * 640, seed=32)  # t_block = 640 = 5 hops, group*hop = 256
     calls = _spy(monkeypatch, "_blocked_local_round_trip")
-    got = pt.sharded_round_trip(x, cfg, _mesh(1, 8), eq)
+    got = pt.sharded_round_trip(x, cfg, _mesh(1, 8), eq, device="cpu")
     assert not calls, "blocked route must not engage on unaligned blocks"
     assert torch.isfinite(got).all()
     want = _reference(x, jcfg, 1, 8, jeq)
@@ -319,9 +330,9 @@ def test_sharded_packed_nonlinear_gate_takes_b3(monkeypatch):
     x = np.random.default_rng(22).uniform(-0.9, 0.9, (1, 4 * 4096)).astype(
         np.float32)
     calls = _spy(monkeypatch, "roundtrip_frames_fused")
-    y4 = pt.sharded_round_trip(x, cfg, _mesh(1, 4), gate).numpy()
+    y4 = pt.sharded_round_trip(x, cfg, _mesh(1, 4), gate, device="cpu").numpy()
     assert len(calls) == 4
-    y1 = pt.sharded_round_trip(x, cfg, _mesh(1, 1), gate).numpy()
+    y1 = pt.sharded_round_trip(x, cfg, _mesh(1, 1), gate, device="cpu").numpy()
     interior = slice(512, -512)
     np.testing.assert_allclose(y4[0][interior], y1[0][interior], rtol=2e-4,
                                atol=1e-4)
@@ -345,8 +356,9 @@ def test_sharded_packed_parts_for_fn_without_menu():
     no_menu.packed = lambda re, im: gate.packed(re, im)
     assert spl.shard_route(cfg, no_menu) == "packed_parts"
     x = _sig(2, 4 * 4096, seed=23)
-    a = pt.sharded_round_trip(x, cfg, _mesh(2, 2), no_menu).numpy()
-    b = pt.sharded_round_trip(x, cfg, _mesh(2, 2), gate).numpy()
+    a = pt.sharded_round_trip(x, cfg, _mesh(2, 2), no_menu,
+                              device="cpu").numpy()
+    b = pt.sharded_round_trip(x, cfg, _mesh(2, 2), gate, device="cpu").numpy()
     np.testing.assert_allclose(a[:, 512:-512], b[:, 512:-512], rtol=0,
                                atol=1e-6)
 
@@ -371,7 +383,8 @@ def test_sharded_synthesis_window_mode():
     cfg = pt.StftConfig(frame_size=128, hop_size=32, synthesis_window=True)
     x = _sig(2, 4096, seed=9)
     want = pt.round_trip(torch.from_numpy(x), cfg)
-    assert torch.equal(pt.sharded_round_trip(x, cfg, _mesh(2, 4)), want)
+    assert torch.equal(
+        pt.sharded_round_trip(x, cfg, _mesh(2, 4), device="cpu"), want)
 
 
 def test_sharded_valid_window_masks_frames():
@@ -380,8 +393,8 @@ def test_sharded_valid_window_masks_frames():
     cfg = pt.StftConfig(frame_size=128, hop_size=32)
     x = _sig(2, 4096, seed=10)
     kw = dict(valid_start=512, valid_len=3000)
-    one = pt.sharded_round_trip(x, cfg, _mesh(1, 1), **kw)
-    got = pt.sharded_round_trip(x, cfg, _mesh(2, 4), **kw)
+    one = pt.sharded_round_trip(x, cfg, _mesh(1, 1), **kw, device="cpu")
+    got = pt.sharded_round_trip(x, cfg, _mesh(2, 4), **kw, device="cpu")
     assert torch.equal(got, one)
     assert not got[:, :512].any() and not got[:, 3000:].any()
     inner = pt.round_trip(torch.from_numpy(x[:, 512:3000]), cfg)
@@ -426,7 +439,8 @@ def test_halo_volume_is_o_frame_not_o_block(monkeypatch, allow_blocked):
     def volume(total):
         moved.clear()
         pt.sharded_round_trip(np.zeros((1, total), np.float32), cfg,
-                              _mesh(1, 4), allow_blocked=allow_blocked)
+                              _mesh(1, 4), allow_blocked=allow_blocked,
+                              device="cpu")
         return sum(moved)
 
     small, large = volume(4 * 2048), volume(4 * 8192)

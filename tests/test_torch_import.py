@@ -26,6 +26,9 @@ def test_import_pulls_in_no_jax_crlot_tpu_or_triton(tmp_path):
         "crlot_tpu_torch.resample.polyphase, crlot_tpu_torch.resample.kernel, "
         "crlot_tpu_torch.ola.kernels, crlot_tpu_torch.convolve, "
         "crlot_tpu_torch.demo, crlot_tpu_torch.profile_paths, "
+        "crlot_tpu_torch.streaming_pipeline, crlot_tpu_torch.wire, "
+        "crlot_tpu_torch.int8_gemm, crlot_tpu_torch.int8_probe, "
+        "crlot_tpu_torch.timing, crlot_tpu_torch.core.device, "
         "crlot_tpu_torch.cuda_build as b\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'crlot_tpu', 'triton'))\n"
@@ -93,7 +96,8 @@ def test_nvcc_command_targets_sm90a_without_fast_math(monkeypatch, tmp_path):
     for cmd in compiles:
         assert sum(c.endswith(".cu") for c in cmd) == 1
     assert {Path(c).name for cmd in seen for c in cmd if c.endswith(".cu")} == {
-        "fused_rt.cu", "ola_fused.cu", "ola_kernels.cu", "resample.cu"}
+        "fused_rt.cu", "int8_gemm.cu", "ola_fused.cu", "ola_kernels.cu",
+        "resample.cu"}
     assert not list(tmp_path.rglob("*.so"))  # no half-written library left
 
 

@@ -98,7 +98,7 @@ def test_resample_matches_scipy_resample_poly(sr_in, sr_out):
     h = tp.design_lowpass(l, m)
     # scipy multiplies a given window by `up`; the design carries gain L.
     want = sps.resample_poly(x.astype(np.float64), l, m, window=h / l)
-    got = tp.resample(x, sr_in, sr_out).numpy()
+    got = tp.resample(x, sr_in, sr_out, device="cpu").numpy()
     assert got.shape == want.shape == (tp.output_length(4410, sr_in, sr_out),)
     assert snr_db(want, got) > 120.0
 
@@ -138,14 +138,15 @@ def test_bank_plain_slabs_agree_with_one_product(monkeypatch):
 @pytest.mark.parametrize("as_tensor", [False, True])
 def test_chunked_matches_oneshot(as_tensor):
     x = _noise((2, 44100), 2)
-    want = tp.resample(x, 44100, 48000).numpy()
+    want = tp.resample(x, 44100, 48000, device="cpu").numpy()
     arg = torch.from_numpy(x) if as_tensor else x
-    got = tp.resample_chunked(arg, 44100, 48000, chunk=8192)
+    where = {} if as_tensor else {"device": "cpu"}  # a tensor stays put
+    got = tp.resample_chunked(arg, 44100, 48000, chunk=8192, **where)
     assert isinstance(got, torch.Tensor) == as_tensor
     got = got.numpy() if as_tensor else got
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=2e-6)
-    mono = tp.resample_chunked(x[0], 44100, 48000, chunk=8192)
+    mono = tp.resample_chunked(x[0], 44100, 48000, chunk=8192, device="cpu")
     ref = jp.resample_chunked(x[0], 44100, 48000, chunk=8192)
     assert isinstance(mono, np.ndarray) and mono.shape == ref.shape
     assert np.max(np.abs(mono - ref)) <= 1e-5
@@ -186,7 +187,8 @@ def test_resampled_stft_matches_reference():
 
 
 def test_sine_fidelity_44k_to_48k():
-    y = tp.resample(_sine(44100, 1.0, 1000.0), 44100, 48000).numpy()
+    y = tp.resample(_sine(44100, 1.0, 1000.0), 44100, 48000,
+                    device="cpu").numpy()
     ideal = _sine(48000, len(y) / 48000, 1000.0)[: len(y)]
     edge = 4800
     assert snr_db(ideal[edge:-edge], y[edge:-edge]) > 100.0
@@ -201,7 +203,8 @@ def test_chain_44k_48k_16k():
 
 
 def test_stopband_rejection():
-    y = tp.resample(_sine(48000, 0.5, 11000.0), 48000, 16000).numpy()
+    y = tp.resample(_sine(48000, 0.5, 11000.0), 48000, 16000,
+                    device="cpu").numpy()
     core = y[1600:-1600].astype(np.float64)
     atten = 20 * np.log10((0.7 / np.sqrt(2)) / max(np.sqrt(np.mean(core**2)),
                                                    1e-12))
@@ -209,32 +212,69 @@ def test_stopband_rejection():
 
 
 def test_dc_preservation():
-    y = tp.resample(np.full(10000, 0.5, np.float32), 44100, 48000).numpy()
+    y = tp.resample(np.full(10000, 0.5, np.float32), 44100, 48000,
+                    device="cpu").numpy()
     np.testing.assert_allclose(y[2000:-2000], 0.5, atol=1e-4)
 
 
 def test_multichannel_is_per_channel():
     x = _noise((3, 4410), 1)
-    y = tp.resample(x, 44100, 48000).numpy()
+    y = tp.resample(x, 44100, 48000, device="cpu").numpy()
     assert y.shape == (3, tp.output_length(4410, 44100, 48000))
     for c in range(3):
-        np.testing.assert_allclose(y[c], tp.resample(x[c], 44100, 48000),
+        np.testing.assert_allclose(y[c], tp.resample(x[c], 44100, 48000,
+                                                     device="cpu"),
                                    atol=2e-6)
 
 
 def test_identity_rate():
     x = np.arange(100, dtype=np.float32)
-    np.testing.assert_array_equal(tp.resample(x, 48000, 48000).numpy(), x)
-    np.testing.assert_array_equal(tp.resample_chunked(x, 48000, 48000), x)
+    np.testing.assert_array_equal(
+        tp.resample(x, 48000, 48000, device="cpu").numpy(), x)
+    np.testing.assert_array_equal(
+        tp.resample_chunked(x, 48000, 48000, device="cpu"), x)
 
 
 @pytest.mark.parametrize("call", [
-    lambda: tp.resample(np.zeros(10, np.float32), 0, 48000),
-    lambda: tp.resample(np.zeros((2, 3, 4), np.float32), 44100, 48000),
-    lambda: tp.resample_chunked(np.zeros(10, np.float32), 44100, -1),
+    lambda: tp.resample(np.zeros(10, np.float32), 0, 48000, device="cpu"),
+    lambda: tp.resample(np.zeros((2, 3, 4), np.float32), 44100, 48000,
+                        device="cpu"),
+    lambda: tp.resample_chunked(np.zeros(10, np.float32), 44100, -1,
+                                device="cpu"),
     lambda: tp.resample_chunked(np.zeros(10, np.float32), 44100, 48000,
-                                chunk=0),
+                                chunk=0, device="cpu"),
 ])
 def test_invalid(call):
     with pytest.raises(ValueError):
         call()
+
+
+@pytest.mark.parametrize("sr_in,sr_out,staged", [
+    (44100, 48000, True), (48000, 16000, True), (141, 1, True),
+    (142, 1, False), (48000, 300, False)])
+def test_b4_geometry_takes_every_rate(sr_in, sr_out, staged):
+    """B4's launch geometry on its own (no card needed): where the input
+    segment outgrows shared memory (integer decimation above M = 141, e.g.
+    48 kHz -> 300 Hz, M = 160) it reads x through the read-only cache
+    instead of refusing the rate."""
+    g = math.gcd(sr_in, sr_out)
+    l, m = sr_out // g, sr_in // g
+    _, _, _, w = tk.compact_bank(l, m, None, 120.0)
+    r, is_staged = tk.geometry(l, m, w)
+    assert is_staged == staged and r in (1, 2, 4, 8)
+    if staged:
+        assert tk.shared_bytes(l, m, w, r) <= tk.MAX_SHARED_BYTES
+    else:
+        assert tk.shared_bytes(l, m, w, 1) > tk.MAX_SHARED_BYTES
+
+
+def test_high_decimation_matches_reference():
+    """48 kHz -> 300 Hz (M = 160) on the CPU path, against the reference's
+    grouped form, within the 1e-5 of the other rates."""
+    x = _noise((2, 48000), 9)
+    got = tp.resample(x, 48000, 300, device="cpu").numpy()
+    want = np.asarray(jp.resample(jnp.asarray(x), 48000, 300))
+    assert got.shape == want.shape == (2, 300)
+    assert np.max(np.abs(got - want)) <= 1e-5
+    bank = tk.resample_bank_plain(torch.from_numpy(x), 1, 160, 300).numpy()
+    assert np.max(np.abs(bank - want)) <= 1e-5
