@@ -77,7 +77,9 @@ Kernel checks of B6 and B4's unstaged path (not counted on a path):
      inputs from seed 0 as `scripts/bench_pallas_int8_probe.py` makes
      them): K9, K10, K11 torch.equal, K8 within 1e-6 of sum|x||b|; B6-i8
      at the wire geometry (lda 512, K 2048, 1 and 2 x 4096 rows)
-     torch.equal.
+     torch.equal; and at the edges of the TMA kernel's tiles (M = 1000,
+     N = 64 and 192, a dense K of 64 bytes, batch 2 of overlapping
+     windows): B6-i8 torch.equal, B6-bf16 within 1e-6 of sum|x||b|.
  19. B4 at 48 kHz -> 300 Hz (M = 160: the input segment outgrows shared
      memory, so B4 reads each window from L2) vs `resample_bank_plain` and
      the grouped form on 2 x 60 s: max-abs <= 1e-5.
@@ -101,7 +103,8 @@ with the B6 counters reset just before:
      equal).
  24. The int8 probe (`int8_probe.run`): each variant held against its
      plain version, then its us per call, TOPS and library time
-     (`torch._int_mm`, `torch.mm(..., out_dtype=float32)`).
+     (`torch._int_mm`, `torch.mm(..., out_dtype=float32)`), for K8 and
+     K9 both also with a cold L2.
 Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
 busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
@@ -114,8 +117,8 @@ end-to-end samples/s of phases 3, 6, 8, 9 (phase 9 on both meshes; the
 scaling figure), 13, 14 and 15, and the demo's wall time; the library
 calls beside B4 (`conv1d`) and B5 (`torch.add`, `torch.addcmul`); the
 sustained samples/s of the f32 streamer and both wire tiers (phases 20,
-21); B6's plain versions at the probe shape, B6-limb at one wire chunk
-and B4 at 48 kHz -> 300 Hz against theirs.
+21); B6's plain versions at the probe shape, B6-limb at one wire chunk,
+B6-i8 at the wire geometry and B4 at 48 kHz -> 300 Hz against theirs.
 
 The last three lines: a JSON object describing each kernel (with its
 bound from this run's bytes and operations at the H100 SXM peaks, and the
@@ -164,6 +167,23 @@ def smi() -> str:
         capture_output=True, text=True, timeout=60,
     )
     return out.stdout.strip() or f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def kernel_name(line: str) -> str:
+    """The kernel named in a ptxas "Compiling entry function" line, from
+    its mangled name (length-prefixed identifiers), with its template
+    argument where there is one: "b6_sm90_kernel<4>"."""
+    for i in range(len(line)):
+        if not line[i].isdigit():
+            continue
+        j = i
+        while j < len(line) and line[j].isdigit():
+            j += 1
+        name = line[j : j + int(line[i:j])]
+        if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
+            arg = re.match(r"ILi(\d+)E", line[j + len(name):])
+            return name + (f"<{arg.group(1)}>" if arg else "")
+    return line.strip()
 
 
 def timed(timing, key, fn) -> None:
@@ -254,8 +274,7 @@ def main() -> int:
     kernel = "?"
     for line in cuda_build.build_log.splitlines():
         if "Compiling entry function" in line:
-            found = re.search(r"(\w+_kernel)", line)
-            kernel = found.group(1) if found else line.strip()
+            kernel = kernel_name(line)
         if "registers" in line or "spill" in line:
             log(f"  ptxas {kernel}: {line.strip()}")
 
@@ -337,9 +356,12 @@ def main() -> int:
             host = b2.roundtrip_signal_plain(
                 padded.cpu(), NFFT, HOP, n_frames, w32.cpu(), norm.cpu(),
                 cfg.eps, full, fn.packed)
-            err_host = float((got[:, crop].cpu() - host[:, crop]).abs().max())
+            diff = (got[:, crop].cpu() - host[:, crop]).abs()
+            err_host = float(diff.max())
+            at = divmod(int(diff.argmax()), n)  # (channel, sample)
             lines.append(f"{name}: max-abs {err:.3e} snr {snr:.1f} dB "
-                         f"(vs plain on the host CPU: max-abs {err_host:.3e})")
+                         f"(vs plain on the host CPU: max-abs {err_host:.3e} "
+                         f"at {at})")
             worst = max(worst, err)
             check(err <= 1e-5 and snr >= 100.0 and err_host <= 1e-5,
                   lines[-1])
@@ -675,7 +697,8 @@ def main() -> int:
     for name, key, variant, line, bnd in b6_rows:
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "crlot_tpu_torch/csrc/int8_gemm.cu",
+            "source": "crlot_tpu_torch/csrc/" + (
+                "b6_sm90.cu" if key in ("bf16", "i8") else "int8_gemm.cu"),
             "replaces": f"{probe_src}:{line}",
             "launches": path4["counts"][key],
             "max_abs_err": path_b6["results"][variant],
@@ -1011,10 +1034,72 @@ WIRE_SEED = 9
 FULL_RANGE = [-32768, 32639, 32640, 32767]
 
 
+def b6_edge_cases(dev) -> list:
+    """B6-i8 and B6-bf16 at the edges of the TMA kernel's 128 x 128 x 128-byte
+    tiles, from seed 18: (label, dtype, kernel call, plain call, A, Bt). A
+    ragged last row block (M = 1000), N = 64 and 192, a dense K of 64 bytes
+    (one half-filled K tile), and batch 2 of overlapping windows (lda 128,
+    K 320: a ragged last K tile)."""
+    import numpy as np
+    import torch
+
+    from crlot_tpu_torch import int8_gemm as b6
+
+    rng = np.random.default_rng(18)
+
+    def operands(dtype, shape_a, n, k):
+        if dtype == "i8":
+            a = rng.integers(-128, 128, shape_a, dtype=np.int8)
+            b = rng.integers(-127, 128, (n, k), dtype=np.int8)
+            return (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+        a = rng.uniform(-1, 1, shape_a).astype(np.float32)
+        b = rng.uniform(-1, 1, (n, k)).astype(np.float32)
+        return (torch.from_numpy(a).to(dev).to(torch.bfloat16),
+                torch.from_numpy(b).to(dev).to(torch.bfloat16))
+
+    cases = []
+    for dtype in ("i8", "bf16"):
+        es = 1 if dtype == "i8" else 2
+        kern = b6.i8_gemm_cuda if dtype == "i8" else b6.bf16_gemm_cuda
+        plain = b6.i8_gemm_plain if dtype == "i8" else b6.bf16_gemm_plain
+        for label, m, n, k in (("M 1000", 1000, 512, 512),
+                               ("N 64", 1000, 64, 512),
+                               ("N 192", 1000, 192, 512),
+                               ("K 64 bytes", 1000, 512, 64 // es)):
+            a, bt = operands(dtype, (m, k), n, k)
+            cases.append((f"{dtype} {label}", dtype,
+                          lambda a=a, bt=bt, f=kern: f(a, bt),
+                          lambda a=a, bt=bt, f=plain: f(a, bt), a, bt))
+    rows, lda, k = 999, 128, 320
+    x, bt = operands("i8", (2, (rows - 1 + 3) * lda), 512, k)
+    cases.append(("i8 batch 2 windows (lda 128, K 320, 999 rows)", "i8",
+                  lambda: b6.i8_gemm_cuda(x, bt, rows=rows, lda=lda),
+                  lambda: b6.i8_gemm_plain(x, bt, rows=rows, lda=lda),
+                  b6.windows(x, rows, lda, k), bt))
+    return cases
+
+
+def b6_edge_check(dtype, got, want, a, bt):
+    """(ok, max-abs, error as printed): int8 equal; bf16 within
+    BF16_REL_TOL of sum_k |x||b| per element."""
+    import torch
+
+    from crlot_tpu_torch import int8_probe
+
+    err = float((got.double() - want.double()).abs().max())
+    if dtype == "i8":
+        return torch.equal(got, want), err, "equal" if torch.equal(
+            got, want) else "DIFFERS"
+    scale = torch.matmul(a.float().abs(), bt.float().abs().T)
+    rel = float(((got - want).abs() / scale).max())
+    return rel <= int8_probe.BF16_REL_TOL, err, f"rel {rel:.3e}"
+
+
 def b6_checks(dev, phase, check) -> dict:
-    """Phase 18: B6 vs plain at the probe's full shape and at the wire
-    geometry; phase 19: B4 at 48 kHz -> 300 Hz (its unstaged path) vs both
-    plain forms. Kernel-vs-plain launches: not counted on a path."""
+    """Phase 18: B6 vs plain at the probe's full shape, at the wire
+    geometry and at the TMA kernel's tile edges; phase 19: B4 at 48 kHz ->
+    300 Hz (its unstaged path) vs both plain forms. Kernel-vs-plain
+    launches: not counted on a path."""
     import numpy as np
     import torch
 
@@ -1049,6 +1134,15 @@ def b6_checks(dev, phase, check) -> dict:
             want = b6.i8_gemm_plain(x, kt, rows=4096, lda=512)
             check(torch.equal(got, want), f"B6-i8 wire geometry, {c} ch")
             lines.append(f"B6-i8 at lda 512, K 2048, {c} x 4096 rows: equal")
+            results["i8_wire"] = (x, kt)
+        for label, dtype, kern, plain, a, bt in b6_edge_cases(dev):
+            got = kern()
+            torch.cuda.synchronize()
+            ok, err, how = b6_edge_check(dtype, got, plain(), a, bt)
+            lines.append(f"B6-{label}: {how} (max-abs {err:.3e})")
+            key = "pl_i8" if dtype == "i8" else "pl_bf16"
+            results[key] = max(results[key], err)
+            check(ok, lines[-1])
         return "; ".join(lines)
 
     def p19():
@@ -1255,8 +1349,12 @@ def wire_path(dev, phase, check, failures) -> dict:
                 check(r["match_plain"], f"{r['variant']} differs from plain")
                 lib = ("null" if r["library_us"] is None
                        else f"{r['library_us']:.2f} us, {r['library']}")
+                cold = ("" if "us_per_call_cold" not in r else
+                        f"; cold L2 {r['us_per_call_cold']:.2f} us, library "
+                        + ("null" if r["library_us_cold"] is None
+                           else f"{r['library_us_cold']:.2f} us"))
                 lines.append(f"{r['variant']} {r['us_per_call']:.2f} us "
-                             f"{r['tops_1dot']:.1f} TOPS (library {lib})")
+                             f"{r['tops_1dot']:.1f} TOPS (library {lib}{cold})")
             else:
                 lines.append(f"int8/bf16 rate {r['i8_over_bf16']:.3f}, "
                              f"3-dot/bf16 {r['i8_3dot_over_bf16']:.3f}")
@@ -1322,6 +1420,16 @@ def wire_timings(dev, path4, path_b6) -> dict:
         f"4 limb products, {ops / 1e9:.1f} G int8 ops): kernel "
         f"{ms(timing, 'limb_wire')}, plain {ms(timing, 'limb_wire_plain')}; "
         f"{ops / (timing['limb_wire'] * 1e-3) / 1e12:.1f} TOPS")
+    xw, kw = path_b6["results"]["i8_wire"]  # 2 x 4096 rows, lda 512, K 2048
+    timed(timing, "i8_wire", lambda: b6.i8_gemm_cuda(xw, kw, rows=4096,
+                                                     lda=512))
+    timed(timing, "i8_wire_plain", lambda: b6.i8_gemm_plain(xw, kw, rows=4096,
+                                                            lda=512))
+    ops = 2.0 * xw.shape[0] * 4096 * 512 * 2048
+    log(f"time B6-i8 at the wire geometry ({xw.shape[0]} x 4096 rows x 512 x "
+        f"2048, windows lda 512, {ops / 1e9:.1f} G int8 ops): kernel "
+        f"{ms(timing, 'i8_wire')}, plain {ms(timing, 'i8_wire_plain')}; "
+        f"{ops / (timing['i8_wire'] * 1e-3) / 1e12:.1f} TOPS")
     x300, l, m, n_out = path_b6["results"]["b4_300"]
     from crlot_tpu_torch.resample import kernel as b4
 

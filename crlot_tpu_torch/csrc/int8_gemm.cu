@@ -1,15 +1,15 @@
-// B6: the int8 limb dots and their bf16 twin, on Hopper's tensor cores.
+// B6: the int8 limb dots on Hopper's tensor cores, and crlot_b6_gemm.
 //
-// Replaces the four Pallas kernels of scripts/bench_pallas_int8_probe.py
-//   K8  _kernel_bf16      (:32)  bf16 x bf16 -> f32             mode kBf16
-//   K9  _kernel_i8        (:41)  int8 x int8 -> exact int32     mode kI32
+// Replaces two Pallas kernels of scripts/bench_pallas_int8_probe.py
 //   K10 _kernel_i8_3dot   (:50)  f32(hh)*128 + f32(hl + lh)     mode kProbe3
 //   K11 _kernel_i8_fusedq (:64)  per-row quantize + 3 dots      fusedq_kernel
 // and runs the born-int16 wire tier's interior, the limb dots and their
 // combination of crlot_tpu/wire.py:112-179 (modes kWire2 and kWire1).
+// crlot_b6_gemm's dense modes kI32 (K9 _kernel_i8, :41) and kBf16 (K8
+// _kernel_bf16, :32) run on b6_sm90.cu's TMA + wgmma kernel.
 //
-// One main loop serves every mode: C[b] = (limb-pair sums of A_i[b] @ B_j),
-// where B_j comes as Bt [N, K] (K-contiguous: the `.col` operand of
+// One main loop serves the limb modes: C[b] = (limb-pair sums of A_i[b] @
+// B_j), where B_j comes as Bt [N, K] (K-contiguous: the `.col` operand of
 // mma.sync, laid out once at design time) and row r of A_i[b] is the K
 // bytes at A_i + b*a_batch + r*lda. With lda < K the rows are overlapping
 // windows of one signal, read in place: the wire tier's hop-block Toeplitz
@@ -17,11 +17,9 @@
 //
 // Tiles: a CTA of 4 warps computes a 64 x 64 tile of each accumulator, a
 // warp a 32 x 32 quarter (2 x 4 mma tiles). The contraction advances 64
-// bytes a stage: two m16n8k32 int8 steps, or two m16n8k16 bf16 steps (the
-// two shapes' fragments hold the same bytes, so one loader and one set of
-// fragment loads serve both), staged by cp.async in a two-deep ring. Shared
-// rows are padded to 80 bytes, so that a warp's 32-bit fragment loads hit
-// 32 distinct banks.
+// bytes a stage, two m16n8k32 int8 steps, staged by cp.async in a two-deep
+// ring. Shared rows are padded to 80 bytes, so that a warp's 32-bit
+// fragment loads hit 32 distinct banks.
 //
 // Exactness. Each limb product accumulates in int32 registers (mma s32,
 // no saturation): sums of integers, exact in any order, so one launch over
@@ -63,18 +61,13 @@ enum Mode : int { kI32 = 0, kProbe3 = 1, kWire2 = 2, kWire1 = 3, kBf16 = 4,
 
 // NA A operands, NB B operands, NACC accumulators.
 template <int MODE> struct Shape;
-template <> struct Shape<kI32>    { static constexpr int NA = 1, NB = 1, NACC = 1; };
 template <> struct Shape<kProbe3> { static constexpr int NA = 2, NB = 2, NACC = 2; };
 template <> struct Shape<kFusedQ> { static constexpr int NA = 2, NB = 2, NACC = 2; };
 template <> struct Shape<kWire2>  { static constexpr int NA = 2, NB = 2, NACC = 4; };
 template <> struct Shape<kWire1>  { static constexpr int NA = 2, NB = 1, NACC = 2; };
-template <> struct Shape<kBf16>   { static constexpr int NA = 1, NB = 1, NACC = 1; };
-
-template <int MODE> struct AccOf { using T = int; };
-template <> struct AccOf<kBf16> { using T = float; };
 
 template <int MODE>
-using Acc = typename AccOf<MODE>::T[Shape<MODE>::NACC][2][4][4];
+using Acc = int[Shape<MODE>::NACC][2][4][4];
 
 __device__ __forceinline__ void mma_s8(int* d, const uint32_t* a,
                                        const uint32_t* b) {
@@ -92,15 +85,6 @@ __device__ __forceinline__ void mma_u8(int* d, const uint32_t* a,
       "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
@@ -125,7 +109,7 @@ __device__ __forceinline__ uint32_t lds32(const uint8_t* p) {
 // One 32-byte slab of the contraction for a warp's 32 x 32 quarter. Thread
 // (g, t) = (lane / 4, lane % 4) holds the bytes [4t, 4t+4) and [16+4t, ...)
 // of rows g and g+8 of each 16-row A tile and of column g of each 8-column
-// B tile: the m16n8k32 s8 and the m16n8k16 bf16 fragment layouts alike.
+// B tile: the m16n8k32 s8 fragment layout.
 template <int MODE>
 __device__ __forceinline__ void mma_slab(Acc<MODE>& acc,
                                          const uint8_t* const* sa,
@@ -160,11 +144,7 @@ __device__ __forceinline__ void mma_slab(Acc<MODE>& acc,
   for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
-      if constexpr (MODE == kBf16) {
-        mma_bf16(acc[0][mt][nt], af[0][mt], bf[0][nt]);
-      } else if constexpr (MODE == kI32) {
-        mma_s8(acc[0][mt][nt], af[0][mt], bf[0][nt]);
-      } else if constexpr (MODE == kProbe3 || MODE == kFusedQ) {
+      if constexpr (MODE == kProbe3 || MODE == kFusedQ) {
         mma_s8(acc[0][mt][nt], af[0][mt], bf[0][nt]);  // hh = xh . b
         mma_s8(acc[1][mt][nt], af[0][mt], bf[1][nt]);  // hl = xh . b2, and
         mma_s8(acc[1][mt][nt], af[1][mt], bf[0][nt]);  // lh = xl . b: one int32 sum
@@ -200,12 +180,10 @@ __device__ __forceinline__ float combine(const Acc<MODE>& acc, int mt, int nt,
     v = __fadd_rn(v, __fmul_rn(f32(acc[2][mt][nt][e]), 256.0f));
     v = __fadd_rn(v, f32(acc[3][mt][nt][e]));
     return __fmul_rn(v, scale);
-  } else if constexpr (MODE == kWire1) {
+  } else {  // kWire1
     const float v = __fadd_rn(__fmul_rn(f32(acc[0][mt][nt][e]), 256.0f),
                               f32(acc[1][mt][nt][e]));
     return __fmul_rn(v, scale);
-  } else {  // kBf16
-    return acc[0][mt][nt][e];
   }
 }
 
@@ -229,14 +207,9 @@ __device__ __forceinline__ void store_tile(const Acc<MODE>& acc, void* out,
       for (int nt = 0; nt < 4; ++nt) {
         const long long at = (long long)r * ldc + col0 + wn * 32 + nt * 8 + t * 2;
         const int e = hf * 2;
-        if constexpr (MODE == kI32) {
-          *reinterpret_cast<int2*>(static_cast<int*>(out) + at) =
-              make_int2(acc[0][mt][nt][e], acc[0][mt][nt][e + 1]);
-        } else {
-          *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
-              make_float2(combine<MODE>(acc, mt, nt, e, scale, rs),
-                          combine<MODE>(acc, mt, nt, e + 1, scale, rs));
-        }
+        *reinterpret_cast<float2*>(static_cast<float*>(out) + at) =
+            make_float2(combine<MODE>(acc, mt, nt, e, scale, rs),
+                        combine<MODE>(acc, mt, nt, e + 1, scale, rs));
       }
     }
   }
@@ -312,9 +285,9 @@ gemm_kernel(const uint8_t* __restrict__ a0, const uint8_t* __restrict__ a1,
       mma_slab<MODE>(acc, sa, kPitch, kk, sb, kk, wm, wn, g, t);
     __syncthreads();
   }
-  const size_t elem = MODE == kI32 ? sizeof(int) : sizeof(float);
-  store_tile<MODE>(acc, static_cast<uint8_t*>(out) + bz * c_batch * elem, ldc,
-                   row0, col0, m, scale, nullptr, wm, wn, g, t);
+  store_tile<MODE>(acc,
+                   static_cast<uint8_t*>(out) + bz * c_batch * sizeof(float),
+                   ldc, row0, col0, m, scale, nullptr, wm, wn, g, t);
 }
 
 // K11: f32 rows in, quantized in the CTA. The CTA's 64 rows span the full
@@ -436,10 +409,16 @@ int launch_gemm(const void* a0, const void* a1, long long lda,
 
 }  // namespace
 
+// b6_sm90.cu: modes kI32 and kBf16 on TMA + wgmma.
+int b6_sm90_gemm(int mode, const void* a, long long lda, long long a_batch,
+                 const void* bt, int k_bytes, void* out, long long ldc,
+                 long long c_batch, int m, int n, int batch, cudaStream_t st);
+
 // mode: 0 int32 out (K9), 1 probe 3-dot (K10), 2 wire int8x2, 3 wire
-// int8x1, 4 bf16 (K8). lda, a_batch and k_bytes in bytes; ldc and c_batch
-// in output elements. The wrapper checks the shapes; this refuses what the
-// tiles cannot take (N % 64, K % 64, 16-byte strides).
+// int8x1, 4 bf16 (K8); modes 0 and 4 run on b6_sm90.cu. lda, a_batch and
+// k_bytes in bytes; ldc and c_batch in output elements. The wrapper checks
+// the shapes; this refuses what the tiles cannot take (N % 64, K % 64,
+// 16-byte strides).
 extern "C" int crlot_b6_gemm(int mode, const void* a0, const void* a1,
                              long long lda, long long a_batch,
                              const void* b0, const void* b1, int k_bytes,
@@ -452,8 +431,9 @@ extern "C" int crlot_b6_gemm(int mode, const void* a0, const void* a1,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (mode) {
-    case kI32: return launch_gemm<kI32>(a0, a1, lda, a_batch, b0, b1, k_bytes,
-                                        out, ldc, c_batch, m, n, batch, scale, st);
+    case kI32:
+    case kBf16: return b6_sm90_gemm(mode, a0, lda, a_batch, b0, k_bytes, out,
+                                    ldc, c_batch, m, n, batch, st);
     case kProbe3: return launch_gemm<kProbe3>(a0, a1, lda, a_batch, b0, b1,
                                               k_bytes, out, ldc, c_batch, m, n,
                                               batch, scale, st);
@@ -463,9 +443,6 @@ extern "C" int crlot_b6_gemm(int mode, const void* a0, const void* a1,
     case kWire1: return launch_gemm<kWire1>(a0, a1, lda, a_batch, b0, b1,
                                             k_bytes, out, ldc, c_batch, m, n,
                                             batch, scale, st);
-    case kBf16: return launch_gemm<kBf16>(a0, a1, lda, a_batch, b0, b1,
-                                          k_bytes, out, ldc, c_batch, m, n,
-                                          batch, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,7 +3,9 @@
 Counterpart of the four Pallas kernels of `scripts/bench_pallas_int8_probe.py`
 (K8 `_kernel_bf16`, K9 `_kernel_i8`, K10 `_kernel_i8_3dot`, K11
 `_kernel_i8_fusedq`) and of the born-int16 wire tier's interior dots
-(`crlot_tpu/wire.py:105-179`). The kernels live in `csrc/int8_gemm.cu`.
+(`crlot_tpu/wire.py:105-179`). B6-i8 and B6-bf16 run on the TMA + `wgmma`
+kernel of `csrc/b6_sm90.cu`; B6-limb and B6-fusedq on the `mma.sync` loop
+of `csrc/int8_gemm.cu`.
 
 Operands. A product is C = A @ B with B given as `bt` [N, K] (K-contiguous,
 laid out once at design time). A is either a matrix [..., M, K] or, with
@@ -11,6 +13,7 @@ laid out once at design time). A is either a matrix [..., M, K] or, with
 x[..., r*lda : r*lda + K], read in place. The wire tier calls it with
 lda = gh and K = mg*gh, which is the reference's m-ordered sum of mg
 shifted dots (`_hopblock_apply_i8`) in one exact int32 product.
+`tile_plan` is the geometry in which the TMA kernel reads such windows.
 
 * `i8_gemm` (B6-i8, K9): int8 x int8 -> int32.
 * `limb_gemm` (B6-limb, K10 and the wire): several limb-pair products in
@@ -32,7 +35,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -46,7 +49,8 @@ launches: Dict[str, int] = {"i8": 0, "limb": 0, "bf16": 0, "fusedq": 0}
 # product takes two A operands, the high and the low limb.
 EPILOGUES = {"probe3": (1, 2), "wire2": (2, 2), "wire1": (3, 1)}
 _MODE_I32, _MODE_BF16 = 0, 4
-TILE = 64  # the kernel's N and K-byte granularity
+TILE = 64  # the kernels' N and K-byte granularity
+KTILE_BYTES = 128  # contraction bytes of one K tile of the TMA kernel
 FUSEDQ_MAX_K = 1024
 
 # K11's quantization constants (the probe's :68-70). XLA folds the probe's
@@ -64,6 +68,41 @@ def windows(x: torch.Tensor, rows: int, lda: int, k: int) -> torch.Tensor:
             f"{rows} rows of {k} at stride {lda} need "
             f"{(rows - 1) * lda + k} samples, have {x.shape[-1]}")
     return x.unfold(-1, k, lda)[..., :rows, :]
+
+
+class TilePlan(NamedTuple):
+    """How the TMA kernel reads windows: the signal as the non-overlapping
+    view [view_rows, lda], and for each K tile of `width` elements its
+    (row shift m, column j) in that view."""
+
+    view_rows: int
+    width: int
+    tiles: tuple
+
+
+def tile_plan(rows: int, lda: int, k: int, elem: int,
+              length: int) -> TilePlan:
+    """The K tiles of windows row r = x[r*lda : r*lda + k] of a signal of
+    `length` elements of `elem` bytes (a matrix is lda = k). K tile kt holds
+    window bytes kt*128 .. kt*128 + 127: the view's row r + m at column j,
+    m = (kt*128) // lda and j = (kt*128) % lda in bytes. Columns past lda
+    (a ragged last tile) read as zeros. Raises ValueError where a tile would
+    straddle two view rows (overlapping windows with lda bytes % 128 != 0)
+    or a window would reach past the view."""
+    lda_b, k_b = lda * elem, k * elem
+    if lda_b % 16 or k_b % 16:
+        raise ValueError(f"row stride {lda_b} and K {k_b} bytes must be "
+                         f"multiples of 16")
+    if lda_b < k_b and lda_b % KTILE_BYTES:
+        raise ValueError(f"overlapping windows need a row stride of a "
+                         f"multiple of {KTILE_BYTES} bytes, got {lda_b}")
+    view_rows = length // lda
+    if rows < 1 or (rows - 1) * lda + k > view_rows * lda:
+        raise ValueError(f"{rows} windows of {k} at stride {lda} do not fit "
+                         f"the {view_rows} whole rows of {lda} in {length}")
+    tiles = tuple(((kb // lda_b), (kb % lda_b) // elem)
+                  for kb in range(0, k_b, KTILE_BYTES))
+    return TilePlan(view_rows, KTILE_BYTES // elem, tiles)
 
 
 def _as_signal(a: torch.Tensor, rows, lda):
@@ -194,6 +233,8 @@ def _launch(what, mode, xs, bts, rows, lda, out_dtype, scale=1.0):
     if (lda * es) % 16 or (batch > 1 and (length * es) % 16):
         raise ValueError(f"{what}: row stride {lda} and signal length "
                          f"{length} must be multiples of 16 bytes")
+    if mode in (_MODE_I32, _MODE_BF16):
+        tile_plan(rows, lda, k, es, length)  # the TMA kernel's geometry
     out = torch.empty(lead + (rows, n), dtype=out_dtype, device=x0.device)
     lib = cuda_build.load_library()
     status = lib.crlot_b6_gemm(

@@ -16,7 +16,10 @@ variant: µs per call, TOPS of one dot (2*F*N*K / t) and the µs of the one
 library call computing the same function where there is one, in its
 fastest operand layout (`torch._int_mm` for pl_i8;
 `torch.mm(..., out_dtype=torch.float32)` for pl_bf16 where the card's
-torch has it); then a summary line with the int8-over-bf16 rate ratio.
+torch has it); for pl_bf16 and pl_i8 also both times with a cold L2
+(`us_per_call_cold`, `library_us_cold`: 256 MB written before each timed
+run), which the bytes bound assumes; then a summary line with the
+int8-over-bf16 rate ratio.
 On the CPU the plain versions run and nothing is timed ("not measured").
 Exits 1 if a kernel disagrees with its plain version.
 """
@@ -36,6 +39,7 @@ from .core import device as _device
 F, N, K = 11264, 512, 512
 SEED = 0
 BF16_REL_TOL = 1e-6  # per element, relative to sum_k |x||b|
+COLD = ("pl_bf16", "pl_i8")  # variants also timed with a cold L2
 
 
 def probe_inputs(rows: int = F, device="cuda") -> dict:
@@ -133,6 +137,10 @@ def run(rows: int = F, device="cuda") -> list:
     variant, then a summary dict."""
     from .timing import cuda_ms
 
+    def us(call, cold=False):
+        q, per_call = cuda_ms(call, cold=cold)
+        return (per_call if q is None else q) * 1e3, q is not None
+
     t = probe_inputs(rows, device)
     on_card = t["x_f32"].device.type == "cuda"
     flops = 2.0 * rows * N * K
@@ -146,16 +154,19 @@ def run(rows: int = F, device="cuda") -> list:
             torch.cuda.synchronize()
             ok, err = check(name, got, plain(), t)
             rec.update(match_plain=bool(ok), max_abs_err=err)
-            q, per_call = cuda_ms(kern)
-            ms = per_call if q is None else q
-            rec.update(us_per_call=ms * 1e3, queued=q is not None,
-                       tops_1dot=flops / (ms * 1e-3) / 1e12)
+            t_us, queued = us(kern)
+            rec.update(us_per_call=t_us, queued=queued,
+                       tops_1dot=flops / (t_us * 1e-6) / 1e12)
             rec["library_us"] = rec["library"] = None
             for label, call in lib.get(name, {}).items():
-                lq, lc = cuda_ms(call)
-                us = (lc if lq is None else lq) * 1e3
-                if rec["library_us"] is None or us < rec["library_us"]:
-                    rec["library_us"], rec["library"] = us, label
+                l_us = us(call)[0]
+                if rec["library_us"] is None or l_us < rec["library_us"]:
+                    rec["library_us"], rec["library"] = l_us, label
+            if name in COLD:
+                rec["us_per_call_cold"] = us(kern, cold=True)[0]
+                rec["library_us_cold"] = (
+                    None if rec["library"] is None
+                    else us(lib[name][rec["library"]], cold=True)[0])
         else:
             rec.update(us_per_call="not measured (cpu)", checksum=float(
                 got.double().abs().sum()))

@@ -9,9 +9,10 @@ import statistics
 
 REPS = 10
 SLEEP_CYCLES = 100_000_000  # ~50 ms of the card's clock: queue-ahead time
+FLUSH_BYTES = 256 * 2**20  # written before each cold run: 5x the 50 MB L2
 
 
-def cuda_ms(fn, reps: int = REPS) -> tuple:
+def cuda_ms(fn, reps: int = REPS, cold: bool = False) -> tuple:
     """(queued, per call): median device time of fn over `reps` runs after
     two warm-ups (ms), timed two ways.
 
@@ -25,8 +26,21 @@ def cuda_ms(fn, reps: int = REPS) -> tuple:
     None. (A call of many hundred launches can fill CUDA's launch queue,
     and the host then waits for the card, however long it sleeps.)
     Per call: each run alone, synchronized after it, so the host's launch
-    time counts where it exceeds the device's work."""
+    time counts where it exceeds the device's work.
+    Cold: before each timed run, outside its event pair, FLUSH_BYTES of
+    scratch are written, so that fn finds its inputs in device memory and
+    not in L2 (warm, a run reads what the run before it left in L2)."""
     import torch
+
+    scratch = (torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+               if cold else None)
+
+    def run(e0, e1):
+        if scratch is not None:
+            scratch.fill_(1)
+        e0.record()
+        fn()
+        e1.record()
 
     for _ in range(2):
         fn()
@@ -39,9 +53,7 @@ def cuda_ms(fn, reps: int = REPS) -> tuple:
         torch.cuda._sleep(cycles)
         woke.record()
         for e0, e1 in pairs:
-            e0.record()
-            fn()
-            e1.record()
+            run(e0, e1)
         behind = woke.query()
         torch.cuda.synchronize()
         if not behind:
@@ -52,9 +64,7 @@ def cuda_ms(fn, reps: int = REPS) -> tuple:
     for _ in range(reps):
         e0, e1 = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
-        e0.record()
-        fn()
-        e1.record()
+        run(e0, e1)
         e1.synchronize()
         per_call.append(e0.elapsed_time(e1))
     return queued, statistics.median(per_call)

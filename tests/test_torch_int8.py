@@ -208,3 +208,81 @@ def test_int8_probe_inputs_are_the_probes(inputs):
     x = rng.uniform(-1, 1, (int8_probe.F, int8_probe.N)).astype(np.float32)
     np.testing.assert_array_equal(t["x_f32"].numpy(), x[:8])
     assert t["xh"].dtype == torch.int8 and int(t["xh"].max()) <= 127
+
+
+def _signal(rng, batch, length, elem):
+    if elem == 1:
+        return torch.from_numpy(rng.integers(-128, 128, (batch, length),
+                                             dtype=np.int8))
+    return torch.from_numpy(rng.uniform(-1, 1, (batch, length)).astype(
+        np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("rows,lda,k,elem,batch", [
+    (4096, 512, 2048, 1, 1),  # the wire's windows: lda 512, K 2048
+    (7, 512, 2048, 1, 1),
+    (130, 512, 2048, 1, 2),   # batch 2 of windows
+    (999, 128, 320, 1, 2),    # windows with a ragged last K tile
+    (5, 576, 576, 1, 1),      # dense, K bytes % 128 = 64
+    (1000, 64, 64, 1, 1),     # dense K of 64 bytes: one half-filled tile
+    (9, 512, 512, 2, 1),      # bf16 dense (the probe's K)
+    (9, 288, 288, 2, 1),      # bf16 dense, K bytes % 128 = 64
+])
+def test_tile_plan_gathers_the_windows(rows, lda, k, elem, batch):
+    """The TMA kernel's reads: K tile kt from the non-overlapping
+    [L // lda, lda] view at (row + m, j), zero past the view's rows and
+    columns (TMA's out-of-bounds fill), concatenated over the tiles and cut
+    to K, is each window of `windows` exactly."""
+    length = (rows - 1 + -(-k // lda)) * lda
+    x = _signal(np.random.default_rng(rows + lda), batch, length, elem)
+    plan = b6.tile_plan(rows, lda, k, elem, length)
+    assert plan.width * elem == b6.KTILE_BYTES
+    assert len(plan.tiles) == -(-k * elem // b6.KTILE_BYTES)
+    view = x[..., : plan.view_rows * lda].reshape(batch, plan.view_rows, lda)
+    parts = []
+    for m, j in plan.tiles:
+        block = view[:, m : m + rows, j : j + plan.width]
+        parts.append(torch.nn.functional.pad(
+            block, (0, plan.width - block.shape[-1],
+                    0, rows - block.shape[-2])))
+    got = torch.cat(parts, dim=-1)[..., :k]
+    assert torch.equal(got, b6.windows(x, rows, lda, k))
+
+
+def test_tile_plan_of_the_wire_is_the_m_ordered_blocks():
+    """lda 512, K 2048: tile kt is block m = kt // 4 of the reference's
+    mg = 4 shifted dots, at column 128 * (kt % 4)."""
+    plan = b6.tile_plan(4096, 512, 2048, 1, 4099 * 512)
+    assert plan.view_rows == 4099
+    assert plan.tiles == tuple((kt // 4, 128 * (kt % 4)) for kt in range(16))
+
+
+@pytest.mark.parametrize("lda,k,elem", [(64, 2048, 1), (192, 384, 1),
+                                        (320, 1024, 1), (96, 192, 2)])
+def test_tile_plan_refuses_overlapping_windows_off_the_tile(lda, k, elem):
+    """Overlapping windows (lda < K) whose row stride is not a multiple of
+    128 bytes would put a K tile across two view rows."""
+    with pytest.raises(ValueError, match="multiple of 128 bytes"):
+        b6.tile_plan(4, lda, k, elem, 64 * lda)
+
+
+def test_tile_plan_refuses_windows_past_the_view():
+    """The view holds whole rows of lda only: a window reaching into the
+    signal's ragged tail is refused, as are row strides off 16 bytes."""
+    with pytest.raises(ValueError, match="do not fit"):
+        b6.tile_plan(3, 512, 576, 1, 2 * 512 + 576)
+    assert b6.tile_plan(3, 512, 576, 1, 4 * 512 + 100).view_rows == 4
+    with pytest.raises(ValueError, match="multiples of 16"):
+        b6.tile_plan(3, 520, 520, 1, 3 * 520)
+
+
+def test_i8_kernel_wrapper_checks_the_tile_plan():
+    """B6-i8's CUDA wrapper takes its geometry from `tile_plan`: windows
+    the TMA kernel cannot read are refused before any launch."""
+    x = torch.zeros((1, 64 * 39 + 2048), dtype=torch.int8)
+    bt = torch.zeros((64, 2048), dtype=torch.int8)
+    with mock.patch.object(b6, "_check_cuda", lambda *a: None), \
+            mock.patch.object(b6.cuda_build, "load_library",
+                              side_effect=AssertionError("launched")):
+        with pytest.raises(ValueError, match="multiple of 128 bytes"):
+            b6.i8_gemm_cuda(x, bt, rows=40, lda=64)
