@@ -79,7 +79,10 @@ Kernel checks of B6 and B4's unstaged path (not counted on a path):
      at the wire geometry (lda 512, K 2048, 1 and 2 x 4096 rows)
      torch.equal; and at the edges of the TMA kernel's tiles (M = 1000,
      N = 64 and 192, a dense K of 64 bytes, batch 2 of overlapping
-     windows): B6-i8 torch.equal, B6-bf16 within 1e-6 of sum|x||b|.
+     windows): B6-i8 torch.equal, B6-bf16 within 1e-6 of sum|x||b|;
+     B6-limb probe3 at M = 1000, N = 64 and 192 and batch 2 of windows,
+     and its int16 wire modes at lda 512 (2 x 4096 rows; 1000 rows at N =
+     64 and 192): torch.equal.
  19. B4 at 48 kHz -> 300 Hz (M = 160: the input segment outgrows shared
      memory, so B4 reads each window from L2) vs `resample_bank_plain` and
      the grouped form on 2 x 60 s: max-abs <= 1e-5.
@@ -110,15 +113,19 @@ busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
 the median of 10 runs timed one at a time, synchronized after each): each
 kernel vs its plain
-version (B4 at both rates against `resample_bank_plain` and against
-`resample_grouped_plain`, the JAX default's math; B5 at n = 5 760 000), and
+version (B4 at both rates against its former design, the blocks tile, in the
+same run and as PERF.md gives it, against `resample_bank_plain` and
+against `resample_grouped_plain`, the JAX default's math; B5 at n =
+5 760 000), and
 end-to-end samples/s of phases 3, 6, 8, 9 (phase 9 on both meshes; the
 (2, 2) mesh runs its four shards one after another on one card, so it is no
 scaling figure), 13, 14 and 15, and the demo's wall time; the library
 calls beside B4 (`conv1d`) and B5 (`torch.add`, `torch.addcmul`); the
 sustained samples/s of the f32 streamer and both wire tiers (phases 20,
-21); B6's plain versions at the probe shape, B6-limb at one wire chunk,
-B6-i8 at the wire geometry and B4 at 48 kHz -> 300 Hz against theirs.
+21); B6's plain versions at the probe shape, B6-limb at one wire chunk
+(on the int16 samples, as the path runs it, beside the former mma.sync
+design from PERF.md), B6-i8 at the wire geometry and B4 at 48 kHz -> 300
+Hz against theirs.
 
 The last three lines: a JSON object describing each kernel (with its
 bound from this run's bytes and operations at the H100 SXM peaks, and the
@@ -184,6 +191,15 @@ def kernel_name(line: str) -> str:
             arg = re.match(r"ILi(\d+)E", line[j + len(name):])
             return name + (f"<{arg.group(1)}>" if arg else "")
     return line.strip()
+
+
+# The former designs of K7 and K10, as PERF.md's table gives them (NVIDIA
+# H100 80GB HBM3, 700.00 W; ms, CUDA events, queued): printed beside the
+# new times.
+OLD_MS = {"K7 44.1->48": "0.1568-0.1581 ms",
+          "K7 48->16": "0.1684 ms",
+          "K10 probe": "0.0595-0.0601 ms",
+          "K10 wire chunk": "0.0756-0.0762 ms"}
 
 
 def timed(timing, key, fn) -> None:
@@ -698,12 +714,15 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": "crlot_tpu_torch/csrc/" + (
-                "b6_sm90.cu" if key in ("bf16", "i8") else "int8_gemm.cu"),
+                "int8_gemm.cu" if key == "fusedq" else "b6_sm90.cu"),
             "replaces": f"{probe_src}:{line}",
             "launches": path4["counts"][key],
             "max_abs_err": path_b6["results"][variant],
             "ms": probe_ms(variant), "plain_ms": timing[f"{variant}_plain"],
             **bnd, "library_ms": probe_lib(variant)})
+    log(f"K10 at the probe shape {probe_ms('pl_i8_3dot'):.4f} ms (TMA + "
+        f"wgmma); the former mma.sync design {OLD_MS['K10 probe']} in "
+        f"PERF.md")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -953,15 +972,27 @@ def resample_timings(dev, path3) -> dict:
 
     timing = {}
     for key, (x, l, m, n_out) in path3["geometry"].items():
+        plan = b4.geometry(l, m)
+        taps = b4.compact_bank(l, m, None, 120.0)[0]
+        old = b4.plan_of(l, m, "blocks", 8)  # the former design
         timed(timing, f"b4_{key}", lambda: b4.resample_cuda(x, l, m, n_out))
+        timed(timing, f"b4_{key}_old",
+              lambda: b4.resample_cuda(x, l, m, n_out, plan=old))
         timed(timing, f"b4_{key}_bank",
               lambda: b4.resample_bank_plain(x, l, m, n_out))
         timed(timing, f"b4_{key}_grouped",
               lambda: resample_grouped_plain(x, l, m, n_out))
-        log(f"time B4 {key} kernel {ms(timing, f'b4_{key}')}, plain "
-            f"(resample_bank_plain) {ms(timing, f'b4_{key}_bank')} "
-            f"([2, {x.shape[-1]}] -> [2, {n_out}]; CUDA events, median of "
-            f"{REPS}, queued)")
+        taps_ops = 2.0 * x.shape[0] * n_out * taps.shape[0]
+        timing[f"b4_{key}_bound"] = bound(
+            nbytes(x) + x.shape[0] * n_out * 4 + taps.nbytes, taps_ops)
+        log(f"time B4 {key} kernel {ms(timing, f'b4_{key}')} (runs_kernel, "
+            f"J {plan.j}, R {plan.r}, {plan.wc} classes a CTA), the former "
+            f"design (blocks tile, R 8) {ms(timing, f'b4_{key}_old')} in "
+            f"this run, {OLD_MS[f'K7 {key}']} in PERF.md; plain "
+            f"(resample_bank_plain) {ms(timing, f'b4_{key}_bank')}; bound "
+            f"{timing[f'b4_{key}_bound']['bound_ms']:.4f} ms "
+            f"({timing[f'b4_{key}_bound']['bound_by']}) ([2, {x.shape[-1]}] "
+            f"-> [2, {n_out}]; CUDA events, median of {REPS}, queued)")
         log(f"time B4 {key} vs the JAX default's math (resample_grouped_plain)"
             f" {ms(timing, f'b4_{key}_grouped')}")
     # The one PyTorch call computing B4's sum: a strided conv1d (cuDNN,
@@ -1079,6 +1110,62 @@ def b6_edge_cases(dev) -> list:
     return cases
 
 
+def limb_edge_cases(dev) -> list:
+    """B6-limb at the edges of the TMA kernel's tiles, from seed 18: (label,
+    kernel call, plain call). probe3 on int8 limbs at a ragged last row
+    block (M = 1000), at N = 64 and 192 (its tile is 128 x 128) and on
+    batch 2 of overlapping windows (lda 128, K 320: a ragged last K tile);
+    the int16 wire modes on windows at lda 512, K 2048 (the wire geometry,
+    2 x 4096 rows, and a ragged 1000 rows at N = 64 and 192; wire2's tile
+    is 128 x 64)."""
+    import numpy as np
+    import torch
+
+    from crlot_tpu_torch import int8_gemm as b6
+
+    rng = np.random.default_rng(18)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+
+    def limbs(shape):
+        return [put(rng.integers(-128, 128, shape, dtype=np.int8))
+                for _ in range(2)]
+
+    def kernel_b(n, k):
+        return [put(rng.integers(-127, 128, (n, k), dtype=np.int8))
+                for _ in range(2)]
+
+    cases = []
+    for label, m, n in (("M 1000", 1000, 512), ("N 64", 1000, 64),
+                        ("N 192", 1000, 192)):
+        args = (*limbs((m, 512)), *kernel_b(n, 512), "probe3")
+        cases.append((f"probe3 {label}",
+                      lambda a=args: b6.limb_gemm_cuda(*a),
+                      lambda a=args: b6.limb_gemm_plain(*a)))
+    rows, lda = 999, 128
+    args = (*limbs((2, (rows + 2) * lda)), *kernel_b(512, 320), "probe3")
+    cases.append(("probe3 batch 2 windows (lda 128, K 320, 999 rows)",
+                  lambda a=args, r=rows: b6.limb_gemm_cuda(*a, rows=r,
+                                                           lda=lda),
+                  lambda a=args, r=rows: b6.limb_gemm_plain(*a, rows=r,
+                                                            lda=lda)))
+    for ep in ("wire2", "wire1"):
+        for label, c, rows, n in (("2 x 4096 rows", 2, 4096, 512),
+                                  ("1000 rows, N 64", 1, 1000, 64),
+                                  ("1000 rows, N 192", 1, 1000, 192)):
+            x = put(rng.integers(-32768, 32768, (c, (rows - 1) * 512 + 2048),
+                                 dtype=np.int16))
+            b0, b1 = kernel_b(n, 2048)
+            args = (x, b0, b1, ep, 3e-5)
+            cases.append((f"{ep} int16 at lda 512, K 2048, {label}",
+                          lambda a=args, r=rows: b6.limb_gemm_i16_cuda(
+                              *a, rows=r, lda=512),
+                          lambda a=args, r=rows: b6.limb_gemm_i16_plain(
+                              *a, rows=r, lda=512)))
+    return cases
+
+
 def b6_edge_check(dtype, got, want, a, bt):
     """(ok, max-abs, error as printed): int8 equal; bf16 within
     BF16_REL_TOL of sum_k |x||b| per element."""
@@ -1143,6 +1230,16 @@ def b6_checks(dev, phase, check) -> dict:
             key = "pl_i8" if dtype == "i8" else "pl_bf16"
             results[key] = max(results[key], err)
             check(ok, lines[-1])
+        for label, kern, plain in limb_edge_cases(dev):
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            ok = torch.equal(got, want)
+            err = float((got.double() - want.double()).abs().max())
+            lines.append(f"B6-limb {label}: {'equal' if ok else 'DIFFERS'} "
+                         f"(max-abs {err:.3e})")
+            results["pl_i8_3dot"] = max(results["pl_i8_3dot"], err)
+            check(ok, lines[-1])
         return "; ".join(lines)
 
     def p19():
@@ -1151,7 +1248,8 @@ def b6_checks(dev, phase, check) -> dict:
         l, m = 1, 160
         n_out = -(-x.shape[-1] * l // m)
         _, _, _, w = b4.compact_bank(l, m, None, 120.0)
-        check(b4.geometry(l, m, w)[1] is False, "expected the unstaged path")
+        check(b4.geometry(l, m).kind == "windows",
+              "expected the unstaged path")
         got = b4.resample_cuda(x, l, m, n_out)
         bank = b4.resample_bank_plain(x, l, m, n_out)
         grouped = resample_grouped_plain(x, l, m, n_out)
@@ -1407,18 +1505,23 @@ def wire_timings(dev, path4, path_b6) -> dict:
         f"{name} {ms(timing, name + '_plain')}"
         for name in int8_probe.variants(t)))
     x16 = path4["x16"][: WIRE_CHUNK + 2 * (NFFT - HOP)][None].contiguous()
-    hi, lo = wire.i16_limbs(x16)
     rb = wire._resolve_blocked_per_bin(cfg, None)
-    kh, kl = wire._i16_limbs_on(cfg, rb, "int8x2", hi.device)
+    kh, kl = wire._i16_limbs_on(cfg, rb, "int8x2", x16.device)
     rows = WIRE_CHUNK // 512
-    timed(timing, "limb_wire", lambda: b6.limb_gemm_cuda(
-        hi, lo, kh, kl, "wire2", 1e-5, rows=rows, lda=512))
-    timed(timing, "limb_wire_plain", lambda: b6.limb_gemm_plain(
-        hi, lo, kh, kl, "wire2", 1e-5, rows=rows, lda=512))
+    timed(timing, "limb_wire", lambda: b6.limb_gemm_i16_cuda(
+        x16, kh, kl, "wire2", 1e-5, rows=rows, lda=512))
+    timed(timing, "limb_wire_plain", lambda: b6.limb_gemm_i16_plain(
+        x16, kh, kl, "wire2", 1e-5, rows=rows, lda=512))
     ops = 4 * 2.0 * rows * 512 * 2048
+    timing["limb_wire_bound"] = bound(nbytes(x16, kh, kl) + rows * 512 * 4,
+                                      ops, "int8")
     log(f"time B6-limb at one wire chunk (int8x2, {rows} rows x 512 x 2048, "
-        f"4 limb products, {ops / 1e9:.1f} G int8 ops): kernel "
-        f"{ms(timing, 'limb_wire')}, plain {ms(timing, 'limb_wire_plain')}; "
+        f"4 limb products, {ops / 1e9:.1f} G int8 ops): kernel on the int16 "
+        f"samples (the path's) {ms(timing, 'limb_wire')}; the former mma.sync "
+        f"design "
+        f"{OLD_MS['K10 wire chunk']} in PERF.md; plain "
+        f"{ms(timing, 'limb_wire_plain')}; bound "
+        f"{timing['limb_wire_bound']['bound_ms']:.4f} ms; "
         f"{ops / (timing['limb_wire'] * 1e-3) / 1e12:.1f} TOPS")
     xw, kw = path_b6["results"]["i8_wire"]  # 2 x 4096 rows, lda 512, K 2048
     timed(timing, "i8_wire", lambda: b6.i8_gemm_cuda(xw, kw, rows=4096,

@@ -57,10 +57,11 @@ _SIGNATURES = {
         _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP,
         _I, _I, _I, _I, _VP,
     ],
-    # (x, t_in, taps_t, offsets, out, channels, n_out, l, m, tp, w, tau_min,
-    #  stream)
+    # (x, t_in, u, nc, span, taps_t, offsets, out, channels, n_out, l, m,
+    #  tp, w, tau_min, h0, j, r, wc, seg_floats, stream)
     "crlot_resample": [
-        _VP, _LL, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP,
+        _VP, _LL, _VP, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I,
+        _I, _I, _I, _I, _LL, _VP,
     ],
     # (dst, src, gain, out, n, stream)
     "crlot_axpy": [_VP, _VP, _F, _VP, _LL, _VP],
@@ -168,3 +169,25 @@ def stream_handle(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def require_cuda(what: str, *tensors) -> None:
+    """Raise unless every tensor lies on one CUDA device."""
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what} needs its tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+
+
+def launch(name: str, device, *args) -> None:
+    """Call the library's `name` with `args` and the current stream of
+    `device` appended, inside `torch.cuda.device(device)`: the launch, and
+    any per-device setup it does (shared-memory attributes, the SM count),
+    happens on the tensors' card, not on whichever card is current. Raises
+    on a non-zero status."""
+    import torch
+
+    lib = load_library()
+    with torch.cuda.device(device):
+        status = getattr(lib, name)(*args, stream_handle(device))
+    check(status, name)

@@ -170,11 +170,7 @@ def _launch_args(what: str, padded: torch.Tensor, nfft: int, hop: int,
             )
     dev = padded.device
     tensors = (padded, window_f32) + more
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(
-            f"{what} needs its tensors on one CUDA device, got "
-            f"{[str(t.device) for t in tensors]}"
-        )
+    cuda_build.require_cuda(what, *tensors)
     for t in tensors:
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"{what} takes contiguous float32 tensors")
@@ -215,15 +211,13 @@ def roundtrip_signal_cuda(
     channels = padded.shape[0]
     out = torch.empty((channels, out_len), dtype=torch.float32,
                       device=padded.device)
-    lib = cuda_build.load_library()
-    status = lib.crlot_rt_ola(
+    cuda_build.launch(
+        "crlot_rt_ola", padded.device,
         padded.data_ptr(), padded.shape[-1], window_f32.data_ptr(),
         c.data_ptr(), s.data_ptr(), cinv.data_ptr(), sinv.data_ptr(),
         norm.data_ptr(), desc.data_ptr(), n_ops, params.data_ptr(),
         out.data_ptr(), channels, nfft, hop, n_frames, out_len, float(eps),
-        cuda_build.stream_handle(padded.device),
     )
-    cuda_build.check(status, "crlot_rt_ola")
     launches += 1
     return out
 
@@ -242,14 +236,13 @@ def roundtrip_frames_cuda(
     channels = padded.shape[0]
     out = torch.empty((channels, n_frames, nfft), dtype=torch.float32,
                       device=padded.device)
-    lib = cuda_build.load_library()
-    status = lib.crlot_rt_frames(
+    cuda_build.launch(
+        "crlot_rt_frames", padded.device,
         padded.data_ptr(), padded.shape[-1], window_f32.data_ptr(),
         c.data_ptr(), s.data_ptr(), cinv.data_ptr(), sinv.data_ptr(),
         desc.data_ptr(), n_ops, params.data_ptr(), out.data_ptr(), channels,
-        nfft, hop, n_frames, cuda_build.stream_handle(padded.device),
+        nfft, hop, n_frames,
     )
-    cuda_build.check(status, "crlot_rt_frames")
     frames_launches += 1
     return out
 

@@ -3,9 +3,10 @@
 Counterpart of the four Pallas kernels of `scripts/bench_pallas_int8_probe.py`
 (K8 `_kernel_bf16`, K9 `_kernel_i8`, K10 `_kernel_i8_3dot`, K11
 `_kernel_i8_fusedq`) and of the born-int16 wire tier's interior dots
-(`crlot_tpu/wire.py:105-179`). B6-i8 and B6-bf16 run on the TMA + `wgmma`
-kernel of `csrc/b6_sm90.cu`; B6-limb and B6-fusedq on the `mma.sync` loop
-of `csrc/int8_gemm.cu`.
+(`crlot_tpu/wire.py:105-179`). B6-i8, B6-bf16 and B6-limb run on the TMA +
+`wgmma` kernel of `csrc/b6_sm90.cu` (one template, a mode each; its tile
+per mode is `SM90_GEO`); B6-fusedq on the `mma.sync` loop of
+`csrc/int8_gemm.cu`.
 
 Operands. A product is C = A @ B with B given as `bt` [N, K] (K-contiguous,
 laid out once at design time). A is either a matrix [..., M, K] or, with
@@ -16,11 +17,17 @@ shifted dots (`_hopblock_apply_i8`) in one exact int32 product.
 `tile_plan` is the geometry in which the TMA kernel reads such windows.
 
 * `i8_gemm` (B6-i8, K9): int8 x int8 -> int32.
-* `limb_gemm` (B6-limb, K10 and the wire): several limb-pair products in
-  one launch, each an exact int32 accumulator, and a fixed f32 epilogue
-  picked by name (`EPILOGUES`): "probe3" f32(hh)*128 + f32(hl + lh);
-  "wire2" (hh*32768 + lh*128 + hl*256 + ll) * scale; "wire1"
-  (h*256 + l) * scale. The wire's low limb is unsigned (0..255).
+* `limb_gemm` (B6-limb, K10): several limb-pair products in one launch,
+  each an exact int32 accumulator, and a fixed f32 epilogue picked by name
+  (`EPILOGUES`): "probe3" f32(hh)*128 + f32(hl + lh); "wire2" (hh*32768 +
+  lh*128 + hl*256 + ll) * scale; "wire1" (h*256 + l) * scale. The wire's
+  low limb is unsigned (0..255). The kernel runs "probe3" on int8 limbs;
+  the wire epilogues run on the card only from int16 samples
+  (`limb_gemm_i16`), and on limbs only in the plain version.
+* `limb_gemm_i16` (B6-limb on int16 samples, the wire tier): the wire
+  epilogues on the limbs of int16 samples, which the kernel splits on chip
+  (`i16_limb_bytes`: hi = the high byte, lo = the low byte of each
+  sample).
 * `bf16_gemm` (B6-bf16, K8): bf16 x bf16 -> f32.
 * `fusedq_gemm` (B6-fusedq, K11): f32 rows quantized per row to two int8
   limbs in the kernel, then the three dots of "probe3", times s*128.
@@ -45,13 +52,52 @@ from . import cuda_build
 # B6 kernel launches since import (or the caller's reset), per kernel.
 launches: Dict[str, int] = {"i8": 0, "limb": 0, "bf16": 0, "fusedq": 0}
 
-# Epilogue descriptors of B6-limb: (kernel mode, B operands); every limb
-# product takes two A operands, the high and the low limb.
-EPILOGUES = {"probe3": (1, 2), "wire2": (2, 2), "wire1": (3, 1)}
-_MODE_I32, _MODE_BF16 = 0, 4
+# The B operands of each B6-limb epilogue; every limb product takes two A
+# operands, the high and the low limb.
+EPILOGUES = {"probe3": 2, "wire2": 2, "wire1": 1}
+# The kernel's modes: K10's probe3 on int8 limbs, and the wire epilogues on
+# int16 samples, split into limbs on chip.
+_MODE_I32, _MODE_PROBE3, _MODE_BF16 = 0, 1, 4
+I16_MODES = {"wire2": 6, "wire1": 7}
 TILE = 64  # the kernels' N and K-byte granularity
 KTILE_BYTES = 128  # contraction bytes of one K tile of the TMA kernel
 FUSEDQ_MAX_K = 1024
+
+# b6_sm90.cu's `Cfg` per mode: (A tiles (int16: the two 64-sample boxes of
+# one tile), B tiles, int32 accumulators, tile columns BN, ring stages,
+# epilogue columns a pass, int16 input). The tile is 128 rows x BN.
+SM90_GEO = {
+    0: (1, 1, 1, 128, 4, 128, False),  # K9 int8 -> int32
+    4: (1, 1, 1, 128, 4, 128, False),  # K8 bf16 -> f32
+    1: (2, 2, 2, 128, 3, 64, False),   # K10 probe3
+    6: (2, 2, 4, 64, 4, 64, True),     # wire int8x2 on int16 samples
+    7: (2, 1, 2, 128, 4, 64, True),    # wire int8x1 on int16 samples
+}
+SM90_MAX_SMEM = 232_448  # dynamic shared memory a CTA may use on sm_90
+SM90_ACC_REGS = 128  # of setmaxnreg's 232 a consumer thread
+
+
+def sm90_budget(mode: int) -> dict:
+    """Shared memory and accumulator registers of b6_sm90.cu's kernel in
+    `mode`, as its `Geo` computes them: STAGES stages of NA 16 KB A tiles
+    (int16 input: one tile of 128 x 128 samples) and NB B tiles of BN x 128
+    bytes, two warpgroups' 64 x SC x 4-byte staging, the mbarriers, and 1
+    KB of alignment; each consumer thread holds NACC x BN / 2 accumulators
+    (and, for int16 input, 32 registers of limb fragments)."""
+    na, nb, nacc, bn, stages, sc, i16 = SM90_GEO[mode]
+    stage = na * 128 * 128 + nb * bn * 128
+    smem = stages * stage + 2 * 64 * sc * 4 + 2 * stages * 8 + 1024
+    return {"tile": (128, bn), "stages": stages, "stage_bytes": stage,
+            "smem": smem, "acc_regs": nacc * bn // 2,
+            "frag_regs": 32 if i16 else 0, "passes": bn // sc,
+            "ktile_a_bytes": KTILE_BYTES * (2 if i16 else 1)}
+
+
+def sm90_tiles(mode: int, rows: int, n: int, batch: int = 1) -> int:
+    """Output tiles of one launch: the persistent grid walks them on
+    min(tiles, SMs) CTAs."""
+    bn = SM90_GEO[mode][3]
+    return -(-rows // 128) * -(-n // bn) * batch
 
 # K11's quantization constants (the probe's :68-70). XLA folds the probe's
 # `/ 16256.0` (a division by a constant) into a product by the float32
@@ -80,29 +126,30 @@ class TilePlan(NamedTuple):
     tiles: tuple
 
 
-def tile_plan(rows: int, lda: int, k: int, elem: int,
-              length: int) -> TilePlan:
+def tile_plan(rows: int, lda: int, k: int, elem: int, length: int,
+              ktile_bytes: int = KTILE_BYTES) -> TilePlan:
     """The K tiles of windows row r = x[r*lda : r*lda + k] of a signal of
     `length` elements of `elem` bytes (a matrix is lda = k). K tile kt holds
-    window bytes kt*128 .. kt*128 + 127: the view's row r + m at column j,
-    m = (kt*128) // lda and j = (kt*128) % lda in bytes. Columns past lda
-    (a ragged last tile) read as zeros. Raises ValueError where a tile would
-    straddle two view rows (overlapping windows with lda bytes % 128 != 0)
-    or a window would reach past the view."""
+    window bytes kt*T .. kt*T + T - 1, T = `ktile_bytes` (128; 256 for the
+    int16 limb modes, whose stage is 128 samples): the view's row r + m at
+    column j, m = (kt*T) // lda and j = (kt*T) % lda in bytes. Columns past
+    lda (a ragged last tile) read as zeros. Raises ValueError where a tile
+    would straddle two view rows (overlapping windows with lda bytes % T !=
+    0) or a window would reach past the view."""
     lda_b, k_b = lda * elem, k * elem
     if lda_b % 16 or k_b % 16:
         raise ValueError(f"row stride {lda_b} and K {k_b} bytes must be "
                          f"multiples of 16")
-    if lda_b < k_b and lda_b % KTILE_BYTES:
+    if lda_b < k_b and lda_b % ktile_bytes:
         raise ValueError(f"overlapping windows need a row stride of a "
-                         f"multiple of {KTILE_BYTES} bytes, got {lda_b}")
+                         f"multiple of {ktile_bytes} bytes, got {lda_b}")
     view_rows = length // lda
     if rows < 1 or (rows - 1) * lda + k > view_rows * lda:
         raise ValueError(f"{rows} windows of {k} at stride {lda} do not fit "
                          f"the {view_rows} whole rows of {lda} in {length}")
     tiles = tuple(((kb // lda_b), (kb % lda_b) // elem)
-                  for kb in range(0, k_b, KTILE_BYTES))
-    return TilePlan(view_rows, KTILE_BYTES // elem, tiles)
+                  for kb in range(0, k_b, ktile_bytes))
+    return TilePlan(view_rows, ktile_bytes // elem, tiles)
 
 
 def _as_signal(a: torch.Tensor, rows, lda):
@@ -113,6 +160,22 @@ def _as_signal(a: torch.Tensor, rows, lda):
             raise ValueError(f"A must be [..., M, K], got {tuple(a.shape)}")
         return a.contiguous().flatten(-2), a.shape[-2], a.shape[-1]
     return a, rows, lda
+
+
+def i16_limbs(x_i16: torch.Tensor):
+    """Exact limbs of int16 samples over the whole range: (hi int8, lo
+    uint8) with hi = x >> 8 in [-128, 127], lo = x & 0xFF in [0, 255], and
+    256*hi + lo == x."""
+    x = x_i16.to(torch.int32)
+    return (x >> 8).to(torch.int8), (x & 0xFF).to(torch.uint8)
+
+
+def i16_limb_bytes(x_i16: torch.Tensor):
+    """The same limbs as the int16 limb modes make them on chip: each
+    little-endian sample's high byte (hi, read as int8) and low byte (lo,
+    uint8), the byte permutes of `b6_sm90.cu`'s split_limbs."""
+    b = x_i16.contiguous().view(torch.uint8).reshape(x_i16.shape + (2,))
+    return b[..., 1].view(torch.int8), b[..., 0]
 
 
 def int_dot(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
@@ -168,6 +231,12 @@ def limb_gemm_plain(a0, a1, b0, b1, epilogue, scale=1.0, rows=None,
     return combine(_accumulators(epilogue, a, [b0, b1]), epilogue, scale)
 
 
+def limb_gemm_i16_plain(x, b0, b1, epilogue, scale=1.0, rows=None,
+                        lda=None) -> torch.Tensor:
+    hi, lo = i16_limb_bytes(x)
+    return limb_gemm_plain(hi, lo, b0, b1, epilogue, scale, rows, lda)
+
+
 def bf16_gemm_plain(a, bt) -> torch.Tensor:
     """a [..., M, K] bf16 @ bt.T in f32 (each bf16 product is exact in
     f32; the sums run in the backend's order)."""
@@ -195,15 +264,6 @@ def fusedq_gemm_plain(x, bt, b2t) -> torch.Tensor:
 # --- kernels ---------------------------------------------------------------
 
 
-def _check_cuda(what, *tensors):
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device.type != "cuda":
-            raise ValueError(f"{what} needs CUDA tensors, got {t.device}")
-        if t.device != dev:
-            raise ValueError(f"{what}: tensors on {dev} and {t.device}")
-
-
 def _check_b(what, bt, dtype, k=None):
     if bt.dtype != dtype or bt.ndim != 2 or not bt.is_contiguous():
         raise ValueError(f"{what}: B must be a contiguous {dtype} [N, K], got "
@@ -217,7 +277,7 @@ def _check_b(what, bt, dtype, k=None):
 def _launch(what, mode, xs, bts, rows, lda, out_dtype, scale=1.0):
     """One B6 gemm launch on signals xs [..., L] (same shape) and Bt's."""
     x0 = xs[0]
-    _check_cuda(what, *xs, *bts)
+    cuda_build.require_cuda(what, *xs, *bts)
     n, k = bts[0].shape
     es = x0.element_size()
     lead = x0.shape[:-1]
@@ -233,16 +293,13 @@ def _launch(what, mode, xs, bts, rows, lda, out_dtype, scale=1.0):
     if (lda * es) % 16 or (batch > 1 and (length * es) % 16):
         raise ValueError(f"{what}: row stride {lda} and signal length "
                          f"{length} must be multiples of 16 bytes")
-    if mode in (_MODE_I32, _MODE_BF16):
-        tile_plan(rows, lda, k, es, length)  # the TMA kernel's geometry
+    ktile = sm90_budget(mode)["ktile_a_bytes"]
+    tile_plan(rows, lda, k, es, length, ktile)  # the TMA kernel's geometry
     out = torch.empty(lead + (rows, n), dtype=out_dtype, device=x0.device)
-    lib = cuda_build.load_library()
-    status = lib.crlot_b6_gemm(
-        mode, x0.data_ptr(), xs[-1].data_ptr(), lda * es, length * es,
-        bts[0].data_ptr(), bts[-1].data_ptr(), k * es, out.data_ptr(), n,
-        rows * n, rows, n, batch, float(np.float32(scale)),
-        cuda_build.stream_handle(x0.device))
-    cuda_build.check(status, "crlot_b6_gemm")
+    cuda_build.launch(
+        "crlot_b6_gemm", x0.device, mode, x0.data_ptr(), xs[-1].data_ptr(),
+        lda * es, length * es, bts[0].data_ptr(), bts[-1].data_ptr(), k * es,
+        out.data_ptr(), n, rows * n, rows, n, batch, float(np.float32(scale)))
     return out
 
 
@@ -260,25 +317,42 @@ def i8_gemm_cuda(a, bt, rows=None, lda=None) -> torch.Tensor:
 
 def limb_gemm_cuda(a0, a1, b0, b1, epilogue, scale=1.0, rows=None,
                    lda=None) -> torch.Tensor:
-    """Launch B6-limb: the limb pairs of `epilogue` in one launch."""
-    if epilogue not in EPILOGUES:
-        raise ValueError(f"unknown epilogue {epilogue!r}; one of "
-                         f"{list(EPILOGUES)}")
-    mode, nb = EPILOGUES[epilogue]
+    """Launch B6-limb on int8 limbs: the three products of "probe3" (K10)
+    in one launch. The wire epilogues take int16 samples
+    (`limb_gemm_i16_cuda`)."""
+    if epilogue != "probe3":
+        raise ValueError(f"B6-limb on int8 limbs runs 'probe3', got "
+                         f"{epilogue!r}; the wire epilogues take int16 "
+                         f"samples (limb_gemm_i16)")
     x0, _, _ = _as_signal(a0, rows, lda)
     x1, rows, lda = _as_signal(a1, rows, lda)
-    if x0.dtype != torch.int8:
-        raise ValueError(f"B6-limb: the high limb must be int8, got "
-                         f"{x0.dtype}")
-    low = torch.uint8 if epilogue.startswith("wire") else torch.int8
-    if x1.dtype != low:
-        raise ValueError(f"B6-limb {epilogue}: the low limb must be {low}, "
-                         f"got {x1.dtype}")
-    bts = [b0, b1][:nb]
+    if x0.dtype != torch.int8 or x1.dtype != torch.int8:
+        raise ValueError(f"B6-limb probe3: both limbs must be int8, got "
+                         f"{x0.dtype}, {x1.dtype}")
+    for bt in (b0, b1):
+        _check_b("B6-limb", bt, torch.int8, k=b0.shape[1])
+    out = _launch("B6-limb", _MODE_PROBE3, [x0, x1], [b0, b1], rows, lda,
+                  torch.float32, scale)
+    launches["limb"] += 1
+    return out
+
+
+def limb_gemm_i16_cuda(x, b0, b1, epilogue, scale=1.0, rows=None,
+                       lda=None) -> torch.Tensor:
+    """Launch B6-limb on int16 samples (a matrix [..., M, K] or, with rows
+    and lda, windows of a signal): the kernel splits each sample into its
+    limbs on chip and runs the wire epilogue's products in one launch."""
+    if epilogue not in I16_MODES:
+        raise ValueError(f"B6-limb on int16 takes an epilogue of "
+                         f"{list(I16_MODES)}, got {epilogue!r}")
+    x, rows, lda = _as_signal(x, rows, lda)
+    if x.dtype != torch.int16:
+        raise ValueError(f"B6-limb on int16 takes int16 A, got {x.dtype}")
+    bts = [b0, b1][:EPILOGUES[epilogue]]
     for bt in bts:
         _check_b("B6-limb", bt, torch.int8, k=b0.shape[1])
-    out = _launch("B6-limb", mode, [x0, x1], bts, rows, lda, torch.float32,
-                  scale)
+    out = _launch("B6-limb", I16_MODES[epilogue], [x], bts, rows, lda,
+                  torch.float32, scale)
     launches["limb"] += 1
     return out
 
@@ -296,7 +370,7 @@ def bf16_gemm_cuda(a, bt) -> torch.Tensor:
 
 def fusedq_gemm_cuda(x, bt, b2t) -> torch.Tensor:
     """Launch B6-fusedq: x f32 [M, K] quantized per row in the kernel."""
-    _check_cuda("B6-fusedq", x, bt, b2t)
+    cuda_build.require_cuda("B6-fusedq", x, bt, b2t)
     if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
         raise ValueError(f"B6-fusedq takes contiguous f32 [M, K], got "
                          f"{x.dtype} {tuple(x.shape)}")
@@ -308,11 +382,9 @@ def fusedq_gemm_cuda(x, bt, b2t) -> torch.Tensor:
         _check_b("B6-fusedq", b, torch.int8, k=k)
     n = bt.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    lib = cuda_build.load_library()
-    status = lib.crlot_b6_fusedq(
-        x.data_ptr(), k, bt.data_ptr(), b2t.data_ptr(), k, out.data_ptr(), n,
-        m, n, cuda_build.stream_handle(x.device))
-    cuda_build.check(status, "crlot_b6_fusedq")
+    cuda_build.launch(
+        "crlot_b6_fusedq", x.device, x.data_ptr(), k, bt.data_ptr(),
+        b2t.data_ptr(), k, out.data_ptr(), n, m, n)
     launches["fusedq"] += 1
     return out
 
@@ -330,6 +402,12 @@ def limb_gemm(a0, a1, b0, b1, epilogue, scale=1.0, rows=None, lda=None):
     if a0.device.type == "cpu":
         return limb_gemm_plain(a0, a1, b0, b1, epilogue, scale, rows, lda)
     return limb_gemm_cuda(a0, a1, b0, b1, epilogue, scale, rows, lda)
+
+
+def limb_gemm_i16(x, b0, b1, epilogue, scale=1.0, rows=None, lda=None):
+    if x.device.type == "cpu":
+        return limb_gemm_i16_plain(x, b0, b1, epilogue, scale, rows, lda)
+    return limb_gemm_i16_cuda(x, b0, b1, epilogue, scale, rows, lda)
 
 
 def bf16_gemm(a, bt):

@@ -35,11 +35,7 @@ def ola_normalized_cuda(
     """Launch B1 on `frames[B, F, N]` (or `[F, N]`) f32 contiguous CUDA
     tensors; `norm` f32 with at least out_len entries on the same card."""
     global launches
-    if frames.device.type != "cuda" or norm.device != frames.device:
-        raise ValueError(
-            f"B1 needs frames and norm on one CUDA device, got "
-            f"{frames.device} and {norm.device}"
-        )
+    cuda_build.require_cuda("B1 (frames, norm)", frames, norm)
     if frames.dtype != torch.float32 or norm.dtype != torch.float32:
         raise ValueError(f"B1 takes float32, got {frames.dtype}/{norm.dtype}")
     if frames.ndim not in (2, 3):
@@ -54,12 +50,9 @@ def ola_normalized_cuda(
     f3 = frames if batched else frames.unsqueeze(0)
     bsz, n_frames, nfft = f3.shape
     out = torch.empty((bsz, out_len), dtype=torch.float32, device=frames.device)
-    lib = cuda_build.load_library()
-    status = lib.crlot_ola_normalized(
-        f3.data_ptr(), norm.data_ptr(), out.data_ptr(), bsz, n_frames, nfft,
-        hop, out_len, float(eps), cuda_build.stream_handle(frames.device),
-    )
-    cuda_build.check(status, "crlot_ola_normalized")
+    cuda_build.launch(
+        "crlot_ola_normalized", frames.device, f3.data_ptr(), norm.data_ptr(),
+        out.data_ptr(), bsz, n_frames, nfft, hop, out_len, float(eps))
     launches += 1
     return out if batched else out[0]
 

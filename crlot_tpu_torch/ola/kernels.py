@@ -78,10 +78,7 @@ def _use_kernel(t: torch.Tensor, use_pallas: Optional[bool]) -> bool:
 
 
 def _check_cuda(what: str, *ts: torch.Tensor) -> None:
-    dev = ts[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in ts):
-        raise ValueError(f"{what} needs tensors on one CUDA device, got "
-                         f"{[str(t.device) for t in ts]}")
+    cuda_build.require_cuda(what, *ts)
     if any(t.dtype != torch.float32 or not t.is_contiguous() for t in ts):
         raise ValueError(f"{what} takes contiguous float32 tensors")
     if any(t.shape != ts[0].shape for t in ts):
@@ -100,10 +97,8 @@ def axpy_reference(dst: torch.Tensor, src: torch.Tensor,
 def axpy_cuda(dst: torch.Tensor, src: torch.Tensor, gain) -> torch.Tensor:
     _check_cuda("axpy", dst, src)
     out = torch.empty_like(dst)
-    status = cuda_build.load_library().crlot_axpy(
-        dst.data_ptr(), src.data_ptr(), _f32(gain), out.data_ptr(),
-        dst.numel(), cuda_build.stream_handle(dst.device))
-    cuda_build.check(status, "crlot_axpy")
+    cuda_build.launch("crlot_axpy", dst.device, dst.data_ptr(),
+                      src.data_ptr(), _f32(gain), out.data_ptr(), dst.numel())
     launches["axpy"] += 1
     return out
 
@@ -132,10 +127,9 @@ def axpy_windowed_reference(dst, src, win, gain) -> torch.Tensor:
 def axpy_windowed_cuda(dst, src, win, gain) -> torch.Tensor:
     _check_cuda("axpy_windowed", dst, src, win)
     out = torch.empty_like(dst)
-    status = cuda_build.load_library().crlot_axpy_windowed(
-        dst.data_ptr(), src.data_ptr(), win.data_ptr(), _f32(gain),
-        out.data_ptr(), dst.numel(), cuda_build.stream_handle(dst.device))
-    cuda_build.check(status, "crlot_axpy_windowed")
+    cuda_build.launch("crlot_axpy_windowed", dst.device, dst.data_ptr(),
+                      src.data_ptr(), win.data_ptr(), _f32(gain),
+                      out.data_ptr(), dst.numel())
     launches["axpy_windowed"] += 1
     return out
 
@@ -168,10 +162,9 @@ def normalize_and_clear_cuda(acc, norm, eps):
     _check_cuda("normalize_and_clear", acc, norm)
     out = torch.empty_like(acc)
     cleared = torch.empty_like(acc)
-    status = cuda_build.load_library().crlot_normalize_and_clear(
-        acc.data_ptr(), norm.data_ptr(), _f32(eps), out.data_ptr(),
-        cleared.data_ptr(), acc.numel(), cuda_build.stream_handle(acc.device))
-    cuda_build.check(status, "crlot_normalize_and_clear")
+    cuda_build.launch("crlot_normalize_and_clear", acc.device, acc.data_ptr(),
+                      norm.data_ptr(), _f32(eps), out.data_ptr(),
+                      cleared.data_ptr(), acc.numel())
     launches["normalize_and_clear"] += 1
     return out, cleared
 

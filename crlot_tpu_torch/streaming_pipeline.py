@@ -466,9 +466,13 @@ def process_wav_file(
     zero-padded. The chunks run on `device` (default "cuda"). Returns the
     samples written per channel.
 
+    Memory stays bounded by the chunk: `WavStreamReader` decodes only each
+    chunk's span of the file (its N - hop overlap read again, by seek), and
+    `WavWriter` encodes each output chunk to disk as it comes.
+
     The first and last N - hop samples have partial window coverage under
     steady-state normalization, as `streaming_round_trip`'s `valid_from`."""
-    from .io.wav import WavReader, WavWriter
+    from .io.wav import WavStreamReader, WavWriter
 
     if cfg.center:
         raise ValueError("streaming pipeline is uncentered (center=False)")
@@ -477,7 +481,7 @@ def process_wav_file(
     chunk_out = chunk_frames * hop
     span = (chunk_frames - 1) * hop + n
 
-    reader = WavReader(infile)
+    reader = WavStreamReader(infile)
     total = reader.num_frames
     logger.info(
         "stream %s -> %s: %d ch, %d frames @ %d Hz, N=%d H=%d, "
@@ -489,7 +493,8 @@ def process_wav_file(
         carry = None
         pos = written = 0
         while written < total:
-            raw = reader.read(pos, min(span, max(total - pos, 0)))
+            reader.seek(pos)
+            raw = reader.read_chunk(span)
             if raw.shape[-1] < span:  # EOF: zero-pad trailing frames
                 raw = np.pad(raw, [(0, 0), (0, span - raw.shape[-1])])
             x = _device.place(raw, device, torch.float32)

@@ -4,10 +4,11 @@ Counterpart of `crlot_tpu/wire.py`. Wire audio arrives on the device as
 int16. `I16BlockedStreamer` follows `BlockedChunkStreamer`'s halo-extended
 chunk protocol (one chunk of latency, resumable state) but takes int16
 chunks and runs the hop-block Toeplitz interior as exact int8 x int8 ->
-int32 limb products on B6 (`int8_gemm.limb_gemm`, `csrc/int8_gemm.cu`):
-ONE launch per chunk computes every limb pair over the overlapping
-windows of the chunk, read in place, and combines them in f32. Only the
-head / tail edge-patch regions (the stream's ends) are dequantized to f32.
+int32 limb products on B6 (`int8_gemm.limb_gemm_i16`, `csrc/b6_sm90.cu`):
+ONE launch per chunk reads the chunk's int16 samples, splits them into
+limbs on chip, computes every limb pair over the overlapping windows of
+the chunk, read in place, and combines them in f32. Only the head / tail
+edge-patch regions (the stream's ends) are dequantized to f32.
 
 Limbs. The port splits every int16 code exactly: hi = x >> 8 (int8,
 -128..127) and lo = x & 0xFF (an UNSIGNED byte, 0..255), x == 256*hi + lo
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from . import int8_gemm as b6
+from .int8_gemm import i16_limbs  # noqa: F401  (the exact split, C1)
 from .core import device as _device
 from .core.types import StftConfig
 from .streaming_pipeline import (
@@ -50,14 +52,6 @@ _TIERS = ("int8x2", "int8x1")
 
 # int16 full-scale: wire samples are x_f = x_i16 / 32768.
 _I16_SCALE = 32768.0
-
-
-def i16_limbs(x_i16: torch.Tensor):
-    """Exact limbs of int16 samples over the whole range: (hi int8, lo
-    uint8) with hi = x >> 8 in [-128, 127], lo = x & 0xFF in [0, 255], and
-    256*hi + lo == x."""
-    x = x_i16.to(torch.int32)
-    return (x >> 8).to(torch.int8), (x & 0xFF).to(torch.uint8)
 
 
 @lru_cache(maxsize=16)
@@ -124,12 +118,11 @@ def _i16_blocked_chunk(lctx, mid, rctx, cfg: StftConfig, rb: bytes,
     k = _blocked_consts_on(cfg, rb, mid.device)
     gh, s = c["gh"], mid.shape[-1]
     x_ext = torch.cat([lctx, mid, rctx], dim=-1)
-    hi, lo = i16_limbs(x_ext)
     limbs = _i16_limbs_on(cfg, rb, tier, mid.device)
     scale = float(np.float32(c["k_scale"] / _I16_SCALE))
     epilogue = "wire1" if tier == "int8x1" else "wire2"
-    out = b6.limb_gemm(hi, lo, limbs[0], limbs[-1], epilogue, scale,
-                       rows=s // gh, lda=gh)
+    out = b6.limb_gemm_i16(x_ext, limbs[0], limbs[-1], epilogue, scale,
+                           rows=s // gh, lda=gh)
     out = out.reshape(out.shape[:-2] + (s,))
     if k["tile"] is not None:
         out = out / k["tile"].repeat(s // cfg.hop_size)

@@ -281,7 +281,7 @@ def test_i8_kernel_wrapper_checks_the_tile_plan():
     the TMA kernel cannot read are refused before any launch."""
     x = torch.zeros((1, 64 * 39 + 2048), dtype=torch.int8)
     bt = torch.zeros((64, 2048), dtype=torch.int8)
-    with mock.patch.object(b6, "_check_cuda", lambda *a: None), \
+    with mock.patch.object(b6.cuda_build, "require_cuda", lambda *a: None), \
             mock.patch.object(b6.cuda_build, "load_library",
                               side_effect=AssertionError("launched")):
         with pytest.raises(ValueError, match="multiple of 128 bytes"):

@@ -77,7 +77,7 @@ def test_compact_bank_holds_every_nonzero_tap(sr_in, sr_out):
     expect = {(160, 147): (157, 303), (1, 3): (469, 469),
               (160, 441): (431, 869)}  # taps per output: compact, dense
     assert expect.get((l, m), (n_taps, w)) == (n_taps, w)
-    assert tk.shared_bytes(l, m, w) <= tk.MAX_SHARED_BYTES
+    assert 0 < tk.geometry(l, m).seg_floats * 4 <= tk.MAX_SHARED_BYTES
 
 
 @pytest.mark.parametrize("sr_in,sr_out", RATES)
@@ -260,12 +260,12 @@ def test_b4_geometry_takes_every_rate(sr_in, sr_out, staged):
     g = math.gcd(sr_in, sr_out)
     l, m = sr_out // g, sr_in // g
     _, _, _, w = tk.compact_bank(l, m, None, 120.0)
-    r, is_staged = tk.geometry(l, m, w)
-    assert is_staged == staged and r in (1, 2, 4, 8)
+    plan = tk.geometry(l, m)
+    assert (plan.kind != "windows") == staged and plan.r in (0, 1, 2, 4, 8)
     if staged:
-        assert tk.shared_bytes(l, m, w, r) <= tk.MAX_SHARED_BYTES
+        assert 0 < plan.seg_floats * 4 <= tk.MAX_SHARED_BYTES
     else:
-        assert tk.shared_bytes(l, m, w, 1) > tk.MAX_SHARED_BYTES
+        assert tk.blocks_segment(l, m, w, 1) * 4 > tk.MAX_SHARED_BYTES
 
 
 def test_high_decimation_matches_reference():
