@@ -18,23 +18,28 @@ and demo path (`resample`, `resample_chunked`, `resampled_stft`,
 Phases (each prints one line; the script exits 1 if any fails):
   1. B1 (fused OLA + normalize) vs plain on [2, 11251, 1024] frames:
      bit-exact (torch.equal).
-  2. B2 (fused nonlinear round-trip + OLA) vs plain for noise_gate(-30),
-     spectral_subtraction(noise_mag, 1.0, 0.05) and compose(band_gain,
-     noise_gate), over the cropped signal span: max-abs <= 1e-5 and SNR
-     between them >= 100 dB, and max-abs <= 1e-5 against the same plain
-     version run on the host CPU. (Fp32 products may be summed in another
-     order; the center padding divides by the near-zero edge norm, and
-     every caller crops it.)
-  3. round_trip identity ("blocked"): SNR vs input >= 60 dB.
-  4. round_trip with a 3-band band_gain ("blocked"): the first 1 s against
-     a float64 numpy STFT * g * iSTFT oracle, SNR >= 80 dB.
+  2. B2 (3xTF32 round-trip frames, then B1's OLA) vs plain for
+     noise_gate(-30), spectral_subtraction(noise_mag, 1.0, 0.05) and
+     compose(band_gain, noise_gate), over the cropped signal span: SNR
+     between them >= 100 dB, and max-abs <= 1e-5 against plain on the card
+     and on the host CPU outside the frames whose gate decision is
+     ambiguous (a bin power within the products' error of the threshold,
+     `fused_rt.ambiguous_frames`: ROADMAP C12) and the samples they
+     overlap; prints how many frames it left out (fails above 0.1 %) and
+     whether the worst sample lies in one. (Products may be summed in
+     another order; the center padding divides by the near-zero edge norm,
+     and every caller crops it.)
+  3. round_trip identity ("blocked", one B0 launch): SNR vs input >= 60 dB.
+  4. round_trip with a 3-band band_gain ("blocked", one B0 launch): the
+     first 1 s against a float64 numpy STFT * g * iSTFT oracle, SNR >= 80
+     dB.
   5. istft(stft(x)): SNR >= 60 dB, B1 launched.
   6. round_trip with noise_gate(-30) ("fused_rt_ola"): SNR vs input >=
      60 dB, B2 launched.
   7. B3 (fused round-trip frames) vs plain for the identity and the three
-     fns of phase 2, on the centered signal ([2, 11251, 1024] frames):
-     max-abs <= 1e-5 against the plain version on the card and on the host
-     CPU; prints whether the card's result is bit-identical.
+     fns of phase 2, on the centered signal ([2, 11251, 1024] frames): SNR
+     >= 100 dB, and max-abs <= 1e-5 against the plain version on the card
+     and on the host CPU outside the ambiguous frames (as phase 2).
   8. round_trip with cfg.fused_roundtrip ("fused_rt_frames"): SNR vs input
      >= 60 dB, B3 and B1 launched.
   9. sharded_round_trip with noise_gate(-30), center=False, T = 2879488
@@ -43,9 +48,9 @@ Phases (each prints one line; the script exits 1 if any fails):
      shard, torch.equal to the (1, 1) mesh, and within max-abs 1e-5 of the
      one-shot round_trip (B2) over [N, T-N) (prints whether bit-identical).
  10. sharded identity (blocked route) on the same mesh and signal: blocked
-     engaged, interior SNR vs input >= 60 dB, within rtol 3e-6 of the
-     (1, 1) mesh with the first and last N-H samples exact, and the in-mesh
-     metrics' SNR within 0.01 dB of the host's SNR of the gathered output.
+     engaged, one B0 launch a shard, interior SNR vs input >= 60 dB,
+     torch.equal to the (1, 1) mesh, and the in-mesh metrics' SNR within
+     0.01 dB of the host's SNR of the gathered output.
 The resample and demo path runs on 2 channels x 60 s at 44.1 kHz (uniform
 noise from seed 0 for the kernel checks, a 997 Hz / 1 kHz sine pair for
 fidelity), BASELINE config 3's long streams, fp32 with TF32 off:
@@ -68,7 +73,7 @@ Then, with the B4 and B5 counters reset just before:
  15. resampled_stft(x, 44100, 48000, N=1024/H=256, center=False) vs
      stft(resample(x)): max-abs <= 1e-5 * scale, B4 launched.
  16. convolve(x48, hamming(255)/127, "same") vs float64 numpy.convolve on
-     the first 1 s: rel RMSE < 1e-5 (no kernel of ours: torch.matmul).
+     the first 1 s: rel RMSE < 1e-5, one B0 launch.
  17. The demo (`crlot_tpu_torch.demo.main --device cuda`) on a 2-ch 60 s
      44.1 kHz 16-bit WAV written from seed 0: exits 0, launches B4 and B5,
      and writes a resampled WAV of output_length frames.
@@ -91,8 +96,7 @@ Then the streaming, wire and probe path on the reference bench's stream
 2 097 152 samples of uniform noise in +-0.9 from seed 9, device-resident),
 with the B6 counters reset just before:
  20. BlockedChunkStreamer (identity) vs the one-shot
-     `blocked_composed_round_trip`: within rtol 3e-6 with the first and
-     last N-H samples exact; prints whether bit-identical.
+     `blocked_composed_round_trip`: torch.equal, one B0 launch a chunk.
  21. The wire tier on the same stream as int16, int8x2 and int8x1: one
      B6-limb launch per chunk; chunks of 2 097 152, 524 288 and one chunk
      bit-identical (int16 egress); identity interior >= 90 dB vs the float
@@ -102,18 +106,25 @@ with the B6 counters reset just before:
      interior within 2e-6 of a float64 oracle of the exact product and
      bit-identical to the plain version on the host CPU.
  23. process_wav_file on a 2-ch 60 s 48 kHz 16-bit WAV from seed 0 vs the
-     unbroken stream: 16-bit codes within one code (prints whether all
-     equal).
+     unbroken stream (the scan form, its frames on B3's kernels): every
+     16-bit code equal.
  24. The int8 probe (`int8_probe.run`): each variant held against its
      plain version, then its us per call, TOPS and library time
      (`torch._int_mm`, `torch.mm(..., out_dtype=float32)`), for K8 and
      K9 both also with a cold L2.
+Then:
+ 25. B0 (`hopblock_apply`'s windowed product, 3xTF32 in `b6_sm90.cu`) vs
+     its plain emulation within 2^-18 of sum|x||k| per output, at the
+     main path's identity and EQ kernels and at the edges of the f32
+     window tiles (M = 1000, N = 192, a batch of 2), and 1000 of its rows
+     alone torch.equal to the same rows of the whole.
 Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
 busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
 the median of 10 runs timed one at a time, synchronized after each): each
 kernel vs its plain
-version (B4 at both rates against its former design, the blocks tile, in the
+version (B0 also against the former cuBLAS fp32 loop, its library time;
+B4 at both rates against its former design, the blocks tile, in the
 same run and as PERF.md gives it, against `resample_bank_plain` and
 against `resample_grouped_plain`, the JAX default's math; B5 at n =
 5 760 000), and
@@ -160,7 +171,9 @@ N_B5 = 2 * 2_880_000  # a 60 s stereo 48 kHz accumulator
 # H100 SXM peaks for the bounds (NVIDIA's data sheet, dense): HBM bytes/s,
 # and operations/s by type.
 HBM_BPS = 3.35e12
-PEAK_OPS = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+PEAK_OPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
+# A 3xTF32 product is three TF32 products: its operations at "tf32" are
+# three times the f32 product's.
 
 
 def log(msg: str) -> None:
@@ -188,18 +201,26 @@ def kernel_name(line: str) -> str:
             j += 1
         name = line[j : j + int(line[i:j])]
         if name.endswith("_kernel") and re.fullmatch(r"[A-Za-z_]\w*", name):
-            arg = re.match(r"ILi(\d+)E", line[j + len(name):])
-            return name + (f"<{arg.group(1)}>" if arg else "")
+            arg = re.match(r"IL([ib])(\d+)E", line[j + len(name):])
+            if arg is None:
+                return name
+            val = arg.group(2)
+            if arg.group(1) == "b":
+                val = "true" if val == "1" else "false"
+            return f"{name}<{val}>"
     return line.strip()
 
 
-# The former designs of K7 and K10, as PERF.md's table gives them (NVIDIA
-# H100 80GB HBM3, 700.00 W; ms, CUDA events, queued): printed beside the
-# new times.
+# The former designs of K2, K3, K7 and K10 and B0's former cuBLAS loop, as
+# PERF.md's table gives them (NVIDIA H100 80GB HBM3, 700.00 W; ms, CUDA
+# events, queued): printed beside the new times.
 OLD_MS = {"K7 44.1->48": "0.1568-0.1581 ms",
           "K7 48->16": "0.1684 ms",
           "K10 probe": "0.0595-0.0601 ms",
-          "K10 wire chunk": "0.0756-0.0762 ms"}
+          "K10 wire chunk": "0.0756-0.0762 ms",
+          "K2": "1.9525-1.9759 ms (fp32 FMA, register-tiled)",
+          "K3": "1.8900-1.9048 ms (fp32 FMA, register-tiled)",
+          "B0": "0.5819 ms of cuBLAS GEMMs + 0.072 ms of adds (PERF.md 5)"}
 
 
 def timed(timing, key, fn) -> None:
@@ -270,6 +291,7 @@ def main() -> int:
     from crlot_tpu_torch import cuda_build, spectral
     from crlot_tpu_torch.core.padding import pad_signal
     from crlot_tpu_torch.fft import fused_rt as b2
+    from crlot_tpu_torch.fft import tf32x3 as b0
     from crlot_tpu_torch.ola import fused as b1
     from crlot_tpu_torch.distributed import sharded_pipeline as spl
     from crlot_tpu_torch.pipeline import _norm_np, _window_f64
@@ -352,6 +374,17 @@ def main() -> int:
 
     phase("1 B1 vs plain", p1)
 
+    # Frames with an ambiguous gate decision (ROADMAP C12): their bins may
+    # flip between any two orders of summing the products, so the max-abs
+    # gates of phases 2 and 7 leave them (and, for B2's OLA output, the
+    # samples they overlap) out, and fail if they are more than 0.1 %.
+    n_rows = 2 * n_frames
+
+    def ambiguous(fn):
+        mask = b2.ambiguous_frames(padded, NFFT, HOP, n_frames, w32,
+                                   None if fn is None else fn.packed)
+        return mask, int(mask.sum())
+
     # 2. B2 vs plain.
     def p2():
         worst, lines = 0.0, []
@@ -365,7 +398,10 @@ def main() -> int:
                 padded, NFFT, HOP, n_frames, w32, norm, cfg.eps, full,
                 fn.packed)
             finite(got[:, crop], (2, n))
-            err = float((got[:, crop] - want[:, crop]).abs().max())
+            mask, left = ambiguous(fn)
+            keep = ~b2.frames_cover(mask, HOP, NFFT, full)[:, crop]
+            d = (got[:, crop] - want[:, crop]).abs()
+            err = float(torch.where(keep, d, 0.0).max())
             snr = pt.snr_db(want[:, crop], got[:, crop])
             # The same plain version on the host CPU (other GEMM order): an
             # independent second reference.
@@ -373,14 +409,20 @@ def main() -> int:
                 padded.cpu(), NFFT, HOP, n_frames, w32.cpu(), norm.cpu(),
                 cfg.eps, full, fn.packed)
             diff = (got[:, crop].cpu() - host[:, crop]).abs()
-            err_host = float(diff.max())
-            at = divmod(int(diff.argmax()), n)  # (channel, sample)
-            lines.append(f"{name}: max-abs {err:.3e} snr {snr:.1f} dB "
-                         f"(vs plain on the host CPU: max-abs {err_host:.3e} "
-                         f"at {at})")
+            keep_h = keep.cpu()
+            err_host = float(torch.where(keep_h, diff, 0.0).max())
+            i = int(diff.argmax())
+            at = divmod(i, n)  # (channel, sample)
+            lines.append(
+                f"{name}: {left} ambiguous frames of {n_rows} left out; "
+                f"max-abs {err:.3e} snr {snr:.1f} dB (all samples: max-abs "
+                f"{float(d.max()):.3e}); vs plain on the host CPU: max-abs "
+                f"{err_host:.3e} (all samples: {float(diff.max()):.3e} at "
+                f"{at}, in an ambiguous frame: "
+                f"{not bool(keep_h.reshape(-1)[i])})")
             worst = max(worst, err)
-            check(err <= 1e-5 and snr >= 100.0 and err_host <= 1e-5,
-                  lines[-1])
+            check(err <= 1e-5 and snr >= 100.0 and err_host <= 1e-5
+                  and left <= 1e-3 * n_rows, lines[-1])
         results["b2_err"] = worst
         return "; ".join(lines)
 
@@ -389,23 +431,29 @@ def main() -> int:
     # Main path through the public entry points, counters reset just before.
     b1.launches = 0
     b2.launches = 0
+    b0.launches = 0
 
     def p3():
         check(pt.formulation_for(cfg, None, n) == "blocked", "route")
+        before = b0.launches
         y = pt.round_trip(x, cfg)
         finite(y, (2, n))
         snr = pt.snr_db(x_np, y)
         check(snr >= 60.0, f"snr {snr:.2f} dB")
-        return f"route blocked, snr {snr:.2f} dB"
+        check(b0.launches == before + 1, "B0 not launched once")
+        return f"route blocked, snr {snr:.2f} dB, B0 (3xTF32) launches +1"
 
     def p4():
         check(pt.formulation_for(cfg, band, n) == "blocked", "route")
+        before = b0.launches
         y = pt.round_trip(x, cfg, band)
         finite(y, (2, n))
         want = _oracle(x_np, band.per_bin_gains(NFFT), cfg)
         snr = min(pt.snr_db(want[c], y[c, :SR]) for c in range(2))
         check(snr >= 80.0, f"snr vs f64 oracle {snr:.2f} dB")
-        return f"route blocked, first 1 s vs f64 oracle {snr:.2f} dB"
+        check(b0.launches == before + 1, "B0 not launched once")
+        return (f"route blocked, first 1 s vs f64 oracle {snr:.2f} dB, B0 "
+                f"(3xTF32) launches +1")
 
     def p5():
         before = b1.launches
@@ -432,9 +480,10 @@ def main() -> int:
     phase("4 round_trip band_gain", p4)
     phase("5 istft(stft)", p5)
     phase("6 round_trip noise_gate", p6)
-    counts = {"b1": b1.launches, "b2": b2.launches}
-    log(f"main-path launches: B1 {counts['b1']}, B2 {counts['b2']}")
-    if counts["b1"] == 0 or counts["b2"] == 0:
+    counts = {"b1": b1.launches, "b2": b2.launches, "b0": b0.launches}
+    log(f"main-path launches: B0 {counts['b0']}, B1 {counts['b1']}, B2 "
+        f"{counts['b2']}")
+    if not all(counts.values()):
         failures.append("launch counts")
         log("FAIL launch counts: a kernel of the path was not launched")
 
@@ -451,15 +500,21 @@ def main() -> int:
             want = b2.roundtrip_frames_plain(padded, NFFT, HOP, n_frames,
                                              w32, packed)
             finite(got, (2, n_frames, NFFT))
-            err = float((got - want).abs().max())
+            mask, left = ambiguous(fn)
+            keep = ~mask[..., None]
+            err = float(torch.where(keep, (got - want).abs(), 0.0).max())
+            snr = pt.snr_db(want, got)
             host = b2.roundtrip_frames_plain(padded.cpu(), NFFT, HOP,
                                              n_frames, w32.cpu(), packed)
-            err_host = float((got.cpu() - host).abs().max())
-            lines.append(f"{name}: max-abs {err:.3e} (bit-identical "
-                         f"{torch.equal(got, want)}; vs plain on the host "
-                         f"CPU: max-abs {err_host:.3e})")
+            err_host = float(torch.where(keep.cpu(), (got.cpu() - host).abs(),
+                                         0.0).max())
+            lines.append(f"{name}: {left} ambiguous frames of {n_rows} left "
+                         f"out; max-abs {err:.3e} snr {snr:.1f} dB (all "
+                         f"frames: {float((got - want).abs().max()):.3e}); "
+                         f"vs plain on the host CPU: max-abs {err_host:.3e}")
             worst = max(worst, err)
-            check(err <= 1e-5 and err_host <= 1e-5, lines[-1])
+            check(err <= 1e-5 and err_host <= 1e-5 and snr >= 100.0
+                  and left <= 1e-3 * n_rows, lines[-1])
         # A signal shorter than its frames' span: reads past its end are 0.
         short = padded[:, :5000].contiguous()
         got = b2.roundtrip_frames_cuda(short, NFFT, HOP, 30, w32, None)
@@ -482,10 +537,10 @@ def main() -> int:
     mesh22 = pt.make_mesh(channel=2, time=2, devices=[dev] * 4)
     mesh11 = pt.make_mesh(channel=1, time=1, devices=[dev])
     inner = slice(NFFT, T_SHARDED - NFFT)
-    edge = NFFT - HOP
     b1.launches = 0
     b2.launches = 0
     b2.frames_launches = 0
+    b0.launches = 0
 
     def p8():
         check(pt.formulation_for(cfg_frames, None, n) == "fused_rt_frames",
@@ -531,41 +586,43 @@ def main() -> int:
             return orig(*a, **k)
 
         spl._blocked_local_round_trip = spy
+        before = b0.launches
         try:
             y, metrics = pt.sharded_round_trip(x9, cfg_nc, mesh22,
                                                return_metrics=True)
         finally:
             spl._blocked_local_round_trip = orig
+        launched = b0.launches - before
         check(len(calls) == 2, f"blocked route engaged {len(calls)} times")
+        check(launched == 4, f"{launched} B0 launches for 4 shards")
         finite(y, (2, T_SHARDED))
         one = pt.sharded_round_trip(x9, cfg_nc, mesh11)
         snr = pt.snr_db(x9_np[:, inner], y[:, inner])
         check(snr >= 60.0, f"interior snr {snr:.2f} dB")
-        check(torch.allclose(y, one, rtol=3e-6, atol=1e-6),
-              "(2, 2) mesh not within rtol 3e-6 of (1, 1)")
-        check(torch.equal(y[:, :edge], one[:, :edge])
-              and torch.equal(y[:, -edge:], one[:, -edge:]),
-              "edges not exact")
+        check(torch.equal(y, one),
+              f"(2, 2) mesh != (1, 1), max-abs "
+              f"{float((y - one).abs().max()):.3e}")
         mesh_snr = pt.metrics_report(metrics)["snr_db"]
         host_snr = pt.snr_db(x9_np, y)
         check(abs(mesh_snr - host_snr) < 0.01,
               f"metrics snr {mesh_snr:.4f} vs host {host_snr:.4f}")
-        return (f"blocked engaged; interior snr {snr:.2f} dB; (2, 2) vs "
-                f"(1, 1) bit-identical {torch.equal(y, one)}; metrics snr "
-                f"{mesh_snr:.4f} dB vs host {host_snr:.4f} dB")
+        return (f"blocked engaged, B0 (3xTF32) launches +{launched}; "
+                f"interior snr {snr:.2f} dB; (2, 2) == (1, 1) bit for bit; "
+                f"metrics snr {mesh_snr:.4f} dB vs host {host_snr:.4f} dB")
 
     phase("8 round_trip fused_roundtrip", p8)
     phase("9 sharded noise_gate (B3)", p9)
     phase("10 sharded identity (blocked)", p10)
-    counts2 = {"b1": b1.launches, "b3": b2.frames_launches}
+    counts2 = {"b1": b1.launches, "b3": b2.frames_launches, "b0": b0.launches}
     log(f"fused-frames and sharded path launches: B3 {counts2['b3']}, "
-        f"B1 {counts2['b1']}")
-    if counts2["b1"] == 0 or counts2["b3"] == 0:
+        f"B1 {counts2['b1']}, B0 {counts2['b0']}")
+    if not all(counts2.values()):
         failures.append("launch counts (path 2)")
         log("FAIL launch counts: a kernel of the path was not launched")
 
     path3 = resample_path(dev, phase, check, failures)
     path_b6 = b6_checks(dev, phase, check)
+    path_b0 = b0_checks(dev, phase, check, cfg, padded, n_frames, band)
     path4 = wire_path(dev, phase, check, failures)
 
     # Timings.
@@ -589,6 +646,22 @@ def main() -> int:
             padded, NFFT, HOP, n_frames, w32, gate.packed))
         timed(timing, "b3_plain", lambda: b2.roundtrip_frames_plain(
             padded, NFFT, HOP, n_frames, w32, gate.packed))
+        x_ext, kern0, bt0, rows0, gh0 = path_b0["inputs"]
+        blocks0 = x_ext.reshape(x_ext.shape[0], -1, gh0)
+
+        def b0_loop():  # the former route: mg cuBLAS fp32 GEMMs and adds
+            acc = None
+            for m in range(kern0.shape[0] // gh0):
+                t = torch.matmul(blocks0[:, m : m + rows0],
+                                 kern0[m * gh0 : (m + 1) * gh0])
+                acc = t if acc is None else acc + t
+            return acc
+
+        timed(timing, "b0", lambda: b0.gemm_cuda(x_ext, *bt0, rows=rows0,
+                                                 lda=gh0))
+        timed(timing, "b0_plain", lambda: b0.gemm_plain(
+            x_ext, *bt0, rows=rows0, lda=gh0))
+        timed(timing, "b0_library", b0_loop)
         timing["rt_identity"] = e2e_rate(lambda: pt.round_trip(x, cfg))
         timing["rt_gate"] = e2e_rate(lambda: pt.round_trip(x, cfg, gate))
         timing["rt_frames"] = e2e_rate(lambda: pt.round_trip(x, cfg_frames))
@@ -599,12 +672,19 @@ def main() -> int:
         log(f"time B1 kernel {ms(timing, 'b1')}, plain "
             f"{ms(timing, 'b1_plain')} ([2, {n_frames}, {NFFT}] frames; "
             f"CUDA events, median of {REPS}, queued)")
-        log(f"time B2 kernel {ms(timing, 'b2')}, plain "
-            f"{ms(timing, 'b2_plain')} (noise_gate, 2 x {SECONDS} s; "
-            f"CUDA events, median of {REPS}, queued)")
-        log(f"time B3 kernel {ms(timing, 'b3')}, plain "
-            f"{ms(timing, 'b3_plain')} (noise_gate, [2, {n_frames}, "
+        log(f"time B2 kernel {ms(timing, 'b2')} (3xTF32 wgmma: fold, "
+            f"forward, inverse, then B1's OLA), plain "
+            f"{ms(timing, 'b2_plain')}; the former design {OLD_MS['K2']} "
+            f"in PERF.md (noise_gate, 2 x {SECONDS} s; CUDA events, median "
+            f"of {REPS}, queued)")
+        log(f"time B3 kernel {ms(timing, 'b3')} (3xTF32 wgmma: fold, "
+            f"forward, inverse), plain {ms(timing, 'b3_plain')}; the former "
+            f"design {OLD_MS['K3']} in PERF.md (noise_gate, [2, {n_frames}, "
             f"{NFFT}] frames; CUDA events, median of {REPS}, queued)")
+        log(f"time B0 kernel {ms(timing, 'b0')} (3xTF32, {x_ext.shape[0]} x "
+            f"{rows0} windows x {gh0}, K {kern0.shape[0]}), plain emulation "
+            f"{ms(timing, 'b0_plain')}, the former cuBLAS fp32 loop "
+            f"{ms(timing, 'b0_library')} in this run; {OLD_MS['B0']}")
         log(f"e2e round_trip identity {timing['rt_identity']:.4e} samples/s; "
             f"noise_gate {timing['rt_gate']:.4e} samples/s; fused_roundtrip "
             f"{timing['rt_frames']:.4e} samples/s (host clock, "
@@ -625,11 +705,15 @@ def main() -> int:
         return 1
     # Bounds from this run's inputs. The folded DFT round-trip of B2 / B3
     # does four products per frame: 4 * frames * (N/2 + 1) * N * 2 / 2.
-    from crlot_tpu_torch.fft.matmul_backend import folded_consts_on
     from crlot_tpu_torch.resample import kernel as b4
 
-    bases = folded_consts_on(NFFT, dev)
+    tf32_bases = b2._kernel_bases_on(NFFT, dev)
     dft_ops = 4.0 * 2 * n_frames * (NFFT // 2 + 1) * NFFT
+    # B2 and B3: 3 TF32 products per f32 product; beside it, the bound of
+    # the same f32 products on the FMA pipe (the former design's).
+    b23_fp32 = {"bound_fp32_ms": dft_ops / PEAK_OPS["fp32"] * 1e3}
+    x_ext, kern0, bt0, rows0, gh0 = path_b0["inputs"]
+    b0_ops = 2.0 * x_ext.shape[0] * rows0 * gh0 * kern0.shape[0]
     x44, l44, m44, n44 = path3["geometry"]["44.1->48"]
     taps44, offs44, _, _ = b4.compact_bank(l44, m44, None, 120.0)
     pt_ = path_b6["probe_inputs"]
@@ -648,6 +732,15 @@ def main() -> int:
 
     n5 = 4 * N_B5
     kernels = [
+        {"name": "hopblock_apply (B0)", "route": "cuda",
+         "source": "crlot_tpu_torch/csrc/b6_sm90.cu",
+         "replaces": "crlot_tpu/fft/matmul_backend.py:633",
+         "launches": counts["b0"], "max_abs_err": path_b0["err"],
+         "ms": timing["b0"], "plain_ms": timing["b0_plain"],
+         **bound(nbytes(x_ext, *bt0) + x_ext.shape[0] * rows0 * gh0 * 4,
+                 3 * b0_ops, "tf32"),
+         "bound_fp32_ms": b0_ops / PEAK_OPS["fp32"] * 1e3,
+         "library_ms": timing["b0_library"]},
         {"name": "ola_normalized (B1)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/ola_fused.cu",
          "replaces": "crlot_tpu/ola/fused.py:39", "launches": counts["b1"],
@@ -660,15 +753,16 @@ def main() -> int:
          "replaces": "crlot_tpu/fft/pallas_rt.py:429",
          "launches": counts["b2"], "max_abs_err": results["b2_err"],
          "ms": timing["b2"], "plain_ms": timing["b2_plain"],
-         **bound(nbytes(padded, w32, norm, *bases) + 2 * full * 4, dft_ops),
+         **bound(nbytes(padded, w32, norm, *tf32_bases) + 2 * full * 4,
+                 3 * dft_ops, "tf32"), **b23_fp32,
          "library_ms": None},
         {"name": "rt_frames (B3)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/fused_rt.cu",
          "replaces": "crlot_tpu/fft/pallas_rt.py:277",
          "launches": counts2["b3"], "max_abs_err": results["b3_err"],
          "ms": timing["b3"], "plain_ms": timing["b3_plain"],
-         **bound(nbytes(padded, w32, *bases) + 2 * n_frames * NFFT * 4,
-                 dft_ops),
+         **bound(nbytes(padded, w32, *tf32_bases) + 2 * n_frames * NFFT * 4,
+                 3 * dft_ops, "tf32"), **b23_fp32,
          "library_ms": None},
         {"name": "resample (B4)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/resample.cu",
@@ -745,6 +839,7 @@ def resample_path(dev, phase, check, failures, seconds=SECONDS) -> dict:
 
     import crlot_tpu_torch as pt
     from crlot_tpu_torch import demo
+    from crlot_tpu_torch.fft import tf32x3 as b0
     from crlot_tpu_torch.ola import kernels as b5
     from crlot_tpu_torch.resample import kernel as b4
     from crlot_tpu_torch.resample.polyphase import (
@@ -845,6 +940,7 @@ def resample_path(dev, phase, check, failures, seconds=SECONDS) -> dict:
 
     # The resample and demo path, counters reset just before.
     b4.launches = 0
+    b0.launches = 0
     for name in b5.launches:
         b5.launches[name] = 0
     cfg15 = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=False)
@@ -907,7 +1003,9 @@ def resample_path(dev, phase, check, failures, seconds=SECONDS) -> dict:
 
     def p16():
         taps = (np.hamming(255) / 127.0).astype(np.float32)
+        before = b0.launches
         y = pt.convolve(noise48, taps, "same")
+        check(b0.launches == before + 1, "B0 not launched once")
         check(tuple(y.shape) == tuple(noise48.shape), f"shape {tuple(y.shape)}")
         k = 48000
         worst = 0.0
@@ -918,8 +1016,8 @@ def resample_path(dev, phase, check, failures, seconds=SECONDS) -> dict:
             rel = np.sqrt(np.mean((got - want) ** 2) / np.mean(want**2))
             worst = max(worst, float(rel))
         check(worst < 1e-5, f"rel RMSE {worst:.3e}")
-        return (f"first 1 s vs f64 numpy.convolve: rel RMSE {worst:.3e} "
-                f"(no kernel of ours: torch.matmul)")
+        return (f"first 1 s vs f64 numpy.convolve: rel RMSE {worst:.3e}; "
+                f"B0 (3xTF32) launches +1")
 
     demo_wall = []
 
@@ -947,7 +1045,7 @@ def resample_path(dev, phase, check, failures, seconds=SECONDS) -> dict:
     phase("15 resampled_stft", p15)
     phase("16 convolve", p16)
     phase("17 demo", p17)
-    counts = {"b4": b4.launches, **b5.launches}
+    counts = {"b4": b4.launches, **b5.launches, "b0": b0.launches}
     log("resample and demo path launches: " + ", ".join(
         f"{k} {v}" for k, v in counts.items()))
     if not all(counts.values()):
@@ -1268,6 +1366,94 @@ def b6_checks(dev, phase, check) -> dict:
     return {"results": results, "probe_inputs": t}
 
 
+def b0_inputs(cfg, padded, n_frames, per_bin):
+    """B0's operands on the blocked round-trip's main path, as
+    `roundtrip_composed_blocked` builds them: (x_ext [C, L] padded signal,
+    kernel [mg*gh, gh], its TF32 halves, rows, gh)."""
+    import numpy as np
+
+    from crlot_tpu_torch.fft import matmul_backend as mb
+    from crlot_tpu_torch.pipeline import _norm_fold_on, _window_f64
+
+    group = mb.blocked_group_for(NFFT, HOP)
+    gh, edge = group * HOP, NFFT - HOP
+    full = (n_frames - 1) * HOP + NFFT
+    norm_c = _norm_fold_on(cfg, n_frames, padded.device)[0]
+    wb = np.ascontiguousarray(_window_f64(cfg), np.float64).tobytes()
+    rb = np.ascontiguousarray(np.asarray(per_bin, np.complex128) / norm_c
+                              ).tobytes()
+    keys = (NFFT, HOP, group, wb, None, rb, padded.device)
+    kern = mb._runtime_kernel_on(*keys)
+    x_ext, _, rows = mb._hopblock_ext(padded[..., :full].float(), kern, gh,
+                                      full, edge)
+    return x_ext.contiguous(), kern, mb._runtime_bt_on(*keys), rows, gh
+
+
+def b0_checks(dev, phase, check, cfg, padded, n_frames, band) -> dict:
+    """Phase 25: B0 (3xTF32, `b6_sm90.cu` mode 8) against its plain
+    emulation (`tf32x3.gemm_plain`) within tf32x3.REL_TOL of sum |x||k| per
+    output: at the identity and EQ kernels of the main path, and at the
+    edges of the f32 window tiles (M = 1000 rows, N = 192, a batch of 2);
+    and a row range of the windows torch.equal to the same rows of the whole
+    (a row's sum does not depend on the rows around it). Not counted on a
+    path."""
+    import numpy as np
+    import torch
+
+    from crlot_tpu_torch.fft import tf32x3 as b0
+    from crlot_tpu_torch.int8_gemm import windows
+
+    out = {"err": 0.0}
+
+    def held(label, x, bt, rows, lda, kern):
+        got = b0.gemm_cuda(x, *bt, rows=rows, lda=lda)
+        torch.cuda.synchronize()
+        want = b0.gemm_plain(x, *bt, rows=rows, lda=lda)
+        a = windows(x, rows, lda, kern.shape[0])
+        scale = torch.matmul(a.abs(), kern.abs())
+        rel = float(((got - want).abs() / scale.clamp_min(1e-30)).max())
+        err = float((got - want).abs().max())
+        out["err"] = max(out["err"], err)
+        line = (f"{label}: max-abs {err:.3e}, {rel:.3e} of sum|x||k| "
+                f"(bound {b0.REL_TOL:.3e})")
+        check(rel <= b0.REL_TOL, line)
+        return got, line
+
+    def p25():
+        lines = []
+        ones = np.ones(NFFT // 2 + 1)
+        for label, per_bin in (("identity kernel", ones),
+                               ("EQ kernel", band.per_bin_gains(NFFT))):
+            x_ext, kern, bt, rows, gh = b0_inputs(cfg, padded, n_frames,
+                                                  per_bin)
+            got, line = held(f"{label} ({x_ext.shape[0]} x {rows} rows x "
+                             f"{gh}, K {kern.shape[0]})", x_ext, bt, rows,
+                             gh, kern)
+            lines.append(line)
+            if label == "identity kernel":
+                out["inputs"] = (x_ext, kern, bt, rows, gh)
+                r0, r1 = 37, 37 + 1000
+                part = b0.gemm_cuda(x_ext[:, r0 * gh:].contiguous(), *bt,
+                                    rows=r1 - r0, lda=gh)
+                same = torch.equal(part, got[:, r0:r1])
+                check(same, "rows 37..1036 alone != the same rows of all")
+                lines.append(f"rows {r0}..{r1 - 1} alone: torch.equal to the "
+                             f"same rows of the whole")
+        rng = np.random.default_rng(25)
+        for label, m, n in (("M 1000", 1000, 512), ("M 1000, N 192", 1000,
+                                                     192)):
+            x = torch.from_numpy(rng.uniform(
+                -1, 1, (2, (m - 1) * 512 + 2048)).astype(np.float32)).to(dev)
+            kern = torch.from_numpy(rng.uniform(
+                -1, 1, (2048, n)).astype(np.float32)).to(dev)
+            lines.append(held(f"batch 2 windows (lda 512, K 2048), {label}",
+                              x, b0.split_t(kern), m, 512, kern)[1])
+        return "; ".join(lines)
+
+    phase("25 B0 vs plain", p25)
+    return out
+
+
 def wire_path(dev, phase, check, failures) -> dict:
     """Phases 20-24, with the B6 counters reset just before: the f32
     blocked streamer, the born-int16 wire tier (both tiers), the full-range
@@ -1281,6 +1467,8 @@ def wire_path(dev, phase, check, failures) -> dict:
     import crlot_tpu_torch as pt
     from crlot_tpu_torch import int8_gemm as b6
     from crlot_tpu_torch import int8_probe, spectral, wire
+    from crlot_tpu_torch.fft import fused_rt as b3
+    from crlot_tpu_torch.fft import tf32x3 as b0
     from crlot_tpu_torch.pipeline import blocked_composed_round_trip
     from crlot_tpu_torch.streaming_pipeline import BlockedChunkStreamer
 
@@ -1320,25 +1508,26 @@ def wire_path(dev, phase, check, failures) -> dict:
 
     for k in b6.launches:
         b6.launches[k] = 0
+    b0.launches = 0
+    b3.frames_launches = 0
     y_f32 = {}
 
     def p20():
+        before = b0.launches
         y = stream_f32()
+        launched = b0.launches - before
         one = blocked_composed_round_trip(x[None], cfg,
                                           np.ones(NFFT // 2 + 1))[0]
         finite(y, (total,))
         same = torch.equal(y, one)
-        close = torch.allclose(y, one, rtol=3e-6, atol=1e-6)
-        edges = (torch.equal(y[:edge], one[:edge])
-                 and torch.equal(y[-edge:], one[-edge:]))
         err = float((y - one).abs().max())
         y_f32["identity"] = y
         out["results"]["streamer_bitexact"] = same
         msg = (f"{WIRE_CHUNKS} chunks of {WIRE_CHUNK} vs one-shot: "
-               f"bit-identical {same}, max-abs {err:.3e}, edges exact "
-               f"{edges}; interior snr vs input "
+               f"bit-identical {same}, max-abs {err:.3e}; B0 (3xTF32) "
+               f"launches +{launched}, one a chunk; interior snr vs input "
                f"{snr(x[edge:-edge], y[edge:-edge]):.2f} dB")
-        check(close and edges, msg)
+        check(same and launched == WIRE_CHUNKS, msg)
         return msg
 
     def p21():
@@ -1415,7 +1604,9 @@ def wire_path(dev, phase, check, failures) -> dict:
             outfile = os.path.join(tmp, "out.wav")
             pt.write_wav(infile, src, SR, bits=16)
             data, _ = pt.read_wav(infile)
+            before = b3.frames_launches
             n_written = pt.process_wav_file(infile, outfile, cfg)
+            launched = b3.frames_launches - before
             y, _ = pt.read_wav(outfile)
             check(n_written == data.shape[-1] and y.shape == data.shape,
                   f"wrote {n_written}, shape {y.shape}")
@@ -1430,12 +1621,12 @@ def wire_path(dev, phase, check, failures) -> dict:
             codes = np.rint(np.clip(want, -1, 1) * 32767.0)
             got_codes = np.rint(y * 32767.0)
             diff = np.abs(codes - got_codes)
-            check(diff.max() <= 1,
-                  f"codes differ by up to {diff.max()}")
-            return (f"2 ch x {SECONDS} s 16-bit WAV: {n_written} samples per "
-                    f"channel; 16-bit codes equal to the unbroken stream's at "
-                    f"{int((diff == 0).sum())} of {diff.size} "
-                    f"(bit-identical {bool((diff == 0).all())}; max 1 code)")
+            msg = (f"2 ch x {SECONDS} s 16-bit WAV: {n_written} samples per "
+                   f"channel, B3 (3xTF32 frames) launches +{launched}; 16-bit "
+                   f"codes equal to the unbroken stream's at "
+                   f"{int((diff == 0).sum())} of {diff.size}")
+            check(launched > 0 and not diff.any(), msg)
+            return msg
 
     probe = {}
 
@@ -1464,8 +1655,10 @@ def wire_path(dev, phase, check, failures) -> dict:
     phase("23 process_wav_file", p23)
     phase("24 int8 probe", p24)
     counts = dict(b6.launches)
+    counts.update(b0=b0.launches, b3=b3.frames_launches)
     log("wire and probe path launches: " + ", ".join(
-        f"B6-{k} {v}" for k, v in counts.items()))
+        f"{'B6-' + k if k in b6.launches else k.upper()} {v}"
+        for k, v in counts.items()))
     if not all(counts.values()):
         failures.append("launch counts (path 4)")
         log("FAIL launch counts: a kernel of the path was not launched")

@@ -5,9 +5,10 @@ like the round-trip's blocked formulation and runs on the same runtime
 (`fft.matmul_backend.hopblock_apply`): each output hop-block is one row of a
 [B, M*hop] x [M*hop, hop] product whose kernel is the taps laid out on the
 Toeplitz diagonals -- exact (no circular wrap). MACs per sample =
-ceil((L-1)/hop + 1)*hop ~= L + hop for L taps. There is no hand-written
-kernel: the reference computes this as an XLA dot, and the port as
-`torch.matmul` in IEEE fp32.
+ceil((L-1)/hop + 1)*hop ~= L + hop for L taps. The reference computes this
+as an XLA dot at its `precision`; the port runs it on B0 (3xTF32, the HIGH
+tier) on a CUDA tensor, and as `torch.matmul` in IEEE fp32 at HIGHEST and
+on the CPU.
 
 Modes follow numpy.convolve: full (T+L-1), same (max(T, L), centered),
 valid (max-min+1) -- including the L > len(x) orientations.
@@ -22,6 +23,7 @@ import torch
 
 from .core import device as _device
 from .core.types import FftPrecision
+from .fft import tf32x3
 from .fft.matmul_backend import hopblock_apply
 
 _HOP = 256  # output block, as in the reference
@@ -51,23 +53,33 @@ def _toeplitz_on(taps_bytes: bytes, hop: int,
     return torch.from_numpy(_toeplitz_kernel(taps_bytes, hop)).to(device)
 
 
+@lru_cache(maxsize=8)
+def _toeplitz_bt_on(taps_bytes: bytes, hop: int, device: torch.device):
+    """The kernel as B0 takes it: transposed, TF32 (hi, lo)."""
+    return tuple(torch.from_numpy(a).to(device) for a in tf32x3.split_t(
+        _toeplitz_kernel(taps_bytes, hop)))
+
+
 # The reference's `precision=` values: None, its FftPrecision tiers, and
 # jax.lax.Precision's DEFAULT / HIGH / HIGHEST (by name or as a string).
 _PRECISION_NAMES = ("default", "high", "highest")
 
 
-def _check_precision(precision) -> None:
-    """Accept the reference's precision argument. Every tier is an IEEE
-    fp32 product here (HIGHEST and HIGH alike, never TF32: ROADMAP's ground
-    rule; DEFAULT, a single bf16 pass on the TPU, gets fp32 too). An
-    unknown value raises."""
-    if precision is None or precision in (FftPrecision.HIGHEST,
-                                          FftPrecision.HIGH):
-        return
+def _tier(precision) -> FftPrecision:
+    """The port's tier for the reference's precision argument: HIGHEST
+    (by name or as FftPrecision) is IEEE fp32; None, HIGH and DEFAULT (a
+    single bf16 pass on the TPU) are HIGH, 3xTF32 on B0. An unknown value
+    raises."""
+    if precision is None or precision == FftPrecision.HIGH:
+        return FftPrecision.HIGH
+    if precision == FftPrecision.HIGHEST:
+        return FftPrecision.HIGHEST
     name = getattr(precision, "name", precision)
     if not (isinstance(name, str) and name.lower() in _PRECISION_NAMES):
         raise ValueError(f"unknown precision {precision!r}; one of None, "
                          f"FftPrecision.HIGHEST / HIGH, {_PRECISION_NAMES}")
+    return (FftPrecision.HIGHEST if name.lower() == "highest"
+            else FftPrecision.HIGH)
 
 
 def convolve(x, taps, mode: str = "full", precision=None,
@@ -76,10 +88,11 @@ def convolve(x, taps, mode: str = "full", precision=None,
     thousand -- kernel memory is ~L*hop floats), on x's device (an
     array-like goes to `device`, default "cuda"). Matches numpy.convolve
     semantics for `mode` in {"full", "same", "valid"}. `precision` takes
-    the reference's values; every tier is an IEEE fp32 product here."""
+    the reference's values: HIGHEST is an IEEE fp32 product, every other
+    tier (None included) HIGH, 3xTF32 on B0 for a CUDA tensor."""
     if mode not in ("full", "same", "valid"):
         raise ValueError(f"unknown mode: {mode}")
-    _check_precision(precision)
+    tier = _tier(precision)
     if isinstance(taps, torch.Tensor):
         taps = taps.detach().cpu().numpy()
     taps64 = np.asarray(taps, np.float64)
@@ -93,7 +106,9 @@ def convolve(x, taps, mode: str = "full", precision=None,
     n_full = t + ll - 1
     # Left halo = the kernel's look-back span (mg-1 blocks).
     left = kern.shape[0] - hop
-    full = hopblock_apply(x, kern, hop, n_full, left)
+    bt = (_toeplitz_bt_on(taps64.tobytes(), hop, x.device)
+          if x.device.type != "cpu" and tier == FftPrecision.HIGH else None)
+    full = hopblock_apply(x, kern, hop, n_full, left, tier, bt)
     if mode == "full":
         return full
     lo, hi = min(t, ll), max(t, ll)

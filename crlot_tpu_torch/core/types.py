@@ -5,10 +5,17 @@ member names and `.value` strings, so `convert.config_from_reference` can map
 a `crlot_tpu` config field by field. Configs are frozen and hashable: they key
 the host-side constant caches.
 
-Precision on CUDA: `FftPrecision.HIGH` and `HIGHEST` both mean IEEE fp32
-matrix products (TF32 is never enabled by this package). `INT8X2` (the
-reference's int8 DFT tier, `fft/int8_backend.py`) has no CUDA formulation
-yet and is refused at construction; its dots would run on B6-fusedq.
+Precision on CUDA: `FftPrecision.HIGH` (the default) means 3xTF32 on the
+tensor cores in B0 (the blocked round-trip's and `convolve`'s windowed
+product, the scan form's composed product), B2 and B3 (the fused nonlinear
+round-trip): each f32 operand split into TF32 hi + lo, three TF32 products
+summed in f32, the reference's own tier (its 3-pass bf16 split on the TPU).
+`HIGHEST` means IEEE fp32 (`torch.matmul`; the fused routes are gated on
+HIGH). TF32 appears only inside those kernels, by name:
+`torch.backends.cuda.matmul.allow_tf32` stays False. On the CPU every tier
+runs IEEE fp32. `INT8X2` (the reference's int8 DFT tier,
+`fft/int8_backend.py`) has no CUDA formulation yet and is refused at
+construction; its dots would run on B6-fusedq.
 """
 
 from __future__ import annotations
@@ -43,8 +50,9 @@ class PadMode(enum.Enum):
 
 
 class FftPrecision(enum.Enum):
-    """HIGH and HIGHEST are both IEEE fp32 on CUDA. INT8X2 (the reference's
-    int8 two-limb DFT tier) is not ported yet (ROADMAP queue A11)."""
+    """HIGH is 3xTF32 on the tensor cores (B0, B2, B3) on CUDA, HIGHEST
+    IEEE fp32; both IEEE fp32 on the CPU. INT8X2 (the reference's int8
+    two-limb DFT tier) is not ported yet (ROADMAP queue A4)."""
 
     HIGHEST = "highest"
     HIGH = "high"

@@ -1,76 +1,67 @@
-// B2: fused nonlinear STFT round-trip + overlap-add + COLA normalize.
-// B3: the same round-trip without the OLA: [F, N] round-trip frames.
+// B3: the fused nonlinear STFT round-trip as [F, N] round-trip frames.
+// B2: the same, then overlap-add and COLA normalize (B1's kernel).
 //
-// B2 replaces the Pallas kernel crlot_tpu/fft/pallas_rt.py::_rt_ola_kernel,
-// B3 replaces pallas_rt.py::_rt_kernel. Both run stages 1-3 below through
-// one device function (rt_frames_to_planes); they differ in which frames a
-// CTA owns and in stage 4.
+// B3 replaces the Pallas kernel crlot_tpu/fft/pallas_rt.py::_rt_kernel and,
+// followed by ola_fused.cu's overlap-add, B2 replaces
+// pallas_rt.py::_rt_ola_kernel. One call, crlot_rt_frames, runs three
+// kernels on the frames of a signal (frame f of channel c starts at c *
+// ch_stride + f * frame_stride; samples at or past the channel's lp read as
+// 0.0, the zero padding the Pallas caller applies):
 //
-// B2: each CTA owns TB = NF - (R-1) output hop-blocks of one channel and
-// computes the NF = 32 frames that touch them (R-1 of them are boundary
-// frames its neighbour recomputes too). Frames outside [0, n_frames) are
-// zero before the products, so phantom frames add nothing. Per CTA:
+//   1. rt_fold_kernel: frame -> window -> fold, into e [rows, Kp] and o
+//      [rows, Kp]: e[n] = y[n] + y[N-n], o[n] = y[n] - y[N-n] (y = x * w;
+//      e[0] = y[0], e[N/2] = y[N/2], o zero there and past N/2).
+//   2. rt_gemm_kernel<false>, the forward: Re = e . C and Im = o . S on the
+//      same [128 frames x 64 bins] tile (two accumulators, so one thread
+//      holds Re and Im of one (frame, bin)), then the spectral fn's
+//      epilogue menu per bin in registers, stored as Re', Im' [rows, Kp].
+//   3. rt_gemm_kernel<true>, the inverse: A = Re' . Cinv and B = Im' . Sinv
+//      on one tile, unfolded into frame samples n = A[n] + B[n] (n <= N/2)
+//      and A[N-n] - B[N-n]: the [rows, N] round-trip frames.
 //
-//   1. fold:    e[n][f] = y[n] + y[N-n], o[n][f] = y[n] - y[N-n], y = x * w
-//   2. forward: Re = e @ C, Im = o @ S       (half-size DFT bases, K = N/2+1)
-//               then the epilogue menu on (Re, Im), per bin
-//   3. inverse: A = Re @ Cinv, B = Im @ Sinv
-//   4. unfold + OLA + normalize: frame sample n is A[n] + B[n] (n <= N/2)
-//      or A[N-n] - B[N-n]; each output sample sums its R frames in
-//      ascending frame order and divides by max(norm, eps).
+// Kp = 8 * ceil(K / 8), K = N/2 + 1 bins: 16-byte rows for TMA; the bases
+// are zero-padded to [Kp, Kp] on the host, stored K-major (transposed) and
+// split into their TF32 hi and lo halves there, with S and Sinv shifted so
+// that index n is frame sample n.
 //
-// B3: each CTA owns NF = 32 consecutive frames of one channel and
-// recomputes nothing (a frame needs no neighbour). Its stage 4 unfolds
-// each frame with the same rounded steps as B2 and stores it as one
-// coalesced row of N floats, so B3 followed by the plain OLA can match B2
-// bit for bit. Its signal reads at or past the row length return 0.0 (the
-// zero padding the Pallas caller applies), since a sharded caller passes
-// exactly the samples its frames span. B3 does B2's useful FMAs without
-// B2's (R-1)/TB recompute and writes F * N * 4 bytes (92 MB at 2 x 60 s,
-// ~0.03 ms at 3.35 TB/s), so it is FMA-bound like B2.
+// The products are 3xTF32 on wgmma (sm90.cuh): the reference's HIGH tier
+// (its 3-pass bf16 split on the MXU, pallas_rt.py:29-33, :130-156). Each
+// GEMM is a persistent grid of one producer warpgroup, which keeps a ring of
+// 3 stages of 64 KB filled by TMA (the two A tiles of 128 rows x 32 floats
+// and the four B tiles of 64 x 32: both accumulators' hi and lo), and two
+// consumer warpgroups of 64 rows each, which split their A fragments on
+// chip and run the 3 TF32 products of each k step for both accumulators:
+// 4 x 32 registers of accumulators (the running sums and a stage's fresh
+// partials). A frame's result depends only on its own samples: not on its
+// batch, its tile or its CTA.
 //
-// What bounds both on an H100: fp32 FMA issue. Each frame costs
-// 4 * K^2 ~ 1.05 M multiply-adds at N = 1024 against 4 KB of signal in and
-// 1 KB out, far above the memory roofline. The design keeps every
-// intermediate in shared memory and register-tiles the four products like
-// an SGEMM: each thread owns an 8-frame x 8-bin tile (64 accumulators), so
-// one contraction step is two 16-byte shared loads (8 frames) and two
-// 16-byte loads of a basis row (8 bins, from L2: the four bases are ~4.2 MB)
-// feeding 64 FMAs. The bases are zero-padded on the host to Kp = 8*ceil(K/8)
-// columns, so every basis row is 16-byte aligned and the tiles need no
-// bounds checks; Sinv is shifted so that B's column j is sample j. With one
-// 288-thread CTA per SM (shared memory) only 9 warps hide the L2 latency of
-// the basis loads, so the contraction loop is unrolled 16 deep to let them
-// issue well ahead (measured on the H100: unroll 2 / 8 / 16 / 32 gave
-// 2.78 / 2.08 / 2.00 / 2.20 ms for 2 x 60 s, PERF.md).
-// Shared memory holds three [Kp x NF] planes (3 * 520 * 32 * 4 B = 195 KB
-// at N = 1024, above the 48 KB default, hence cudaFuncSetAttribute):
-//   plane0: e  -> A (frame-major)
-//   plane1: o  -> Im after the epilogue
-//   plane2: Re -> Re after the epilogue -> B (frame-major)
-// Not carried over from the TPU kernel: the 3-pass bf16 emulation of fp32
-// (products here are fp32 FMA), lane reversal by exchange-matrix products
-// (reversal is indexing here), and the per-channel Python loop (channels are
-// the grid's y axis). Tensor cores (wgmma / TMA) are later work.
+// What bounds it on an H100 (495 TFLOP/s TF32, 3.35 TB/s): a frame costs 4
+// products of K x K multiply-adds, 3 TF32 passes each: at 2 x 60 s (45 004
+// frames, N = 1024) 47.3 GFLOP x 3 = 0.287 ms of tensor-core time, against
+// about 280 MB of e, o, Re', Im' and frames through device memory (0.08 ms):
+// operations. A stage feeds 3.1 MFLOP from 64 KB of L2 reads, so at the TF32
+// peak the ring would need about 10 TB/s from L2: L2 bandwidth, not the
+// tensor cores, is the likely limit of this tile.
 //
 // The epilogue replaces the Pallas kernel's traced jaxpr with a fixed menu
 // of per-bin ops read from a small descriptor (see spectral.py): elementwise
 // steps use explicitly rounded intrinsics so nvcc does not contract them
 // into FMAs, matching the plain torch ops step by step.
 
-#include <cuda_runtime.h>
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int NF = 32;            // frames per CTA
-constexpr int TF = 8;             // frames per thread tile
-constexpr int TBIN = 8;           // bins per thread tile
-constexpr int MAX_THREADS = 288;  // 32 * ceil(4 * 65 / 32): Kp = 520
+constexpr int kRtBN = 64;                   // bins / samples per tile
+constexpr int kRtStages = 3;
+constexpr int kRtBTile = kRtBN * kBK;       // 8 KB
+constexpr int kRtStage = 2 * kOpTile + 4 * kRtBTile;  // 64 KB
+constexpr int kRtSmem = kRtStages * kRtStage + 2 * kRtStages * 8 + 1024;
+static_assert(kRtSmem <= kMaxSmem, "shared memory over 227 KB");
+constexpr int kFoldThreads = 128;
 
 enum { OP_GAIN = 1, OP_REAL_GAINS = 2, OP_COMPLEX = 3, OP_GATE = 4,
        OP_SUBTRACT = 5 };
-
-typedef float Tile[TBIN][TF];
 
 __device__ __forceinline__ void scale(float& re, float& im, float s) {
   re = __fmul_rn(re, s);
@@ -81,319 +72,294 @@ __device__ __forceinline__ float power(float re, float im) {
   return __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
 }
 
-// The menu on one thread's tile; bins >= K (padding) are left alone.
+// The menu on bin k (< K) of one frame, op by op.
 __device__ __forceinline__ void apply_epilogue(
-    Tile& re, Tile& im, int j0, int K, const int* __restrict__ desc,
+    float& re, float& im, int k, int K, const int* __restrict__ desc,
     int n_ops, const float* __restrict__ params) {
   for (int i = 0; i < n_ops; ++i) {
     const int code = desc[2 * i];
     const float* p = params + desc[2 * i + 1];
-#pragma unroll
-    for (int b = 0; b < TBIN; ++b) {
-      const int k = j0 + b;
-      if (k >= K) continue;
-      if (code == OP_GAIN || code == OP_REAL_GAINS) {
-        const float g = code == OP_GAIN ? p[0] : p[k];
-#pragma unroll
-        for (int f = 0; f < TF; ++f) scale(re[b][f], im[b][f], g);
-      } else if (code == OP_COMPLEX) {
-        const float hr = p[k], hi = p[K + k];
-#pragma unroll
-        for (int f = 0; f < TF; ++f) {
-          const float r = re[b][f], m = im[b][f];
-          re[b][f] = __fsub_rn(__fmul_rn(r, hr), __fmul_rn(m, hi));
-          im[b][f] = __fadd_rn(__fmul_rn(r, hi), __fmul_rn(m, hr));
-        }
-      } else if (code == OP_GATE) {
-        const float thresh = p[0], att = p[1];
-#pragma unroll
-        for (int f = 0; f < TF; ++f)
-          scale(re[b][f], im[b][f],
-                power(re[b][f], im[b][f]) >= thresh ? 1.0f : att);
-      } else if (code == OP_SUBTRACT) {
-        const float floor_ = p[1], sub = __fmul_rn(p[0], p[2 + k]);
-#pragma unroll
-        for (int f = 0; f < TF; ++f) {
-          const float mag = __fsqrt_rn(power(re[b][f], im[b][f]));
-          const float nw = fmaxf(__fsub_rn(mag, sub), __fmul_rn(floor_, mag));
-          scale(re[b][f], im[b][f],
-                mag > 0.0f ? __fdiv_rn(nw, fmaxf(mag, 1e-20f)) : 0.0f);
-        }
-      }
+    if (code == OP_GAIN || code == OP_REAL_GAINS) {
+      scale(re, im, code == OP_GAIN ? p[0] : p[k]);
+    } else if (code == OP_COMPLEX) {
+      const float hr = p[k], hi = p[K + k], r = re, m = im;
+      re = __fsub_rn(__fmul_rn(r, hr), __fmul_rn(m, hi));
+      im = __fadd_rn(__fmul_rn(r, hi), __fmul_rn(m, hr));
+    } else if (code == OP_GATE) {
+      scale(re, im, power(re, im) >= p[0] ? 1.0f : p[1]);
+    } else if (code == OP_SUBTRACT) {
+      const float floor_ = p[1], sub = __fmul_rn(p[0], p[2 + k]);
+      const float mag = __fsqrt_rn(power(re, im));
+      const float nw = fmaxf(__fsub_rn(mag, sub), __fmul_rn(floor_, mag));
+      scale(re, im, mag > 0.0f ? __fdiv_rn(nw, fmaxf(mag, 1e-20f)) : 0.0f);
     }
   }
 }
 
-// acc[b][f] = sum_{k in [k0, k1)} plane[k][f0 + f] * basis[k - shift][j0 + b]
-// with plane k-major (row stride NF) and basis row stride kp, ascending k.
-__device__ __forceinline__ void tile_product(
-    Tile& acc, const float* __restrict__ plane, int f0,
-    const float* __restrict__ basis, int kp, int j0, int k0, int k1,
-    int shift) {
-#pragma unroll
-  for (int b = 0; b < TBIN; ++b)
-#pragma unroll
-    for (int f = 0; f < TF; ++f) acc[b][f] = 0.0f;
-#pragma unroll 16
-  for (int k = k0; k < k1; ++k) {
-    const float4* pr = reinterpret_cast<const float4*>(plane + k * NF + f0);
-    const float4* br = reinterpret_cast<const float4*>(
-        basis + (long long)(k - shift) * kp + j0);
-    const float4 p0 = pr[0], p1 = pr[1];
-    const float4 b0 = __ldg(br), b1 = __ldg(br + 1);
-    const float pv[TF] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-    const float bv[TBIN] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int b = 0; b < TBIN; ++b)
-#pragma unroll
-      for (int f = 0; f < TF; ++f) acc[b][f] = fmaf(pv[f], bv[b], acc[b][f]);
-  }
-}
-
-// Store a tile k-major (row = bin, NF frames per row).
-__device__ __forceinline__ void store_bin_major(float* plane, const Tile& t,
-                                                int j0, int f0) {
-#pragma unroll
-  for (int b = 0; b < TBIN; ++b) {
-    float4* r = reinterpret_cast<float4*>(plane + (j0 + b) * NF + f0);
-    r[0] = make_float4(t[b][0], t[b][1], t[b][2], t[b][3]);
-    r[1] = make_float4(t[b][4], t[b][5], t[b][6], t[b][7]);
-  }
-}
-
-__device__ __forceinline__ void load_bin_major(Tile& t, const float* plane,
-                                               int j0, int f0) {
-#pragma unroll
-  for (int b = 0; b < TBIN; ++b) {
-    const float4* r = reinterpret_cast<const float4*>(plane + (j0 + b) * NF + f0);
-    const float4 a = r[0], c = r[1];
-    t[b][0] = a.x; t[b][1] = a.y; t[b][2] = a.z; t[b][3] = a.w;
-    t[b][4] = c.x; t[b][5] = c.y; t[b][6] = c.z; t[b][7] = c.w;
-  }
-}
-
-// Store a tile frame-major (row = frame, kp bins per row).
-__device__ __forceinline__ void store_frame_major(float* plane, const Tile& t,
-                                                  int kp, int j0, int f0) {
-#pragma unroll
-  for (int f = 0; f < TF; ++f) {
-    float4* r = reinterpret_cast<float4*>(plane + (f0 + f) * kp + j0);
-    r[0] = make_float4(t[0][f], t[1][f], t[2][f], t[3][f]);
-    r[1] = make_float4(t[4][f], t[5][f], t[6][f], t[7][f]);
-  }
-}
-
-// Stages 1-3 for the NF frames fbase .. fbase+NF-1 of one channel `x`:
-// on return plane0 holds A and plane2 holds B, both frame-major (row =
-// local frame, kp columns). Frames outside [0, n_frames) are zero before
-// the products. With kBounded, samples at or past `lp` read as 0.0 (the
-// zero padding of a signal shorter than its frames' span).
-template <bool kBounded>
-__device__ __forceinline__ void rt_frames_to_planes(
-    const float* __restrict__ x, long long lp,
-    const float* __restrict__ window,
-    const float* __restrict__ cb, const float* __restrict__ sb,
-    const float* __restrict__ cinv, const float* __restrict__ sinv,
-    const int* __restrict__ desc, int n_ops,
-    const float* __restrict__ params,
-    float* plane0, float* plane1, float* plane2,
-    int fbase, int nfft, int hop, int n_frames) {
-  const int h = nfft / 2, K = h + 1;
-  const int kp = (K + TBIN - 1) / TBIN * TBIN;
-  const int tid = threadIdx.x;
-
-  // 1. Fold, k-major (lane = local frame); rows 0 and h of o are zero.
-  {
-    const int lane = tid & 31, n_warps = blockDim.x >> 5;
-    const int fa = fbase + lane;
-    const bool valid = fa >= 0 && fa < n_frames;
-    const long long start = (long long)(valid ? fa : 0) * hop;
-    const float* xf = x + start;
-    auto sample = [&](int n) -> float {
-      return !kBounded || start + n < lp ? xf[n] : 0.0f;
-    };
-    for (int n = tid >> 5; n <= h; n += n_warps) {
-      float e = 0.0f, o = 0.0f;
-      if (valid) {
-        if (n == 0 || n == h) {
-          e = __fmul_rn(sample(n), window[n]);
-        } else {
-          const float a = __fmul_rn(sample(n), window[n]);
-          const float b = __fmul_rn(sample(nfft - n), window[nfft - n]);
-          e = __fadd_rn(a, b);
-          o = __fsub_rn(a, b);
-        }
-      }
-      plane0[n * NF + lane] = e;
-      plane1[n * NF + lane] = o;
-    }
-  }
-  __syncthreads();
-
-  // Thread tile: frames f0..f0+7, bins j0..j0+7.
-  const int f0 = (tid & 3) * TF, j0 = (tid >> 2) * TBIN;
-  const bool active = j0 < kp;
-  Tile t0, t1;
-
-  // 2. Forward products and the epilogue.
-  if (active) {
-    tile_product(t0, plane0, f0, cb, kp, j0, 0, h + 1, 0);      // Re
-    store_bin_major(plane2, t0, j0, f0);
-    tile_product(t1, plane1, f0, sb, kp, j0, 1, h, 1);          // Im
-    load_bin_major(t0, plane2, j0, f0);
-    apply_epilogue(t0, t1, j0, K, desc, n_ops, params);
-    store_bin_major(plane2, t0, j0, f0);
-  }
-  __syncthreads();  // every thread is done reading o
-  if (active) store_bin_major(plane1, t1, j0, f0);
-  __syncthreads();
-
-  // 3. Inverse products: A into plane0 (e is dead), then B into plane2
-  //    once every thread is done reading Re from it.
-  if (active) {
-    tile_product(t0, plane2, f0, cinv, kp, j0, 0, K, 0);
-    store_frame_major(plane0, t0, kp, j0, f0);
-    tile_product(t1, plane1, f0, sinv, kp, j0, 0, K, 0);
-  }
-  __syncthreads();
-  if (active) store_frame_major(plane2, t1, kp, j0, f0);
-  __syncthreads();
-}
-
-// Sample n of local frame lf: A[n] + B[n] (n <= N/2) or A[N-n] - B[N-n].
-__device__ __forceinline__ float unfold(const float* plane0,
-                                        const float* plane2, int lf, int kp,
-                                        int n, int nfft) {
+// 1. One block a frame row (row = channel * n_frames + frame).
+__global__ void __launch_bounds__(kFoldThreads)
+rt_fold_kernel(const float* __restrict__ x, long long ch_stride, long long lp,
+               long long frame_stride, const float* __restrict__ window,
+               float* __restrict__ e, float* __restrict__ o, int n_frames,
+               int nfft, int kp) {
+  const long long row = blockIdx.x;
+  const float* xc = x + (row / n_frames) * ch_stride;
+  const long long start = (row % n_frames) * frame_stride;
   const int h = nfft / 2;
-  return n <= h
-      ? __fadd_rn(plane0[lf * kp + n], plane2[lf * kp + n])
-      : __fsub_rn(plane0[lf * kp + nfft - n], plane2[lf * kp + nfft - n]);
-}
-
-__global__ void __launch_bounds__(MAX_THREADS, 1)
-rt_ola_kernel(const float* __restrict__ padded, long long lp,
-              const float* __restrict__ window,
-              const float* __restrict__ cb,    // C    [h+1, Kp]
-              const float* __restrict__ sb,    // S    [h-1, Kp]
-              const float* __restrict__ cinv,  // Cinv [K, Kp]
-              const float* __restrict__ sinv,  // Sinv [K, Kp], column j = sample j
-              const float* __restrict__ norm,
-              const int* __restrict__ desc, int n_ops,
-              const float* __restrict__ params,
-              float* __restrict__ out,
-              int nfft, int hop, int n_frames, int out_len, float eps) {
-  extern __shared__ float4 smem4[];
-  const int K = nfft / 2 + 1, r_count = nfft / hop;
-  const int kp = (K + TBIN - 1) / TBIN * TBIN;
-  const int tb = NF - (r_count - 1);
-  float* plane0 = reinterpret_cast<float*>(smem4);
-  float* plane1 = plane0 + kp * NF;
-  float* plane2 = plane1 + kp * NF;
-  const int fbase = blockIdx.x * tb - (r_count - 1);  // frame of local 0
-  rt_frames_to_planes<false>(
-      padded + (long long)blockIdx.y * lp, lp, window, cb, sb, cinv, sinv,
-      desc, n_ops, params, plane0, plane1, plane2, fbase, nfft, hop,
-      n_frames);
-
-  // 4. Unfold + OLA (ascending frame order) + normalize.
-  float* o_ch = out + (long long)blockIdx.y * out_len;
-  for (int idx = threadIdx.x; idx < tb * hop; idx += blockDim.x) {
-    const int jb = idx / hop, s = idx - jb * hop;
-    const long long t = (long long)(blockIdx.x * tb + jb) * hop + s;
-    if (t >= out_len) continue;
-    float acc = 0.0f;
-    for (int r = r_count - 1; r >= 0; --r) {
-      const int lf = jb + r_count - 1 - r;
-      const int fa = fbase + lf;
-      if (fa < 0 || fa >= n_frames) continue;
-      acc = __fadd_rn(acc, unfold(plane0, plane2, lf, kp, r * hop + s, nfft));
+  auto y = [&](int n) -> float {
+    return __fmul_rn(start + n < lp ? __ldg(xc + start + n) : 0.0f,
+                     __ldg(window + n));
+  };
+  for (int n = threadIdx.x; n < kp; n += blockDim.x) {
+    float ev = 0.0f, ov = 0.0f;
+    if (n == 0 || n == h) {
+      ev = y(n);
+    } else if (n < h) {
+      const float a = y(n), b = y(nfft - n);
+      ev = __fadd_rn(a, b);
+      ov = __fsub_rn(a, b);
     }
-    o_ch[t] = __fdiv_rn(acc, fmaxf(__ldg(norm + t), eps));
+    e[row * kp + n] = ev;
+    o[row * kp + n] = ov;
   }
 }
 
-// B3: the frames-level round-trip (replaces pallas_rt.py::_rt_kernel).
-// Each CTA owns NF consecutive frames of one channel; no neighbour is
-// needed, so nothing is recomputed. Stage 4 unfolds and stores each frame
-// as one coalesced row of N floats; frames >= n_frames are not stored.
-__global__ void __launch_bounds__(MAX_THREADS, 1)
-rt_frames_kernel(const float* __restrict__ padded, long long lp,
-                 const float* __restrict__ window,
-                 const float* __restrict__ cb, const float* __restrict__ sb,
-                 const float* __restrict__ cinv,
-                 const float* __restrict__ sinv,
-                 const int* __restrict__ desc, int n_ops,
-                 const float* __restrict__ params,
-                 float* __restrict__ out,  // [channels, n_frames, nfft]
-                 int nfft, int hop, int n_frames) {
-  extern __shared__ float4 smem4[];
-  const int K = nfft / 2 + 1;
-  const int kp = (K + TBIN - 1) / TBIN * TBIN;
-  float* plane0 = reinterpret_cast<float*>(smem4);
-  float* plane1 = plane0 + kp * NF;
-  float* plane2 = plane1 + kp * NF;
-  const int fbase = blockIdx.x * NF;
-  rt_frames_to_planes<true>(
-      padded + (long long)blockIdx.y * lp, lp, window, cb, sb, cinv, sinv,
-      desc, n_ops, params, plane0, plane1, plane2, fbase, nfft, hop,
-      n_frames);
+struct RtShape {
+  int rows;        // frame rows
+  int kp;          // padded bins: the contraction, and the forward's columns
+  int k_bins;      // K = N/2 + 1: the bins the epilogue menu touches
+  int nfft;
+  int kt_n;        // contraction stages of 32 floats
+  int row_blocks, col_blocks, tiles;
+};
 
-  // 4. Unfold and store.
-  const int n_local = min(NF, n_frames - fbase);
-  float* o = out + ((long long)blockIdx.y * n_frames + fbase) * nfft;
-  for (int idx = threadIdx.x; idx < n_local * nfft; idx += blockDim.x) {
-    const int lf = idx / nfft, n = idx - lf * nfft;
-    o[idx] = unfold(plane0, plane2, lf, kp, n, nfft);
+// 2, 3. acc0 = A0 . B0 (B0 hi, B1 lo) and acc1 = A1 . B2 (B2 hi, B3 lo).
+// Forward: A0 = e, A1 = o, out0 = Re', out1 = Im'. Inverse: A0 = Re', A1 =
+// Im', out0 = the frames.
+template <bool kInverse>
+__global__ void __launch_bounds__(kThreads, 1)
+rt_gemm_kernel(const __grid_constant__ CUtensorMap map_a0,
+               const __grid_constant__ CUtensorMap map_a1,
+               const __grid_constant__ CUtensorMap map_b0,
+               const __grid_constant__ CUtensorMap map_b1,
+               const __grid_constant__ CUtensorMap map_b2,
+               const __grid_constant__ CUtensorMap map_b3,
+               const int* __restrict__ desc, int n_ops,
+               const float* __restrict__ params, float* __restrict__ out0,
+               float* __restrict__ out1, RtShape s) {
+  constexpr int NR = kRtBN / 2;
+  extern __shared__ uint8_t dyn[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(dyn) + 1023) & ~uintptr_t(1023));
+  const uint32_t full0 = smem_u32(ring + kRtStages * kRtStage);
+  const uint32_t empty0 = full0 + 8 * kRtStages;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kRtStages; ++st) {
+      bar_init(full0 + 8 * st, 1);
+      bar_init(empty0 + 8 * st, kConsumers * 4);  // one arrival a warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // Producer: one thread issues every TMA load.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (tid == 0) {
+      const CUtensorMap* maps_b[4] = {&map_b0, &map_b1, &map_b2, &map_b3};
+      int stage = 0;
+      uint32_t phase = 1;  // the ring starts empty: the first waits pass
+      for (int t = blockIdx.x; t < s.tiles; t += gridDim.x) {
+        const int row0 = (t / s.col_blocks) * kBM;
+        const int col0 = (t % s.col_blocks) * kRtBN;
+        for (int kt = 0; kt < s.kt_n; ++kt) {
+          const uint32_t full = full0 + 8 * stage;
+          bar_wait(empty0 + 8 * stage, phase);
+          bar_expect_tx(full, kRtStage);
+          const uint32_t dst = smem_u32(ring + stage * kRtStage);
+          tma_load_2d(dst, &map_a0, full, kt * kBK, row0);
+          tma_load_2d(dst + kOpTile, &map_a1, full, kt * kBK, row0);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            tma_load_2d(dst + 2 * kOpTile + j * kRtBTile, maps_b[j], full,
+                        kt * kBK, col0);
+          if (++stage == kRtStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup wg owns rows 64*wg .. 64*wg + 63 of each tile.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+  const int lane = tid % 32, warp = tid / 32, g = lane >> 2, q = lane & 3;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < s.tiles; t += gridDim.x) {
+    const int row0 = (t / s.col_blocks) * kBM;
+    const int col0 = (t % s.col_blocks) * kRtBN;
+    float acc0[NR], acc1[NR], part0[NR], part1[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) acc0[i] = acc1[i] = part0[i] = part1[i] = 0.0f;
+    fence_acc(part0);
+    fence_acc(part1);
+    for (int kt = 0; kt < s.kt_n; ++kt) {
+      bar_wait(full0 + 8 * stage, phase);
+      __syncwarp();  // wgmma is .aligned: the warp issues it converged
+      const uint8_t* base = ring + stage * kRtStage;
+      uint64_t db[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        db[j] = sw128_desc(smem_u32(base + 2 * kOpTile + j * kRtBTile));
+      // Two halves of 2 k steps: 32 fragment registers at a time.
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        uint32_t h0[2][4], l0[2][4], h1[2][4], l1[2][4];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          tf32_frags(base, wg, tid, 2 * half + k, h0[k], l0[k]);
+          tf32_frags(base + kOpTile, wg, tid, 2 * half + k, h1[k], l1[k]);
+        }
+        wgmma_fence();
+        tf32x3_steps<kRtBN, 2>(part0, h0, l0, db[0], db[1], 2 * half);
+        tf32x3_steps<kRtBN, 2>(part1, h1, l1, db[2], db[3], 2 * half);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_acc(part0);
+        fence_acc(part1);
+      }
+      if (lane == 0) bar_arrive(empty0 + 8 * stage);
+      promote(acc0, part0);
+      promote(acc1, part1);
+      if (++stage == kRtStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    // Epilogue from registers. In the m64nN layout warp w holds rows 16w + g
+    // and 16w + g + 8 and, for each 8-column block j, columns 8j + 2q and
+    // 8j + 2q + 1: elements 4j + 2h and 4j + 2h + 1.
+#pragma unroll
+    for (int j = 0; j < kRtBN / 8; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + wg * 64 + warp * 16 + h * 8 + g;
+        const int col = col0 + 8 * j + 2 * q;
+        const int i = 4 * j + 2 * h;
+        if (row >= s.rows) continue;
+        if constexpr (!kInverse) {
+          if (col >= s.kp) continue;  // kp is even: col + 1 < kp too
+          float re[2] = {acc0[i], acc0[i + 1]}, im[2] = {acc1[i], acc1[i + 1]};
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (col + e < s.k_bins)
+              apply_epilogue(re[e], im[e], col + e, s.k_bins, desc, n_ops,
+                             params);
+          const long long at = (long long)row * s.kp + col;
+          *reinterpret_cast<float2*>(out0 + at) = make_float2(re[0], re[1]);
+          *reinterpret_cast<float2*>(out1 + at) = make_float2(im[0], im[1]);
+        } else {
+          const int hn = s.nfft / 2;
+          float* fr = out0 + (long long)row * s.nfft;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int n = col + e;
+            if (n <= hn) fr[n] = __fadd_rn(acc0[i + e], acc1[i + e]);
+            if (n >= 1 && n < hn) fr[s.nfft - n] = __fsub_rn(acc0[i + e],
+                                                           acc1[i + e]);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <bool kInverse>
+int prepare_gemm(int device) {
+  static int entry_regs[kMaxDevices];  // 0 until set up on that device
+  return sm90_prepare(rt_gemm_kernel<kInverse>, kRtSmem, device, entry_regs,
+                      "fused_rt");
+}
+
+// A [rows, kp] f32 matrix as a byte map with 128 x `box_rows` boxes.
+bool encode_rows(CUtensorMap* map, const float* base, int rows, int kp,
+                 int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)kp * 4, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)kp * 4};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, base, 2, dims, strides,
+                kBK, box_rows);
+}
+
+template <bool kInverse>
+int launch_gemm(const float* a0, const float* a1, const float* const* b,
+                const int* desc, int n_ops, const float* params, float* out0,
+                float* out1, RtShape s, int sms, cudaStream_t st) {
+  CUtensorMap ma0, ma1, mb[4];
+  bool ok = encode_rows(&ma0, a0, s.rows, s.kp, kBM) &&
+            encode_rows(&ma1, a1, s.rows, s.kp, kBM);
+  for (int j = 0; j < 4; ++j)
+    ok = ok && encode_rows(&mb[j], b[j], s.kp, s.kp, kRtBN);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const int cols = kInverse ? s.nfft / 2 + 1 : s.kp;
+  s.col_blocks = (cols + kRtBN - 1) / kRtBN;
+  s.tiles = s.row_blocks * s.col_blocks;
+  rt_gemm_kernel<kInverse><<<s.tiles < sms ? s.tiles : sms, kThreads,
+                             kRtSmem, st>>>(
+      ma0, ma1, mb[0], mb[1], mb[2], mb[3], desc, n_ops, params, out0, out1,
+      s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int crlot_rt_ola(const float* padded, long long lp,
-                            const float* window, const float* c,
-                            const float* s, const float* cinv,
-                            const float* sinv, const float* norm,
-                            const int* desc, int n_ops, const float* params,
-                            float* out, int channels, int nfft, int hop,
-                            int n_frames, int out_len, float eps,
-                            void* stream) {
-  const int k = nfft / 2 + 1, r_count = nfft / hop;
-  const int kp = (k + TBIN - 1) / TBIN * TBIN;
-  const int tb = NF - (r_count - 1);
-  const int threads = ((kp / TBIN) * (NF / TF) + 31) / 32 * 32;
-  if (tb < 1 || threads > MAX_THREADS || nfft % hop != 0)
+// The round-trip frames of `channels` x `n_frames` frames: frame f of
+// channel c is x[c * ch_stride + f * frame_stride + n], n < nfft, read as 0
+// at or past lp. fwd = (C hi, C lo, S hi, S lo), inv = (Cinv hi, Cinv lo,
+// Sinv hi, Sinv lo), each [Kp, Kp] K-major. e, o, re, im: [rows, Kp]
+// scratch; out: [rows, nfft].
+extern "C" int crlot_rt_frames(
+    const float* x, long long ch_stride, long long lp, long long frame_stride,
+    const float* window, const float* c_hi, const float* c_lo,
+    const float* s_hi, const float* s_lo, const float* ci_hi,
+    const float* ci_lo, const float* si_hi, const float* si_lo,
+    const int* desc, int n_ops, const float* params, float* e, float* o,
+    float* re, float* im, float* out, int channels, int n_frames, int nfft,
+    void* stream) {
+  const long long rows = (long long)channels * n_frames;
+  if (nfft < 4 || nfft % 2 || n_frames < 1 || channels < 1 || lp < 1 ||
+      rows > (1ll << 31) - 1 - kBM)
     return (int)cudaErrorInvalidValue;
-  const int smem = 3 * kp * NF * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rt_ola_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaStream_t st = (cudaStream_t)stream;
+  int device, sms;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (out_len + hop - 1) / hop;
-  dim3 grid((blocks + tb - 1) / tb, channels);
-  rt_ola_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      padded, lp, window, c, s, cinv, sinv, norm, desc, n_ops, params, out,
-      nfft, hop, n_frames, out_len, eps);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int crlot_rt_frames(const float* padded, long long lp,
-                               const float* window, const float* c,
-                               const float* s, const float* cinv,
-                               const float* sinv, const int* desc, int n_ops,
-                               const float* params, float* out, int channels,
-                               int nfft, int hop, int n_frames,
-                               void* stream) {
-  const int k = nfft / 2 + 1;
-  const int kp = (k + TBIN - 1) / TBIN * TBIN;
-  const int threads = ((kp / TBIN) * (NF / TF) + 31) / 32 * 32;
-  if (threads > MAX_THREADS || n_frames < 1 || lp < 1)
-    return (int)cudaErrorInvalidValue;
-  const int smem = 3 * kp * NF * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      rt_frames_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int status = prepare_gemm<false>(device);
+  if (status == 0) status = prepare_gemm<true>(device);
+  if (status != 0) return status;
+  const int k = nfft / 2 + 1, kp = (k + 7) / 8 * 8;
+  rt_fold_kernel<<<(unsigned)rows, kFoldThreads, 0, st>>>(
+      x, ch_stride, lp, frame_stride, window, e, o, n_frames, nfft, kp);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((n_frames + NF - 1) / NF, channels);
-  rt_frames_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      padded, lp, window, c, s, cinv, sinv, desc, n_ops, params, out, nfft,
-      hop, n_frames);
-  return (int)cudaGetLastError();
+  RtShape s;
+  s.rows = (int)rows;
+  s.kp = kp;
+  s.k_bins = k;
+  s.nfft = nfft;
+  s.kt_n = (kp * 4 + kBK - 1) / kBK;
+  s.row_blocks = (s.rows + kBM - 1) / kBM;
+  s.col_blocks = s.tiles = 0;  // per GEMM
+  const float* fwd[4] = {c_hi, c_lo, s_hi, s_lo};
+  const float* inv[4] = {ci_hi, ci_lo, si_hi, si_lo};
+  status = launch_gemm<false>(e, o, fwd, desc, n_ops, params, re, im, s, sms,
+                              st);
+  if (status != 0) return status;
+  return launch_gemm<true>(re, im, inv, desc, 0, params, out, nullptr, s, sms,
+                           st);
 }

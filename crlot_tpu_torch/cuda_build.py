@@ -1,6 +1,7 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by its own `nvcc` for Hopper (`sm_90a`),
+Every `csrc/*.cu` file (with the `csrc/*.cuh` headers they share) is
+compiled by its own `nvcc` for Hopper (`sm_90a`),
 all started together, and the objects are linked into one shared library
 with a plain C interface, loaded with `ctypes`. The build
 happens at first use, never at import, into `build/crlot_tpu_torch/<digest>/`
@@ -45,17 +46,12 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     # (frames, norm, out, batch, n_frames, nfft, hop, out_len, eps, stream)
     "crlot_ola_normalized": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP],
-    # (padded, lp, window, c, s, cinv, sinv, norm, desc, n_ops, params, out,
-    #  channels, nfft, hop, n_frames, out_len, eps, stream)
-    "crlot_rt_ola": [
-        _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP,
-        _VP, _I, _I, _I, _I, _I, _F, _VP,
-    ],
-    # (padded, lp, window, c, s, cinv, sinv, desc, n_ops, params, out,
-    #  channels, nfft, hop, n_frames, stream)
+    # (x, ch_stride, lp, frame_stride, window, c_hi, c_lo, s_hi, s_lo,
+    #  cinv_hi, cinv_lo, sinv_hi, sinv_lo, desc, n_ops, params, e, o, re,
+    #  im, out, channels, n_frames, nfft, stream)
     "crlot_rt_frames": [
-        _VP, _LL, _VP, _VP, _VP, _VP, _VP, _VP, _I, _VP, _VP,
-        _I, _I, _I, _I, _VP,
+        _VP, _LL, _LL, _LL, _VP, *[_VP] * 8, _VP, _I, _VP,
+        _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP,
     ],
     # (x, t_in, u, nc, span, taps_t, offsets, out, channels, n_out, l, m,
     #  tp, w, tau_min, h0, j, r, wc, seg_floats, stream)
@@ -99,8 +95,9 @@ def sources() -> list[Path]:
 
 
 def _digest(srcs: list[Path]) -> str:
+    """Of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for p in srcs:
+    for p in srcs + sorted(CSRC.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]

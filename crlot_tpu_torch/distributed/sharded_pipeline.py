@@ -47,6 +47,7 @@ from ..fft.fused_rt import fused_rt_supported, roundtrip_frames_fused
 from ..fft.matmul_backend import (
     MAX_MATMUL_NFFT,
     _bytes,
+    _runtime_bt_on,
     _runtime_kernel_on,
     blocked_edge_patch,
     blocked_group_for,
@@ -110,7 +111,8 @@ def _local_frames(route, x_ext, cfg, spectral_fn, window_f64, n_frames):
     frames = hop_block_frames(x_ext, n, hop, n_frames)
     if route == "composed":
         return roundtrip_composed_matmul(
-            frames, n, window_f64, resolve_per_bin_response(spectral_fn, n)
+            frames, n, window_f64, resolve_per_bin_response(spectral_fn, n),
+            precision=cfg.fft_precision,
         )
     if route == "packed_parts":
         re, im = rfft_folded_packed(frames, n, window_f64)
@@ -161,7 +163,10 @@ def _blocked_local_round_trip(
         if kern.shape[0] - gh - halo != halo:
             raise ValueError("blocked group must divide 2(R-1)")
         x_blk = torch.cat([left, x, right], dim=-1).float()
-        acc = hopblock_apply(x_blk, kern, gh, t_block, 0)
+        bt = (_runtime_bt_on(n, hop, group, wb, sb, rb, x.device)
+              if x.device.type != "cpu" else None)
+        acc = hopblock_apply(x_blk, kern, gh, t_block, 0, cfg.fft_precision,
+                             bt)
         if t == 0:
             acc[..., :halo] = blocked_edge_patch(
                 x_blk[..., halo : halo + span_p], n, hop, wb, sb, rb, "head"

@@ -14,7 +14,11 @@ Counterpart of the slice's part of `crlot_tpu/fft/matmul_backend.py`:
 
 The float64 host design code is copied, not imported (the port never
 imports the JAX package); the tests hold every array byte-identical to the
-reference's. Products run in IEEE fp32 (`torch.matmul`; TF32 stays off).
+reference's. On a CUDA tensor at `FftPrecision.HIGH` (the default) the
+windowed product of `hopblock_apply` and the scan form's composed product
+run on B0, 3xTF32 on the tensor cores with a fixed order per output
+(`fft/tf32x3.py`); at HIGHEST, and on the CPU, they are IEEE fp32
+`torch.matmul`s (TF32 stays off).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import numpy as np
 import torch
 
 from ..core.consts import const_on
+from ..core.types import FftPrecision
+from . import tf32x3
 
 MAX_MATMUL_NFFT = 4096
 
@@ -141,21 +147,40 @@ def _bytes(a, dtype) -> bytes:
     return np.ascontiguousarray(a, dtype).tobytes()
 
 
+@lru_cache(maxsize=8)
+def _composed_bt_on(nfft, awin_bytes, swin_bytes, response_bytes,
+                    device: torch.device):
+    """The composed basis as B0 takes it: transposed, TF32 hi and lo."""
+    m = _composed_roundtrip_basis(nfft, awin_bytes, swin_bytes, response_bytes)
+    return tuple(torch.from_numpy(a).to(device) for a in tf32x3.split_t(m))
+
+
 def roundtrip_composed_matmul(
     frames: torch.Tensor,
     nfft: int,
     analysis_window_f64: np.ndarray,
     per_bin_response: np.ndarray,
     synthesis_window_f64=None,
+    precision=FftPrecision.HIGH,
 ) -> torch.Tensor:
-    """irfft(rfft(frames * w) * g) [* w_s] as one [F, N] @ [N, N] product."""
-    m = _composed_roundtrip_basis(
+    """irfft(rfft(frames * w) * g) [* w_s] as one [F, N] @ [N, N] product.
+    At HIGH a CUDA tensor runs it on B0 over the frame rows in place
+    (`tf32x3.frame_rows`) where B0's tiles take N (a multiple of 64); at
+    HIGHEST, on the CPU and for other N, it is a `torch.matmul`."""
+    keys = (
         nfft,
         _bytes(analysis_window_f64, np.float64),
         None if synthesis_window_f64 is None
         else _bytes(synthesis_window_f64, np.float64),
         _bytes(per_bin_response, np.complex128),
     )
+    if (frames.device.type != "cpu" and precision == FftPrecision.HIGH
+            and tf32x3.supported(nfft, nfft, nfft)):
+        x, rows, lda = tf32x3.frame_rows(frames.float())
+        out = tf32x3.gemm_cuda(x, *_composed_bt_on(*keys, frames.device),
+                               rows=rows, lda=lda)
+        return out.reshape(frames.shape[:-1] + (nfft,))
+    m = _composed_roundtrip_basis(*keys)
     return torch.matmul(frames.float(), torch.from_numpy(m).to(frames.device))
 
 
@@ -257,10 +282,33 @@ def _runtime_kernel_on(nfft, hop, group, awin_bytes, swin_bytes, rb_kern,
 
 
 @lru_cache(maxsize=8)
+def _runtime_bt_on(nfft, hop, group, awin_bytes, swin_bytes, rb_kern,
+                   device: torch.device) -> tuple:
+    """The runtime kernel as B0 takes it: transposed [G*hop, mg*G*hop],
+    split into TF32 (hi, lo) by the host design code."""
+    kern, _ = blocked_runtime_kernel(
+        nfft, hop, group, awin_bytes, swin_bytes, rb_kern
+    )
+    return tuple(torch.from_numpy(a).to(device) for a in tf32x3.split_t(kern))
+
+
+@lru_cache(maxsize=8)
 def _composed_basis_on(nfft, awin_bytes, swin_bytes, response_bytes,
                        device: torch.device) -> torch.Tensor:
     m = _composed_roundtrip_basis(nfft, awin_bytes, swin_bytes, response_bytes)
     return torch.from_numpy(m).to(device)
+
+
+def _hopblock_ext(x, kern, block, n_out, left):
+    """(x padded with `left` zeros and enough right zeros, mg, nb)."""
+    assert kern.shape[0] % block == 0, (
+        f"kernel height {kern.shape[0]} must be a multiple of the "
+        f"block size {block}"
+    )
+    mg = kern.shape[0] // block
+    nb = -(-n_out // block)
+    right = (nb - 1 + mg) * block - left - x.shape[-1]
+    return torch.nn.functional.pad(x, (left, right)), mg, nb
 
 
 def hopblock_apply(
@@ -269,20 +317,25 @@ def hopblock_apply(
     block: int,
     n_out: int,
     left: int,
+    precision=FftPrecision.HIGH,
+    bt=None,
 ) -> torch.Tensor:
     """Hop-block Toeplitz product: pad x with `left` zeros (the look-back
-    halo) and enough right zeros, view it as ONE contiguous [..., B, block]
-    tensor, and accumulate the M products of its shifted row slices
-    (each slice a contiguous view, no im2col copy) in ascending m order.
-    Returns [..., n_out]."""
-    assert kern.shape[0] % block == 0, (
-        f"kernel height {kern.shape[0]} must be a multiple of the "
-        f"block size {block}"
-    )
-    mg = kern.shape[0] // block
-    nb = -(-n_out // block)
-    right = (nb - 1 + mg) * block - left - x.shape[-1]
-    x_ext = torch.nn.functional.pad(x, (left, right))
+    halo) and enough right zeros, and take each output block as one window
+    of M*block samples times the kernel. Returns [..., n_out].
+
+    On a CUDA tensor at HIGH: one B0 launch over the overlapping windows
+    (lda = block), with `bt` = the kernel's (hi, lo) from the host design
+    code (split here when not given). At HIGHEST, and on the CPU: the padded
+    signal viewed as ONE contiguous [..., B, block] tensor and the M
+    products of its shifted row slices (each a contiguous view, no im2col
+    copy) accumulated in ascending m order, in IEEE fp32."""
+    x_ext, mg, nb = _hopblock_ext(x, kern, block, n_out, left)
+    if x.device.type != "cpu" and precision == FftPrecision.HIGH:
+        bt_hi, bt_lo = tf32x3.split_t(kern) if bt is None else bt
+        out = tf32x3.gemm_cuda(x_ext.contiguous(), bt_hi, bt_lo, rows=nb,
+                               lda=block)
+        return out.reshape(out.shape[:-2] + (nb * block,))[..., :n_out]
     blocks = x_ext.reshape(x_ext.shape[:-1] + (-1, block))
     acc = None
     for m in range(mg):
@@ -291,6 +344,15 @@ def hopblock_apply(
         )
         acc = term if acc is None else acc + term
     return acc.reshape(acc.shape[:-2] + (nb * block,))[..., :n_out]
+
+
+def hopblock_apply_tf32x3_plain(x, kern, block, n_out, left) -> torch.Tensor:
+    """`hopblock_apply`'s B0 route in torch: the same windows, the kernel's
+    TF32 halves and the split emulated (`tf32x3.gemm_plain`), summed in f32.
+    The kernel agrees with it within `tf32x3.REL_TOL` of sum |x||k|."""
+    x_ext, mg, nb = _hopblock_ext(x, kern, block, n_out, left)
+    out = tf32x3.gemm_plain(x_ext, *tf32x3.split_t(kern), rows=nb, lda=block)
+    return out.reshape(out.shape[:-2] + (nb * block,))[..., :n_out]
 
 
 def blocked_chunk_geometry(nfft: int, hop: int, group=None) -> dict:
@@ -361,9 +423,11 @@ def roundtrip_composed_blocked(
     synthesis_window_f64=None,
     group: int = 1,
     norm_fold=None,
+    precision=FftPrecision.HIGH,
 ) -> torch.Tensor:
     """Composed per-bin round-trip INCLUDING the overlap-add as hop-block
-    products on the raw signal, length (num_frames-1)*hop + nfft.
+    products on the raw signal, length (num_frames-1)*hop + nfft; the
+    windowed product at `precision` (`hopblock_apply`).
 
     Without `norm_fold` the result is the un-normalized OLA sum. With
     `norm_fold = (norm_c, head_norm, tail_norm)` -- the constant interior
@@ -391,7 +455,12 @@ def roundtrip_composed_blocked(
         )
     kern = _runtime_kernel_on(nfft, hop, group, wb, sb, rb_kern, padded.device)
     x = padded[..., :full].float()
-    out = hopblock_apply(x, kern, group * hop, full, edge)
+    out = hopblock_apply(
+        x, kern, group * hop, full, edge, precision,
+        _runtime_bt_on(nfft, hop, group, wb, sb, rb_kern, padded.device)
+        if padded.device.type != "cpu" and precision == FftPrecision.HIGH
+        else None,
+    )
     span_p = blocked_patch_span(nfft, hop)
     head = blocked_edge_patch(x[..., :span_p], nfft, hop, wb, sb, rb, "head")
     tail = blocked_edge_patch(

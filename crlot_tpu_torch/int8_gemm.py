@@ -58,6 +58,7 @@ EPILOGUES = {"probe3": 2, "wire2": 2, "wire1": 1}
 # The kernel's modes: K10's probe3 on int8 limbs, and the wire epilogues on
 # int16 samples, split into limbs on chip.
 _MODE_I32, _MODE_PROBE3, _MODE_BF16 = 0, 1, 4
+MODE_TF32X3 = 8  # B0, f32 in 3xTF32 (`fft/tf32x3.py`)
 I16_MODES = {"wire2": 6, "wire1": 7}
 TILE = 64  # the kernels' N and K-byte granularity
 KTILE_BYTES = 128  # contraction bytes of one K tile of the TMA kernel
@@ -72,6 +73,7 @@ SM90_GEO = {
     1: (2, 2, 2, 128, 3, 64, False),   # K10 probe3
     6: (2, 2, 4, 64, 4, 64, True),     # wire int8x2 on int16 samples
     7: (2, 1, 2, 128, 4, 64, True),    # wire int8x1 on int16 samples
+    8: (1, 2, 2, 128, 4, 64, False),   # B0 3xTF32: sum and stage partial
 }
 SM90_MAX_SMEM = 232_448  # dynamic shared memory a CTA may use on sm_90
 SM90_ACC_REGS = 128  # of setmaxnreg's 232 a consumer thread
@@ -83,13 +85,15 @@ def sm90_budget(mode: int) -> dict:
     (int16 input: one tile of 128 x 128 samples) and NB B tiles of BN x 128
     bytes, two warpgroups' 64 x SC x 4-byte staging, the mbarriers, and 1
     KB of alignment; each consumer thread holds NACC x BN / 2 accumulators
-    (and, for int16 input, 32 registers of limb fragments)."""
+    (and, for int16 input, 32 registers of limb fragments; for 3xTF32, 32
+    of TF32 hi / lo fragments)."""
     na, nb, nacc, bn, stages, sc, i16 = SM90_GEO[mode]
     stage = na * 128 * 128 + nb * bn * 128
     smem = stages * stage + 2 * 64 * sc * 4 + 2 * stages * 8 + 1024
     return {"tile": (128, bn), "stages": stages, "stage_bytes": stage,
             "smem": smem, "acc_regs": nacc * bn // 2,
-            "frag_regs": 32 if i16 else 0, "passes": bn // sc,
+            "frag_regs": 32 if i16 or mode == MODE_TF32X3 else 0,
+            "passes": bn // sc,
             "ktile_a_bytes": KTILE_BYTES * (2 if i16 else 1)}
 
 

@@ -179,6 +179,7 @@ def blocked_composed_round_trip(
         per_bin, w64 if cfg.synthesis_window else None,
         group=blocked_group_for(cfg.frame_size, cfg.hop_size),
         norm_fold=norm_fold,
+        precision=cfg.fft_precision,
     )
     pad = spec_.pad_amount
     if norm_fold is None:

@@ -9,10 +9,11 @@ Counterpart of `crlot_tpu/streaming_pipeline.py`.
   one-shot's row over the same data, and the stream head and tail run the
   one-shot's phantom-frame patches (`blocked_edge_patch`). Concatenated
   output equals `pipeline.blocked_composed_round_trip` over the unbroken
-  stream wherever the products are independent of the batch they sit in:
-  bit for bit on the CPU for the identity; on the card cuBLAS may split a
-  chunk's product otherwise than the one-shot's (`chip_smoke.py` prints
-  which). One chunk of latency: `feed` returns the predecessor.
+  stream bit for bit wherever the products are independent of the batch
+  they sit in: on the card at HIGH (B0, a fixed order per output), and on
+  the CPU for the identity; at HIGHEST on the card cuBLAS may split a
+  chunk's product otherwise than the one-shot's. One chunk of latency:
+  `feed` returns the predecessor.
 * `streaming_round_trip_blocks`, `streaming_round_trip` and
   `process_wav_file` stream framed blocks with the overlap-add tail carried
   between calls. Within a call the frames of all blocks go through one
@@ -35,9 +36,11 @@ import numpy as np
 import torch
 
 from .core import device as _device
-from .core.consts import as_f32
-from .core.types import FftBackend, StftConfig
+from .core.consts import as_f32, const_on
+from .core.types import FftBackend, FftPrecision, StftConfig
 from .fft import dispatch as _fft
+from .fft import tf32x3
+from .fft.fused_rt import roundtrip_of_frames
 from .fft.matmul_backend import (
     MAX_MATMUL_NFFT,
     blocked_chunk_geometry,
@@ -53,7 +56,7 @@ from .fft.matmul_backend import (
 from .ola.norm import build_norm_linear
 from .ola.reference import overlap_add
 from .pipeline import _synthesis, _window_f64, _window_np, blocked_norm_fold
-from .spectral import resolve_per_bin_response
+from .spectral import epilogue_of, resolve_per_bin_response
 
 logger = logging.getLogger("crlot_tpu_torch.streaming")
 
@@ -112,6 +115,7 @@ def _blocked_stream_consts(cfg: StftConfig, rb: bytes) -> dict:
     return {
         **geo,
         "kern": kern,
+        "kern_t": tf32x3.split_t(kern),  # B0's (hi, lo)
         "wb": wb,
         "sb": sb,
         "interior_norm_tile": tile,
@@ -128,6 +132,7 @@ def _blocked_consts_on(cfg: StftConfig, rb: bytes, device: torch.device):
     tile = c["interior_norm_tile"]
     return {
         "kern": torch.from_numpy(c["kern"]).to(device),
+        "bt": tuple(torch.from_numpy(a).to(device) for a in c["kern_t"]),
         "tile": None if tile is None else as_f32(tile, device),
         "head_norm": as_f32(c["head_norm"], device),
         "tail_norm": as_f32(c["tail_norm"], device),
@@ -188,7 +193,8 @@ def _blocked_chunk(lctx, mid, rctx, cfg: StftConfig, rb: bytes, head: bool,
     x_ext = torch.cat([lctx, mid, rctx], dim=-1)
     # Interior: the one-shot's hop-block rows over the same data (its zero
     # padding beyond the stream is lctx / rctx's zeros at the edge chunks).
-    out = hopblock_apply(x_ext, k["kern"], c["gh"], s, 0)
+    out = hopblock_apply(x_ext, k["kern"], c["gh"], s, 0, cfg.fft_precision,
+                         k["bt"])
     if k["tile"] is not None:
         out = out / k["tile"].repeat(s // cfg.hop_size)
     return _splice_edges(out, lambda a, b: x_ext[..., a:b], cfg, c, k, rb,
@@ -338,7 +344,12 @@ def _frames_round_trip(frames: torch.Tensor, cfg: StftConfig,
     fixed per-bin response on a matmul backend is ONE composed [N, N]
     product; the identity or a packed fn on a matmul backend with
     N % 256 == 0 takes the folded packed parts; anything else rfft -> fn
-    -> irfft."""
+    -> irfft. At HIGH on the card the composed product runs on B0 and the
+    folded parts of the identity or a fn with an epilogue menu on B3's
+    kernels (`fused_rt.roundtrip_of_frames`), both over the frame rows in
+    place with a fixed order per frame: a frame's result does not depend on
+    the batch it sits in, so any chunking of a stream gives the same
+    frames."""
     n = cfg.frame_size
     w64 = _window_f64(cfg)
     on_matmul = (_fft._pick(cfg.fft_backend, n, frames.device)
@@ -350,8 +361,14 @@ def _frames_round_trip(frames: torch.Tensor, cfg: StftConfig,
     )
     if per_bin is not None:
         return roundtrip_composed_matmul(
-            frames, n, w64, per_bin, w64 if cfg.synthesis_window else None)
+            frames, n, w64, per_bin, w64 if cfg.synthesis_window else None,
+            cfg.fft_precision)
     on_packed = on_matmul and n % 256 == 0 and n <= MAX_MATMUL_NFFT
+    if (on_packed and cfg.fft_precision == FftPrecision.HIGH
+            and (spectral_fn is None or epilogue_of(spectral_fn) is not None)):
+        return _synthesis(roundtrip_of_frames(
+            frames, n, const_on(_window_np(cfg), frames.device),
+            None if spectral_fn is None else spectral_fn.packed), cfg)
     if on_packed and (spectral_fn is None or hasattr(spectral_fn, "packed")):
         re, im = rfft_folded_packed(frames, n, _window_np(cfg))
         if spectral_fn is not None:

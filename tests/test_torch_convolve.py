@@ -88,9 +88,10 @@ def test_convolve_errors(taps, mode):
     None, "highest", "HIGH", "default", FftPrecision.HIGHEST,
     FftPrecision.HIGH])
 def test_convolve_precision_accepted_values_give_fp32(precision):
-    """The reference's `precision=` values all map to IEEE fp32 products:
-    the result equals the default call bit for bit (jax.lax.Precision
-    members pass by name)."""
+    """On the CPU the reference's `precision=` values all run IEEE fp32
+    products (on the card HIGHEST is fp32, the rest 3xTF32 on B0): the
+    result equals the default call bit for bit (jax.lax.Precision members
+    pass by name)."""
     import jax
 
     x = np.random.default_rng(5).uniform(-1, 1, (2, 3000)).astype(np.float32)

@@ -22,7 +22,7 @@ import torch
 
 from crlot_tpu_torch import cuda_build
 from crlot_tpu_torch import int8_gemm as b6
-from crlot_tpu_torch.fft import fused_rt
+from crlot_tpu_torch.fft import fused_rt, tf32x3
 from crlot_tpu_torch.ola import fused as b1
 from crlot_tpu_torch.ola import kernels as b5
 from crlot_tpu_torch.resample import kernel as b4
@@ -56,7 +56,8 @@ def guarded(monkeypatch):
                         lambda d: ctypes.c_void_p(0))
     monkeypatch.setattr(cuda_build, "require_cuda", lambda what, *t: None)
     for mod, name in ((b1, "launches"), (b4, "launches"),
-                      (fused_rt, "launches"), (fused_rt, "frames_launches")):
+                      (fused_rt, "launches"), (fused_rt, "frames_launches"),
+                      (tf32x3, "launches")):
         monkeypatch.setattr(mod, name, getattr(mod, name))
     monkeypatch.setattr(b5, "launches", dict(b5.launches))
     monkeypatch.setattr(b6, "launches", dict(b6.launches))
@@ -79,16 +80,31 @@ def _b1():
 
 
 def _b2():
+    """B2 is B3's frames, then B1's overlap-add: two library calls."""
     padded, w = _rand((1, 8192), 3), _rand(1024, 4)
     fused_rt.roundtrip_signal_cuda(padded, 1024, 256, 29, w,
                                    torch.ones(8192), 1e-8, 8192)
-    return "crlot_rt_ola", padded.device
+    return ("crlot_rt_frames", "crlot_ola_normalized"), padded.device
 
 
 def _b3():
     padded, w = _rand((1, 8192), 5), _rand(1024, 6)
     fused_rt.roundtrip_frames_cuda(padded, 1024, 256, 29, w)
     return "crlot_rt_frames", padded.device
+
+
+def _b3_of_frames():
+    x = _rand((2, 8192), 30)
+    frames = x.unfold(-1, 1024, 256)
+    fused_rt.roundtrip_of_frames(frames.to("meta"), 1024, _rand(1024, 31))
+    return "crlot_rt_frames", torch.device("meta")
+
+
+def _b0():
+    x = _rand((2, 15 * 512 + 2048), 32)
+    bt = _rand((512, 2048), 33)
+    tf32x3.gemm_cuda(x, bt, bt, rows=16, lda=512)
+    return "crlot_b6_gemm", x.device
 
 
 def _b4():
@@ -156,7 +172,8 @@ def _fusedq():
 
 
 WRAPPERS = {
-    "B1 ola_normalized": _b1, "B2 rt_ola": _b2, "B3 rt_frames": _b3,
+    "B0 tf32x3": _b0, "B1 ola_normalized": _b1, "B2 rt_ola": _b2,
+    "B3 rt_frames": _b3, "B3 of frames": _b3_of_frames,
     "B4 runs": _b4, "B4 windows": _b4_unstaged, "B5 axpy": _axpy,
     "B5 axpy_windowed": _axpy_windowed, "B5 normalize": _normalize,
     "B6-i8": _i8, "B6-limb probe3": _probe3, "B6-limb int16": _wire_i16,
@@ -166,11 +183,13 @@ WRAPPERS = {
 
 @pytest.mark.parametrize("name", list(WRAPPERS))
 def test_wrapper_launches_inside_its_tensors_device(guarded, name):
-    """One library call, made while `torch.cuda.device` was entered with
-    the wrapper's tensor device, and the guard left afterwards."""
-    fn, device = WRAPPERS[name]()
-    assert guarded["calls"] == [(fn, device)]
-    assert guarded["entered"] == [device]
+    """Each library call (B2 makes two) made while `torch.cuda.device` was
+    entered with the wrapper's tensor device, and the guard left
+    afterwards."""
+    fns, device = WRAPPERS[name]()
+    fns = (fns,) if isinstance(fns, str) else fns
+    assert guarded["calls"] == [(fn, device) for fn in fns]
+    assert guarded["entered"] == [device] * len(fns)
     assert guarded["inside"] is None
 
 

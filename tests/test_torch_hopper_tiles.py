@@ -141,8 +141,8 @@ def _cu_geometry():
 
 def test_sm90_geometry_mirrors_the_cu():
     assert _cu_geometry() == b6.SM90_GEO
-    assert {b6._MODE_I32, b6._MODE_PROBE3, b6._MODE_BF16} | set(
-        b6.I16_MODES.values()) == set(b6.SM90_GEO)
+    assert {b6._MODE_I32, b6._MODE_PROBE3, b6._MODE_BF16,
+            b6.MODE_TF32X3} | set(b6.I16_MODES.values()) == set(b6.SM90_GEO)
 
 
 @pytest.mark.parametrize("mode", sorted(b6.SM90_GEO))
