@@ -5,19 +5,22 @@
 
 Builds the port's CUDA kernels from `crlot_tpu_torch/csrc/` (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version on the card, then runs
-four paths through the public entry points, each with the kernels' launch
+five paths through the public entry points, each with the kernels' launch
 counters reset just before and read just after: on 2 channels x 60 s at
 48 kHz, N=1024 / H=256, Hann, seed 0, the round-trip path (`round_trip`,
 `stft`, `istft`; centered) and the fused-frames and sharded path
 (`round_trip` with `fused_roundtrip`, `sharded_round_trip`); the resample
 and demo path (`resample`, `resample_chunked`, `resampled_stft`,
-`convolve`, the demo); and the streaming, wire and probe path
+`convolve`, the demo); the streaming, wire and probe path
 (`BlockedChunkStreamer`, `I16BlockedStreamer`, `i16_round_trip`,
-`process_wav_file`, `python -m crlot_tpu_torch.int8_probe`'s `run`).
+`process_wav_file`, `python -m crlot_tpu_torch.int8_probe`'s `run`); and
+the INT8X2 path (`round_trip` at N=1024 / H=480, the tiled int8 route).
 
 Phases (each prints one line; the script exits 1 if any fails):
-  1. B1 (fused OLA + normalize) vs plain on [2, 11251, 1024] frames:
-     bit-exact (torch.equal).
+  1. B1 (fused OLA + normalize) vs plain on [2, 11251, 1024] frames, and
+     at the edges of its tiles: H = 480 (R = 3: the tiled route's), H =
+     300 (N % H != 0), H = 7 (one sample a thread, R at run time) and an
+     odd output length: bit-exact (torch.equal).
   2. B2 (3xTF32 round-trip frames, then B1's OLA) vs plain for
      noise_gate(-30), spectral_subtraction(noise_mag, 1.0, 0.05) and
      compose(band_gain, noise_gate), over the cropped signal span: SNR
@@ -50,7 +53,8 @@ Phases (each prints one line; the script exits 1 if any fails):
  10. sharded identity (blocked route) on the same mesh and signal: blocked
      engaged, one B0 launch a shard, interior SNR vs input >= 60 dB,
      torch.equal to the (1, 1) mesh, and the in-mesh metrics' SNR within
-     0.01 dB of the host's SNR of the gathered output.
+     0.01 dB of the host's SNR of the gathered output; then at HIGHEST:
+     one launch a shard of B0's fp32 kernel, (2, 2) torch.equal to (1, 1).
 The resample and demo path runs on 2 channels x 60 s at 44.1 kHz (uniform
 noise from seed 0 for the kernel checks, a 997 Hz / 1 kHz sine pair for
 fidelity), BASELINE config 3's long streams, fp32 with TF32 off:
@@ -87,7 +91,10 @@ Kernel checks of B6 and B4's unstaged path (not counted on a path):
      windows): B6-i8 torch.equal, B6-bf16 within 1e-6 of sum|x||b|;
      B6-limb probe3 at M = 1000, N = 64 and 192 and batch 2 of windows,
      and its int16 wire modes at lda 512 (2 x 4096 rows; 1000 rows at N =
-     64 and 192): torch.equal.
+     64 and 192): torch.equal; K11's two variants at M = 1000, N = 64 and
+     192, K = 64 (half a stage), 576 (a ragged last stage) and 4096 (the
+     composed basis at N = 4096, past the former kernel's 1024):
+     torch.equal.
  19. B4 at 48 kHz -> 300 Hz (M = 160: the input segment outgrows shared
      memory, so B4 reads each window from L2) vs `resample_bank_plain` and
      the grouped form on 2 x 60 s: max-abs <= 1e-5.
@@ -96,7 +103,8 @@ Then the streaming, wire and probe path on the reference bench's stream
 2 097 152 samples of uniform noise in +-0.9 from seed 9, device-resident),
 with the B6 counters reset just before:
  20. BlockedChunkStreamer (identity) vs the one-shot
-     `blocked_composed_round_trip`: torch.equal, one B0 launch a chunk.
+     `blocked_composed_round_trip`: torch.equal, one B0 launch a chunk; the
+     same at HIGHEST, one launch of B0's fp32 kernel a chunk.
  21. The wire tier on the same stream as int16, int8x2 and int8x1: one
      B6-limb launch per chunk; chunks of 2 097 152, 524 288 and one chunk
      bit-identical (int16 egress); identity interior >= 90 dB vs the float
@@ -109,21 +117,37 @@ with the B6 counters reset just before:
      unbroken stream (the scan form, its frames on B3's kernels): every
      16-bit code equal.
  24. The int8 probe (`int8_probe.run`): each variant held against its
-     plain version, then its us per call, TOPS and library time
-     (`torch._int_mm`, `torch.mm(..., out_dtype=float32)`), for K8 and
-     K9 both also with a cold L2.
+     plain version (K11 on its TMA + wgmma mode), then its us per call,
+     TOPS and library time (`torch._int_mm`, `torch.mm(...,
+     out_dtype=float32)`), for K8 and K9 both also with a cold L2.
 Then:
  25. B0 (`hopblock_apply`'s windowed product, 3xTF32 in `b6_sm90.cu`) vs
      its plain emulation within 2^-18 of sum|x||k| per output, at the
      main path's identity and EQ kernels and at the edges of the f32
      window tiles (M = 1000, N = 192, a batch of 2), and 1000 of its rows
+     alone torch.equal to the same rows of the whole. B0's fp32 kernel
+     (HIGHEST, `fp32_window.cu`) at the same kernels within K * 2^-24 *
+     sum|x||k| of the float64 product, torch.equal to the exact emulation
+     of its fmaf chain on 2 x 64 rows, at the tile edges, and 1000 rows
      alone torch.equal to the same rows of the whole.
+Then the INT8X2 path, with the K11 and B1 counters reset just before:
+ 26. round_trip(x, N = 1024, H = 480 (10 ms), center=True, INT8X2) on the
+     main path's 2 ch x 60 s: route "tiled_i8", four K11 launches
+     (`dot_i8x2`'s variant) each torch.equal to its plain version on its
+     own operands, one B1 launch, identity >= 60 dB; the same at HIGH
+     (route "tiled", IEEE fp32 products), and the int8 tier's SNR against
+     it; `roundtrip_composed_i8` with a +-10 dB EQ on the path's frames
+     (K = N = 1024, one K11 launch, torch.equal to plain), >= 62 dB
+     against a float64 oracle over the first 64 frames.
 Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
 busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
 the median of 10 runs timed one at a time, synchronized after each): each
 kernel vs its plain
-version (B0 also against the former cuBLAS fp32 loop, its library time;
+version (B1 beside its former design's time as PERF.md gives it; B0 and
+its fp32 kernel also against the former cuBLAS fp32 loop, their library
+time; K11 at the probe's shape beside its former design's PERF.md time,
+and at the tiled route's 2 x 6001 frames x 512;
 B4 at both rates against its former design, the blocks tile, in the
 same run and as PERF.md gives it, against `resample_bank_plain` and
 against `resample_grouped_plain`, the JAX default's math; B5 at n =
@@ -211,13 +235,16 @@ def kernel_name(line: str) -> str:
     return line.strip()
 
 
-# The former designs of K2, K3, K7 and K10 and B0's former cuBLAS loop, as
+# The former designs of K1, K2, K3, K7, K10 and K11 and B0's former cuBLAS
+# loop, as
 # PERF.md's table gives them (NVIDIA H100 80GB HBM3, 700.00 W; ms, CUDA
 # events, queued): printed beside the new times.
 OLD_MS = {"K7 44.1->48": "0.1568-0.1581 ms",
           "K7 48->16": "0.1684 ms",
           "K10 probe": "0.0595-0.0601 ms",
           "K10 wire chunk": "0.0756-0.0762 ms",
+          "K1": "0.0771-0.0776 ms (one sample a thread, PR 1-7)",
+          "K11 probe": "0.0860-0.0875 ms (mma.sync, int8_gemm.cu, PR 4-7)",
           "K2": "1.9525-1.9759 ms (fp32 FMA, register-tiled)",
           "K3": "1.8900-1.9048 ms (fp32 FMA, register-tiled)",
           "B0": "0.5819 ms of cuBLAS GEMMs + 0.072 ms of adds (PERF.md 5)"}
@@ -289,7 +316,9 @@ def main() -> int:
 
     import crlot_tpu_torch as pt
     from crlot_tpu_torch import cuda_build, spectral
+    from crlot_tpu_torch import int8_gemm as b6
     from crlot_tpu_torch.core.padding import pad_signal
+    from crlot_tpu_torch.fft import fp32_window as b0f
     from crlot_tpu_torch.fft import fused_rt as b2
     from crlot_tpu_torch.fft import tf32x3 as b0
     from crlot_tpu_torch.ola import fused as b1
@@ -313,7 +342,7 @@ def main() -> int:
     for line in cuda_build.build_log.splitlines():
         if "Compiling entry function" in line:
             kernel = kernel_name(line)
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "arning" in line:
             log(f"  ptxas {kernel}: {line.strip()}")
 
     cfg = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=True)
@@ -370,7 +399,25 @@ def main() -> int:
         err = float((got - want).abs().max())
         results["b1_err"] = err
         check(torch.equal(got, want), f"not bit-exact, max-abs {err:.3g}")
-        return f"bit-exact on [2, {n_frames}, {NFFT}], max-abs {err}"
+        edges = []
+        g1 = torch.Generator(device=dev).manual_seed(1)
+        for hop, nfft, nf, out_len in ((480, NFFT, 6001, 6000 * 480 + NFFT),
+                                       (300, NFFT, 777, 777 * 300 + 724),
+                                       (7, 64, 3001, 3001 * 7 + 57),
+                                       (HOP, NFFT, 999, 998 * HOP + 1021)):
+            fr = torch.randn((2, nf, nfft), generator=g1, device=dev)
+            nrm = torch.rand(out_len + 5, generator=g1, device=dev) + 0.5
+            nrm[::97] = 0.0  # below eps: divided by eps
+            a = b1.ola_normalized_cuda(fr, nrm, hop, out_len, cfg.eps)
+            sync()
+            b = b1.ola_normalized_plain(fr, nrm, hop, out_len, cfg.eps)
+            e = float((a - b).abs().max())
+            results["b1_err"] = max(results["b1_err"], e)
+            check(torch.equal(a, b), f"H {hop}, N {nfft}, {nf} frames, "
+                  f"{out_len} out: not bit-exact, max-abs {e:.3g}")
+            edges.append(f"H {hop} N {nfft} out {out_len}")
+        return (f"bit-exact on [2, {n_frames}, {NFFT}], max-abs {err}; and "
+                f"at {'; '.join(edges)}")
 
     phase("1 B1 vs plain", p1)
 
@@ -541,6 +588,7 @@ def main() -> int:
     b2.launches = 0
     b2.frames_launches = 0
     b0.launches = 0
+    b0f.launches = 0
 
     def p8():
         check(pt.formulation_for(cfg_frames, None, n) == "fused_rt_frames",
@@ -606,16 +654,33 @@ def main() -> int:
         host_snr = pt.snr_db(x9_np, y)
         check(abs(mesh_snr - host_snr) < 0.01,
               f"metrics snr {mesh_snr:.4f} vs host {host_snr:.4f}")
+        # HIGHEST: B0's fp32 kernel, one fmaf chain an output.
+        cfg_hst = dataclasses.replace(
+            cfg_nc, fft_precision=pt.FftPrecision.HIGHEST)
+        before = b0f.launches
+        y_h = pt.sharded_round_trip(x9, cfg_hst, mesh22)
+        launched_h = b0f.launches - before
+        check(launched_h == 4, f"{launched_h} fp32 B0 launches for 4 shards")
+        one_h = pt.sharded_round_trip(x9, cfg_hst, mesh11)
+        check(torch.equal(y_h, one_h),
+              f"HIGHEST: (2, 2) mesh != (1, 1), max-abs "
+              f"{float((y_h - one_h).abs().max()):.3e}")
+        snr_h = pt.snr_db(x9_np[:, inner], y_h[:, inner])
+        check(snr_h >= 60.0, f"HIGHEST interior snr {snr_h:.2f} dB")
         return (f"blocked engaged, B0 (3xTF32) launches +{launched}; "
                 f"interior snr {snr:.2f} dB; (2, 2) == (1, 1) bit for bit; "
-                f"metrics snr {mesh_snr:.4f} dB vs host {host_snr:.4f} dB")
+                f"metrics snr {mesh_snr:.4f} dB vs host {host_snr:.4f} dB; "
+                f"HIGHEST: B0 fp32 launches +{launched_h}, (2, 2) == (1, 1) "
+                f"bit for bit, interior snr {snr_h:.2f} dB")
 
     phase("8 round_trip fused_roundtrip", p8)
     phase("9 sharded noise_gate (B3)", p9)
     phase("10 sharded identity (blocked)", p10)
-    counts2 = {"b1": b1.launches, "b3": b2.frames_launches, "b0": b0.launches}
+    counts2 = {"b1": b1.launches, "b3": b2.frames_launches, "b0": b0.launches,
+               "b0_fp32": b0f.launches}
     log(f"fused-frames and sharded path launches: B3 {counts2['b3']}, "
-        f"B1 {counts2['b1']}, B0 {counts2['b0']}")
+        f"B1 {counts2['b1']}, B0 {counts2['b0']}, B0 fp32 "
+        f"{counts2['b0_fp32']}")
     if not all(counts2.values()):
         failures.append("launch counts (path 2)")
         log("FAIL launch counts: a kernel of the path was not launched")
@@ -624,6 +689,7 @@ def main() -> int:
     path_b6 = b6_checks(dev, phase, check)
     path_b0 = b0_checks(dev, phase, check, cfg, padded, n_frames, band)
     path4 = wire_path(dev, phase, check, failures)
+    path5 = int8_tier_path(dev, phase, check, failures, x, x_np)
 
     # Timings.
     def e2e_rate(fn, samples=2 * n):
@@ -670,8 +736,9 @@ def main() -> int:
                 lambda: pt.sharded_round_trip(x9, cfg_nc, mesh, gate),
                 2 * T_SHARDED)
         log(f"time B1 kernel {ms(timing, 'b1')}, plain "
-            f"{ms(timing, 'b1_plain')} ([2, {n_frames}, {NFFT}] frames; "
-            f"CUDA events, median of {REPS}, queued)")
+            f"{ms(timing, 'b1_plain')}; the former design {OLD_MS['K1']} in "
+            f"PERF.md ([2, {n_frames}, {NFFT}] frames; CUDA events, median "
+            f"of {REPS}, queued)")
         log(f"time B2 kernel {ms(timing, 'b2')} (3xTF32 wgmma: fold, "
             f"forward, inverse, then B1's OLA), plain "
             f"{ms(timing, 'b2_plain')}; the former design {OLD_MS['K2']} "
@@ -693,6 +760,30 @@ def main() -> int:
             f"(1, 1) mesh {timing['sharded_11']:.4e} samples/s; (2, 2) mesh "
             f"on one card, shards run in turn, {timing['sharded_22']:.4e} "
             f"samples/s (host clock, synchronized, median of {REPS})")
+        timed(timing, "b0_fp32", lambda: b0f.gemm_cuda(
+            x_ext, kern0, rows=rows0, lda=gh0))
+        timed(timing, "b0_fp32_plain", lambda: b0f.gemm_plain(
+            x_ext, kern0, rows=rows0, lda=gh0))
+        log(f"time B0 fp32 kernel (HIGHEST, fmaf chains) {ms(timing, 'b0_fp32')}"
+            f", plain (float64 product) {ms(timing, 'b0_fp32_plain')}, the "
+            f"former cuBLAS fp32 loop {ms(timing, 'b0_library')} in this run "
+            f"(the same {x_ext.shape[0]} x {rows0} windows)")
+        xq, bh, bl, cs = path5["inputs"]
+        timed(timing, "k11_ref", lambda: b6.fusedq_ref_gemm_cuda(
+            xq, bh, bl, cs))
+        timed(timing, "k11_ref_plain", lambda: b6.fusedq_ref_gemm_plain(
+            xq, bh, bl, cs))
+        timing["rt_tiled_i8"] = e2e_rate(
+            lambda: pt.round_trip(x, path5["cfg"]))
+        timing["rt_tiled"] = e2e_rate(
+            lambda: pt.round_trip(x, path5["cfg_hi"]))
+        log(f"time K11 (dot_i8x2's variant) at the tiled route's "
+            f"{xq.shape[0]} x {xq.shape[1]} x {bh.shape[0]} (one of its four "
+            f"launches a call) {ms(timing, 'k11_ref')}, plain "
+            f"{ms(timing, 'k11_ref_plain')}; e2e round_trip N {NFFT} H 480: "
+            f"tiled_i8 {timing['rt_tiled_i8']:.4e} samples/s, tiled (HIGH, "
+            f"fp32 products) {timing['rt_tiled']:.4e} samples/s (host clock, "
+            f"synchronized, median of {REPS})")
         timing.update(resample_timings(dev, path3))
         timing.update(wire_timings(dev, path4, path_b6))
         log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
@@ -791,6 +882,28 @@ def main() -> int:
             **bound(b5_io[name] * n5, 2.0 * N_B5),
             "library_ms": b5_lib[name]})
     probe_src = "scripts/bench_pallas_int8_probe.py"
+    kernels.append({
+        "name": "hopblock_apply fp32 (B0, HIGHEST)", "route": "cuda",
+        "source": "crlot_tpu_torch/csrc/fp32_window.cu",
+        "replaces": "crlot_tpu/fft/matmul_backend.py:633",
+        "launches": counts2["b0_fp32"] + path4["counts"]["b0_fp32"],
+        "max_abs_err": path_b0["fp32_err"], "ms": timing["b0_fp32"],
+        "plain_ms": timing["b0_fp32_plain"],
+        **bound(nbytes(x_ext, kern0) + x_ext.shape[0] * rows0 * gh0 * 4,
+                b0_ops, "fp32"),
+        "library_ms": timing["b0_library"]})
+    xq, bh, bl, cs = path5["inputs"]
+    mq, kq, nq = xq.shape[0], xq.shape[1], bh.shape[0]
+    kernels.append({
+        "name": "dot_i8x2 (B6, K11, the reference's variant)",
+        "route": "cuda", "source": "crlot_tpu_torch/csrc/b6_sm90.cu",
+        "replaces": f"{probe_src}:64",
+        "launches": path5["counts"]["k11_ref"],
+        "max_abs_err": path5["results"]["err"], "ms": timing["k11_ref"],
+        "plain_ms": timing["k11_ref_plain"],
+        **bound(nbytes(xq, bh, bl, cs) + mq * nq * 4, 6.0 * mq * kq * nq,
+                "int8"),
+        "library_ms": None})
     b6_rows = [
         ("bf16 (B6, K8)", "bf16", "pl_bf16", 32,
          bound(2 * f_ * n_ + 2 * k_ * n_ + out_f32, 2.0 * f_ * n_ * k_,
@@ -807,8 +920,7 @@ def main() -> int:
     for name, key, variant, line, bnd in b6_rows:
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "crlot_tpu_torch/csrc/" + (
-                "int8_gemm.cu" if key == "fusedq" else "b6_sm90.cu"),
+            "source": "crlot_tpu_torch/csrc/b6_sm90.cu",
             "replaces": f"{probe_src}:{line}",
             "launches": path4["counts"][key],
             "max_abs_err": path_b6["results"][variant],
@@ -817,6 +929,9 @@ def main() -> int:
     log(f"K10 at the probe shape {probe_ms('pl_i8_3dot'):.4f} ms (TMA + "
         f"wgmma); the former mma.sync design {OLD_MS['K10 probe']} in "
         f"PERF.md")
+    log(f"K11 at the probe shape {probe_ms('pl_i8_fusedq'):.4f} ms (row "
+        f"scale pass, then TMA + wgmma with the limbs made in registers); "
+        f"the former design {OLD_MS['K11 probe']} in PERF.md")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -1264,6 +1379,46 @@ def limb_edge_cases(dev) -> list:
     return cases
 
 
+def k11_edge_cases(dev) -> list:
+    """K11's two variants at the edges of its tiles, from seed 26: (label,
+    kernel call, plain call). A ragged last row block (M = 1000) with a
+    zero row, rows below the 1e-30 floor, rows from 1e-29 to 1e30 and
+    subnormal values, N = 64 and 192 (its tile is
+    128 x 128), K = 64 (half of its 128-deep stage), 576 (a ragged last
+    stage) and 4096 (the composed basis at N = 4096)."""
+    import numpy as np
+    import torch
+
+    from crlot_tpu_torch import int8_gemm as b6
+
+    rng = np.random.default_rng(26)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = []
+    for label, m, n, k in (("M 1000, N 64, K 64", 1000, 64, 64),
+                           ("M 1000, N 192, K 576", 1000, 192, 576),
+                           ("M 300, N 128, K 4096", 300, 128, 4096)):
+        x = rng.uniform(-1, 1, (m, k)) * 10 ** rng.uniform(-4, 1, (m, 1))
+        x[3] = 0.0
+        x[5, 7] = 1e-33
+        for r, scale in ((6, 1e-29), (7, 1e-36), (8, 1e20), (9, 1e30)):
+            x[r] *= scale  # extreme row scales: the divide's whole range
+        x[10, ::3] = 1e-41  # subnormal values beside a normal row max
+        x = put(x.astype(np.float32))
+        b = put(rng.integers(-127, 128, (n, k), dtype=np.int8))
+        b2 = put(rng.integers(-64, 65, (n, k), dtype=np.int8))
+        cs = put(rng.uniform(1e-5, 1e-3, n).astype(np.float32))
+        cases.append((f"probe {label}",
+                      lambda a=(x, b, b2): b6.fusedq_gemm_cuda(*a),
+                      lambda a=(x, b, b2): b6.fusedq_gemm_plain(*a)))
+        cases.append((f"ref {label}",
+                      lambda a=(x, b, b2, cs): b6.fusedq_ref_gemm_cuda(*a),
+                      lambda a=(x, b, b2, cs): b6.fusedq_ref_gemm_plain(*a)))
+    return cases
+
+
 def b6_edge_check(dtype, got, want, a, bt):
     """(ok, max-abs, error as printed): int8 equal; bf16 within
     BF16_REL_TOL of sum_k |x||b| per element."""
@@ -1338,6 +1493,16 @@ def b6_checks(dev, phase, check) -> dict:
                          f"(max-abs {err:.3e})")
             results["pl_i8_3dot"] = max(results["pl_i8_3dot"], err)
             check(ok, lines[-1])
+        for label, kern, plain in k11_edge_cases(dev):
+            got = kern()
+            torch.cuda.synchronize()
+            want = plain()
+            ok = torch.equal(got, want)
+            err = float((got.double() - want.double()).abs().max())
+            lines.append(f"K11 {label}: {'equal' if ok else 'DIFFERS'} "
+                         f"(max-abs {err:.3e})")
+            results["pl_i8_fusedq"] = max(results["pl_i8_fusedq"], err)
+            check(ok, lines[-1])
         return "; ".join(lines)
 
     def p19():
@@ -1400,10 +1565,27 @@ def b0_checks(dev, phase, check, cfg, padded, n_frames, band) -> dict:
     import numpy as np
     import torch
 
+    from crlot_tpu_torch.fft import fp32_window as b0f
     from crlot_tpu_torch.fft import tf32x3 as b0
     from crlot_tpu_torch.int8_gemm import windows
 
-    out = {"err": 0.0}
+    out = {"err": 0.0, "fp32_err": 0.0}
+
+    def held_fp32(label, x, kern, rows, lda):
+        """B0's fp32 kernel against the float64 product, within one fmaf
+        chain's bound K * 2^-24 * sum|x||k| per output."""
+        got = b0f.gemm_cuda(x, kern, rows=rows, lda=lda)
+        torch.cuda.synchronize()
+        want = b0f.gemm_plain(x, kern, rows=rows, lda=lda)
+        tol = b0f.tolerance(x, kern, rows=rows, lda=lda)
+        d = (got.double() - want.double()).abs()
+        rel = float((d / tol.clamp_min(1e-300)).max())
+        err = float(d.max())
+        out["fp32_err"] = max(out["fp32_err"], err)
+        line = (f"fp32 {label}: max-abs {err:.3e}, {rel:.3e} of the bound "
+                f"K * 2^-24 * sum|x||k|")
+        check(rel <= 1.0, line)
+        return got, line
 
     def held(label, x, bt, rows, lda, kern):
         got = b0.gemm_cuda(x, *bt, rows=rows, lda=lda)
@@ -1439,6 +1621,22 @@ def b0_checks(dev, phase, check, cfg, padded, n_frames, band) -> dict:
                 check(same, "rows 37..1036 alone != the same rows of all")
                 lines.append(f"rows {r0}..{r1 - 1} alone: torch.equal to the "
                              f"same rows of the whole")
+            got32, line = held_fp32(label, x_ext, kern, rows, gh)
+            lines.append(line)
+            if label == "EQ kernel":
+                r0, r1 = 37, 37 + 1000
+                part = b0f.gemm_cuda(x_ext[:, r0 * gh:].contiguous(), kern,
+                                     rows=r1 - r0, lda=gh)
+                check(torch.equal(part, got32[:, r0:r1]),
+                      "fp32: rows 37..1036 alone != the same rows of all")
+                small = x_ext[:, : (64 - 1) * gh + kern.shape[0]].contiguous()
+                chain = b0f.chain_plain(small, kern, rows=64, lda=gh)
+                check(torch.equal(got32[:, :64], chain),
+                      f"fp32: 2 x 64 rows != the fmaf chain emulation, "
+                      f"max-abs {float((got32[:, :64] - chain).abs().max()):.3e}")
+                lines.append(f"fp32 rows {r0}..{r1 - 1} alone: torch.equal to "
+                             f"the same rows of the whole; 2 x 64 rows "
+                             f"torch.equal to the exact fmaf chain emulation")
         rng = np.random.default_rng(25)
         for label, m, n in (("M 1000", 1000, 512), ("M 1000, N 192", 1000,
                                                      192)):
@@ -1448,6 +1646,16 @@ def b0_checks(dev, phase, check, cfg, padded, n_frames, band) -> dict:
                 -1, 1, (2048, n)).astype(np.float32)).to(dev)
             lines.append(held(f"batch 2 windows (lda 512, K 2048), {label}",
                               x, b0.split_t(kern), m, 512, kern)[1])
+            lines.append(held_fp32(f"batch 2 windows (lda 512, K 2048), "
+                                   f"{label}", x, kern, m, 512)[1])
+        # The fp32 tiles' ragged K (K = 2044, not a multiple of the 8-deep
+        # slab) and N = 100 (a ragged column tile), a matrix at lda = K.
+        x = torch.from_numpy(rng.uniform(-1, 1, (300, 2044)).astype(
+            np.float32)).to(dev)
+        kern = torch.from_numpy(rng.uniform(-1, 1, (2044, 100)).astype(
+            np.float32)).to(dev)
+        lines.append(held_fp32("matrix M 300, K 2044, N 100", x, kern, None,
+                               None)[1])
         return "; ".join(lines)
 
     phase("25 B0 vs plain", p25)
@@ -1467,6 +1675,7 @@ def wire_path(dev, phase, check, failures) -> dict:
     import crlot_tpu_torch as pt
     from crlot_tpu_torch import int8_gemm as b6
     from crlot_tpu_torch import int8_probe, spectral, wire
+    from crlot_tpu_torch.fft import fp32_window as b0f
     from crlot_tpu_torch.fft import fused_rt as b3
     from crlot_tpu_torch.fft import tf32x3 as b0
     from crlot_tpu_torch.pipeline import blocked_composed_round_trip
@@ -1484,8 +1693,8 @@ def wire_path(dev, phase, check, failures) -> dict:
     eq = spectral.band_gain([4000.0, 12000.0], [1.0, 0.4, 0.1], SR, NFFT)
     out = {"results": {}, "rates": {}}
 
-    def stream_f32(fn=None, src=None):
-        st = BlockedChunkStreamer(cfg, fn)
+    def stream_f32(fn=None, src=None, cfg_=cfg):
+        st = BlockedChunkStreamer(cfg_, fn)
         ys = [st.feed(c, force=False)
               for c in (chunks if src is None else src)]
         ys.append(st.finish(force=False))
@@ -1509,6 +1718,7 @@ def wire_path(dev, phase, check, failures) -> dict:
     for k in b6.launches:
         b6.launches[k] = 0
     b0.launches = 0
+    b0f.launches = 0
     b3.frames_launches = 0
     y_f32 = {}
 
@@ -1528,6 +1738,20 @@ def wire_path(dev, phase, check, failures) -> dict:
                f"launches +{launched}, one a chunk; interior snr vs input "
                f"{snr(x[edge:-edge], y[edge:-edge]):.2f} dB")
         check(same and launched == WIRE_CHUNKS, msg)
+        # HIGHEST: B0's fp32 kernel, one fmaf chain an output.
+        cfg_hst = dataclasses.replace(cfg,
+                                      fft_precision=pt.FftPrecision.HIGHEST)
+        before = b0f.launches
+        y_h = stream_f32(cfg_=cfg_hst)
+        launched_h = b0f.launches - before
+        one_h = blocked_composed_round_trip(x[None], cfg_hst,
+                                            np.ones(NFFT // 2 + 1))[0]
+        same_h = torch.equal(y_h, one_h)
+        msg += (f"; HIGHEST: bit-identical {same_h}, max-abs "
+                f"{float((y_h - one_h).abs().max()):.3e}, B0 fp32 launches "
+                f"+{launched_h}; interior snr vs input "
+                f"{snr(x[edge:-edge], y_h[edge:-edge]):.2f} dB")
+        check(same_h and launched_h == WIRE_CHUNKS, msg)
         return msg
 
     def p21():
@@ -1654,8 +1878,9 @@ def wire_path(dev, phase, check, failures) -> dict:
     phase("22 wire EQ and full range", p22)
     phase("23 process_wav_file", p23)
     phase("24 int8 probe", p24)
-    counts = dict(b6.launches)
-    counts.update(b0=b0.launches, b3=b3.frames_launches)
+    counts = {k: v for k, v in b6.launches.items() if k != "fusedq_ref"}
+    counts.update(b0=b0.launches, b0_fp32=b0f.launches,
+                  b3=b3.frames_launches)
     log("wire and probe path launches: " + ", ".join(
         f"{'B6-' + k if k in b6.launches else k.upper()} {v}"
         for k, v in counts.items()))
@@ -1664,6 +1889,115 @@ def wire_path(dev, phase, check, failures) -> dict:
         log("FAIL launch counts: a kernel of the path was not launched")
     out.update(counts=counts, probe=probe, x=x, x16=x16, chunks=chunks,
                stream_f32=stream_f32, stream_i16=stream_i16)
+    return out
+
+
+def int8_tier_path(dev, phase, check, failures, x, x_np) -> dict:
+    """Phase 26, with the K11 and B1 counters reset just before: the
+    INT8X2 tier's round-trip at N = 1024, H = 480 on the main path's
+    signal ("tiled_i8": four K11 launches and one of B1), beside it the
+    same at HIGH ("tiled") and `roundtrip_composed_i8` on the path's
+    frames. Every K11 launch is held against its plain version on its own
+    operands."""
+    import numpy as np
+    import torch
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch import int8_gemm as b6
+    from crlot_tpu_torch.fft import int8_backend as ib
+    from crlot_tpu_torch.frame.framing import frame_signal
+    from crlot_tpu_torch.ola import fused as b1
+    from crlot_tpu_torch.pipeline import _window_f64
+
+    n = x.shape[-1]
+    cfg = pt.StftConfig(frame_size=NFFT, hop_size=480, center=True,
+                        fft_precision=pt.FftPrecision.INT8X2)
+    cfg_hi = dataclasses.replace(cfg, fft_precision=pt.FftPrecision.HIGH)
+    out = {"results": {}, "cfg": cfg, "cfg_hi": cfg_hi}
+    seen = []
+    kernel = b6.fusedq_ref_gemm_cuda
+
+    def spy(xq, bh, bl, cs):
+        y = kernel(xq, bh, bl, cs)
+        seen.append((xq, bh, bl, cs, y))
+        return y
+
+    def held(launches):
+        """(all equal, max-abs) of the recorded K11 launches vs plain."""
+        ok, worst = True, 0.0
+        for xq, bh, bl, cs, y in launches:
+            want = b6.fusedq_ref_gemm_plain(xq, bh, bl, cs)
+            ok = ok and torch.equal(y, want)
+            worst = max(worst, float((y - want).abs().max()))
+        return ok, worst
+
+    b6.launches["fusedq_ref"] = 0
+    b1.launches = 0
+    b6.fusedq_ref_gemm_cuda = spy
+
+    def p26():
+        check(pt.formulation_for(cfg, None, n) == "tiled_i8", "route")
+        k0, b0_ = b6.launches["fusedq_ref"], b1.launches
+        y = pt.round_trip(x, cfg)
+        torch.cuda.synchronize()
+        k11, ola = b6.launches["fusedq_ref"] - k0, b1.launches - b0_
+        check(tuple(y.shape) == (2, n) and bool(torch.isfinite(y).all()),
+              f"shape {tuple(y.shape)} or non-finite")
+        check(k11 == 4 and ola == 1, f"K11 launches +{k11}, B1 +{ola}")
+        ok, err = held(seen)
+        out["inputs"] = seen[0][:4]
+        seen.clear()
+        check(ok, f"K11 (dot_i8x2) != plain on the path's operands, max-abs "
+              f"{err:.3e}")
+        snr = pt.snr_db(x_np, y)
+        check(snr >= 60.0, f"identity {snr:.2f} dB")
+        check(pt.formulation_for(cfg_hi, None, n) == "tiled", "HIGH route")
+        y_hi = pt.round_trip(x, cfg_hi)
+        snr_hi = pt.snr_db(x_np, y_hi)
+        check(snr_hi >= 60.0, f"HIGH identity {snr_hi:.2f} dB")
+        vs_hi = pt.snr_db(y_hi, y)
+        # The composed response round-trip on the path's frames (K = 1024).
+        rng = np.random.default_rng(8)
+        k = np.arange(NFFT // 2 + 1)
+        g = (10 ** rng.uniform(-0.5, 0.5, NFFT // 2 + 1)) * np.exp(
+            -2j * np.pi * k * 3 / NFFT)
+        w64 = _window_f64(cfg)
+        frames = frame_signal(x, cfg.frame_spec)
+        k0 = b6.launches["fusedq_ref"]
+        yc = ib.roundtrip_composed_i8(frames, NFFT, w64, g)
+        torch.cuda.synchronize()
+        kc = b6.launches["fusedq_ref"] - k0
+        okc, errc = held(seen)
+        seen.clear()
+        check(kc == 1 and okc, f"composed: K11 launches +{kc}, equal to "
+              f"plain {okc} (max-abs {errc:.3e})")
+        fr64 = frames[0, :64].double().cpu().numpy()
+        ref = np.fft.irfft(np.fft.rfft(fr64 * w64, axis=-1) * g, n=NFFT,
+                           axis=-1)
+        snr_c = pt.snr_db(ref, yc[0, :64].cpu().numpy())
+        check(snr_c >= 62.0, f"composed vs f64 oracle {snr_c:.2f} dB")
+        out["results"].update(err=max(err, errc), snr=snr, snr_hi=snr_hi,
+                              vs_hi=vs_hi, snr_composed=snr_c)
+        return (f"route tiled_i8 (N {NFFT}, H 480, 2 x {n}): K11 "
+                f"(dot_i8x2's variant) launches +{k11}, each torch.equal to "
+                f"plain on its operands; B1 +{ola}; identity {snr:.2f} dB; "
+                f"HIGH (route tiled, fp32 products) {snr_hi:.2f} dB; int8 "
+                f"tier vs HIGH {vs_hi:.2f} dB; roundtrip_composed_i8 (+-10 "
+                f"dB EQ, K = {NFFT}, [2, {frames.shape[-2]}, {NFFT}] "
+                f"frames): K11 +{kc}, torch.equal to plain, first 64 frames "
+                f"vs f64 oracle {snr_c:.2f} dB")
+
+    try:
+        phase("26 INT8X2 round_trip (tiled_i8)", p26)
+    finally:
+        b6.fusedq_ref_gemm_cuda = kernel
+    out["counts"] = {"k11_ref": b6.launches["fusedq_ref"],
+                     "b1": b1.launches}
+    log(f"INT8X2 path launches: K11 (dot_i8x2) {out['counts']['k11_ref']}, "
+        f"B1 {out['counts']['b1']}")
+    if not all(out["counts"].values()):
+        failures.append("launch counts (path 5)")
+        log("FAIL launch counts: a kernel of the path was not launched")
     return out
 
 

@@ -6,9 +6,9 @@ like the round-trip's blocked formulation and runs on the same runtime
 [B, M*hop] x [M*hop, hop] product whose kernel is the taps laid out on the
 Toeplitz diagonals -- exact (no circular wrap). MACs per sample =
 ceil((L-1)/hop + 1)*hop ~= L + hop for L taps. The reference computes this
-as an XLA dot at its `precision`; the port runs it on B0 (3xTF32, the HIGH
-tier) on a CUDA tensor, and as `torch.matmul` in IEEE fp32 at HIGHEST and
-on the CPU.
+as an XLA dot at its `precision`; the port runs it on B0 on a CUDA tensor
+(3xTF32 at the HIGH tier, its fixed-order IEEE fp32 kernel at HIGHEST), and
+as `torch.matmul` in IEEE fp32 on the CPU.
 
 Modes follow numpy.convolve: full (T+L-1), same (max(T, L), centered),
 valid (max-min+1) -- including the L > len(x) orientations.
@@ -67,10 +67,12 @@ _PRECISION_NAMES = ("default", "high", "highest")
 
 def _tier(precision) -> FftPrecision:
     """The port's tier for the reference's precision argument: HIGHEST
-    (by name or as FftPrecision) is IEEE fp32; None, HIGH and DEFAULT (a
-    single bf16 pass on the TPU) are HIGH, 3xTF32 on B0. An unknown value
-    raises."""
-    if precision is None or precision == FftPrecision.HIGH:
+    (by name or as FftPrecision) is IEEE fp32; None, HIGH, INT8X2 (no int8
+    formulation here: HIGH, as `core.types.float_tier` maps it) and
+    DEFAULT (a single bf16 pass on the TPU) are HIGH, 3xTF32 on B0. An
+    unknown value raises."""
+    if precision is None or precision in (FftPrecision.HIGH,
+                                          FftPrecision.INT8X2):
         return FftPrecision.HIGH
     if precision == FftPrecision.HIGHEST:
         return FftPrecision.HIGHEST

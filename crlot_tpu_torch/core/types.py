@@ -10,12 +10,15 @@ tensor cores in B0 (the blocked round-trip's and `convolve`'s windowed
 product, the scan form's composed product), B2 and B3 (the fused nonlinear
 round-trip): each f32 operand split into TF32 hi + lo, three TF32 products
 summed in f32, the reference's own tier (its 3-pass bf16 split on the TPU).
-`HIGHEST` means IEEE fp32 (`torch.matmul`; the fused routes are gated on
-HIGH). TF32 appears only inside those kernels, by name:
-`torch.backends.cuda.matmul.allow_tf32` stays False. On the CPU every tier
-runs IEEE fp32. `INT8X2` (the reference's int8 DFT tier,
-`fft/int8_backend.py`) has no CUDA formulation yet and is refused at
-construction; its dots would run on B6-fusedq.
+`HIGHEST` means IEEE fp32 (B0's fixed-order fp32 kernel for the windowed
+product, `torch.matmul` elsewhere; the fused routes are gated on HIGH).
+TF32 appears only inside those kernels, by name:
+`torch.backends.cuda.matmul.allow_tf32` stays False. On the CPU every float
+product runs IEEE fp32. `INT8X2` is the reference's int8 DFT tier
+(`fft/int8_backend.py`): the tiled round-trip runs its products as two int8
+limbs a value on K11's kernel (`int8_gemm.fusedq_ref_gemm`; its plain
+version on the CPU), and every other lowering runs it as HIGH
+(`float_tier`), as the reference's `fft/dispatch.to_lax_precision` does.
 """
 
 from __future__ import annotations
@@ -51,12 +54,19 @@ class PadMode(enum.Enum):
 
 class FftPrecision(enum.Enum):
     """HIGH is 3xTF32 on the tensor cores (B0, B2, B3) on CUDA, HIGHEST
-    IEEE fp32; both IEEE fp32 on the CPU. INT8X2 (the reference's int8
-    two-limb DFT tier) is not ported yet (ROADMAP queue A4)."""
+    IEEE fp32; both IEEE fp32 on the CPU. INT8X2 is the reference's int8
+    two-limb DFT tier: the tiled round-trip's products on K11, HIGH
+    elsewhere."""
 
     HIGHEST = "highest"
     HIGH = "high"
     INT8X2 = "int8x2"
+
+
+def float_tier(precision: FftPrecision) -> FftPrecision:
+    """The tier a float product runs at: INT8X2 has an int8 formulation only
+    in the tiled round-trip, and runs every other product as HIGH."""
+    return FftPrecision.HIGH if precision == FftPrecision.INT8X2 else precision
 
 
 class FftBackend(enum.Enum):
@@ -126,11 +136,6 @@ class StftConfig:
         if self.hop_size <= 0 or self.hop_size > self.frame_size:
             raise ValueError(
                 f"hop_size must be in [1, frame_size], got {self.hop_size}"
-            )
-        if self.fft_precision == FftPrecision.INT8X2:
-            raise NotImplementedError(
-                "FftPrecision.INT8X2 is not ported to CUDA yet "
-                "(ROADMAP queue A11: int8_backend.dot_i8x2 on B6-fusedq)"
             )
 
     @property

@@ -71,8 +71,10 @@ _SIGNATURES = {
         _I, _VP, _VP, _LL, _LL, _VP, _VP, _I, _VP, _LL, _LL, _I, _I, _I, _F,
         _VP,
     ],
-    # (x, ldx, b0, b1, k, out, ldc, m, n, stream)
-    "crlot_b6_fusedq": [_VP, _LL, _VP, _VP, _I, _VP, _LL, _I, _I, _VP],
+    # (variant, x, m, k, b0, b1, cs, row_scale, out, n, stream)
+    "crlot_b6_fusedq": [_I, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _I, _VP],
+    # (x, lda, a_batch, w, k, n, out, m, batch, stream)
+    "crlot_fp32_window": [_VP, _LL, _LL, _VP, _I, _I, _VP, _I, _I, _VP],
 }
 
 

@@ -14,11 +14,20 @@ Counterpart of the slice's part of `crlot_tpu/fft/matmul_backend.py`:
 
 The float64 host design code is copied, not imported (the port never
 imports the JAX package); the tests hold every array byte-identical to the
-reference's. On a CUDA tensor at `FftPrecision.HIGH` (the default) the
-windowed product of `hopblock_apply` and the scan form's composed product
-run on B0, 3xTF32 on the tensor cores with a fixed order per output
-(`fft/tf32x3.py`); at HIGHEST, and on the CPU, they are IEEE fp32
-`torch.matmul`s (TF32 stays off).
+reference's. On a CUDA tensor at `FftPrecision.HIGH` (the default; INT8X2
+runs every product here as HIGH) the windowed product of `hopblock_apply`
+and the scan form's composed product run on B0, 3xTF32 on the tensor cores
+with a fixed order per output (`fft/tf32x3.py`); at HIGHEST the windowed
+product runs on B0's IEEE fp32 kernel, also in a fixed order
+(`fft/fp32_window.py`), and the composed product is a `torch.matmul`; on
+the CPU both are IEEE fp32 `torch.matmul`s (TF32 stays off).
+
+The tiled round-trip (`rfft_folded_tiled_parts`,
+`irfft_folded_tiled_parts`, `roundtrip_folded_tiled`) is the reference's
+lane-aligned layout of the folded bases: an [h, h] core a product and the
+(h+1)-th row and column as exact alternating-sign rank-1 borders. Its
+products are IEEE fp32 `torch.matmul`s at every tier; `fft/int8_backend.py`
+runs the same layout on K11's int8 limb products.
 """
 
 from __future__ import annotations
@@ -29,8 +38,8 @@ import numpy as np
 import torch
 
 from ..core.consts import const_on
-from ..core.types import FftPrecision
-from . import tf32x3
+from ..core.types import FftPrecision, float_tier
+from . import fp32_window, tf32x3
 
 MAX_MATMUL_NFFT = 4096
 
@@ -174,7 +183,8 @@ def roundtrip_composed_matmul(
         else _bytes(synthesis_window_f64, np.float64),
         _bytes(per_bin_response, np.complex128),
     )
-    if (frames.device.type != "cpu" and precision == FftPrecision.HIGH
+    if (frames.device.type != "cpu"
+            and float_tier(precision) == FftPrecision.HIGH
             and tf32x3.supported(nfft, nfft, nfft)):
         x, rows, lda = tf32x3.frame_rows(frames.float())
         out = tf32x3.gemm_cuda(x, *_composed_bt_on(*keys, frames.device),
@@ -324,17 +334,23 @@ def hopblock_apply(
     halo) and enough right zeros, and take each output block as one window
     of M*block samples times the kernel. Returns [..., n_out].
 
-    On a CUDA tensor at HIGH: one B0 launch over the overlapping windows
-    (lda = block), with `bt` = the kernel's (hi, lo) from the host design
-    code (split here when not given). At HIGHEST, and on the CPU: the padded
-    signal viewed as ONE contiguous [..., B, block] tensor and the M
-    products of its shifted row slices (each a contiguous view, no im2col
-    copy) accumulated in ascending m order, in IEEE fp32."""
+    On a CUDA tensor, one launch over the overlapping windows (lda =
+    block), each output summed in a fixed order: at HIGH (and INT8X2) B0 in
+    3xTF32, with `bt` = the kernel's (hi, lo) from the host design code
+    (split here when not given); at HIGHEST B0's IEEE fp32 kernel
+    (`fp32_window`). On the CPU: the padded signal viewed as ONE contiguous
+    [..., B, block] tensor and the M products of its shifted row slices
+    (each a contiguous view, no im2col copy) accumulated in ascending m
+    order, in IEEE fp32."""
     x_ext, mg, nb = _hopblock_ext(x, kern, block, n_out, left)
-    if x.device.type != "cpu" and precision == FftPrecision.HIGH:
-        bt_hi, bt_lo = tf32x3.split_t(kern) if bt is None else bt
-        out = tf32x3.gemm_cuda(x_ext.contiguous(), bt_hi, bt_lo, rows=nb,
-                               lda=block)
+    if x.device.type != "cpu":
+        if float_tier(precision) == FftPrecision.HIGH:
+            bt_hi, bt_lo = tf32x3.split_t(kern) if bt is None else bt
+            out = tf32x3.gemm_cuda(x_ext.contiguous(), bt_hi, bt_lo,
+                                   rows=nb, lda=block)
+        else:
+            out = fp32_window.gemm_cuda(x_ext.contiguous(), kern, rows=nb,
+                                        lda=block)
         return out.reshape(out.shape[:-2] + (nb * block,))[..., :n_out]
     blocks = x_ext.reshape(x_ext.shape[:-1] + (-1, block))
     acc = None
@@ -458,7 +474,8 @@ def roundtrip_composed_blocked(
     out = hopblock_apply(
         x, kern, group * hop, full, edge, precision,
         _runtime_bt_on(nfft, hop, group, wb, sb, rb_kern, padded.device)
-        if padded.device.type != "cpu" and precision == FftPrecision.HIGH
+        if padded.device.type != "cpu"
+        and float_tier(precision) == FftPrecision.HIGH
         else None,
     )
     span_p = blocked_patch_span(nfft, hop)
@@ -470,3 +487,137 @@ def roundtrip_composed_blocked(
         head = head / norm_fold[1]
         tail = tail / norm_fold[2]
     return torch.cat([head, out[..., edge : full - edge], tail], dim=-1)
+
+
+# --- the tiled layout -------------------------------------------------------
+
+
+@lru_cache(maxsize=None)
+def _tiled_consts(nfft: int):
+    """(c512, s_eff, ci512, si_eff, cvec, alt, sign_h): the folded bases'
+    [h, h] cores (h = N/2; [h-1, h-1] for the sine parts) and their rank-1
+    borders. The h-th row and column of each basis is the exact
+    alternating-sign vector cos(pi n) = (-1)^n, so
+
+      Re[:, :h] = e[:, :h] @ C[:h, :h] + e[:, h] (x) (-1)^k
+      Re[:, h]  = sum_n e[:, n] (-1)^n + e[:, h] (-1)^h
+      Im        = o @ S[:, 1:h]          (Im[0] = Im[h] = 0 exactly)
+      a[:, :h]  = Re[:, :h] @ Cinv[:h, :h] + Re[:, h] (x) (-1)^n / N
+      a[:, h]   = sum_k Re[:, k] w_k (-1)^k / N + Re[:, h] (-1)^h / N
+      b         = Im_eff @ Sinv[1:h, :]"""
+    h = nfft // 2
+    c, s = _folded_forward_consts(nfft)
+    cinv, sinv = _folded_inverse_consts(nfft)
+    c512 = np.ascontiguousarray(c[:h, :h])
+    s_eff = np.ascontiguousarray(s[:, 1:h])
+    ci512 = np.ascontiguousarray(cinv[:h, :h])
+    si_eff = np.ascontiguousarray(sinv[1:h, :])
+    cvec = np.ascontiguousarray(cinv[:h, h])
+    alt = np.where(np.arange(h) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    sign_h = 1.0 if h % 2 == 0 else -1.0
+    return c512, s_eff, ci512, si_eff, cvec, alt, sign_h
+
+
+def tiled_supported(nfft: int) -> bool:
+    return nfft % 256 == 0 and nfft <= MAX_MATMUL_NFFT
+
+
+@lru_cache(maxsize=None)
+def _tiled_inverse_gained(nfft: int, gains_bytes: bytes):
+    """The tiled inverse constants with a REAL per-bin gain g [h+1] folded
+    into their rows in f64: (ci512_g, si_eff_g, cvec_g, g_nyq)."""
+    g = np.frombuffer(gains_bytes, dtype=np.float64)
+    h = nfft // 2
+    assert len(g) == h + 1
+    cinv, sinv = _folded_inverse_consts(nfft)
+    ci512_g = np.ascontiguousarray(
+        (cinv[:h, :h].astype(np.float64) * g[:h, None]).astype(np.float32))
+    si_eff_g = np.ascontiguousarray(
+        (sinv[1:h, :].astype(np.float64) * g[1:h, None]).astype(np.float32))
+    cvec_g = np.ascontiguousarray(
+        (cinv[:h, h].astype(np.float64) * g[:h]).astype(np.float32))
+    return ci512_g, si_eff_g, cvec_g, float(g[h])
+
+
+def _gains_bytes(per_bin_gains_f64) -> bytes:
+    return np.ascontiguousarray(per_bin_gains_f64, np.float64).tobytes()
+
+
+@lru_cache(maxsize=16)
+def _tiled_consts_on(nfft: int, device: torch.device) -> tuple:
+    """`_tiled_consts`' arrays as f32 tensors on `device` (sign_h a float)."""
+    *arrays, sign_h = _tiled_consts(nfft)
+    return (*(torch.from_numpy(a).to(device) for a in arrays), sign_h)
+
+
+@lru_cache(maxsize=16)
+def _tiled_gained_on(nfft: int, gains_bytes: bytes, device: torch.device):
+    ci512_g, si_eff_g, cvec_g, g_nyq = _tiled_inverse_gained(nfft,
+                                                             gains_bytes)
+    return (*(torch.from_numpy(a).to(device)
+              for a in (ci512_g, si_eff_g, cvec_g)), g_nyq)
+
+
+def _tiled_fold(x: torch.Tensor, nfft: int, window_f32=None):
+    """(e512 [..., h], e_n [..., 1], o [..., h-1]) of (windowed) frames."""
+    h = nfft // 2
+    y = x.float()
+    if window_f32 is not None:
+        y = y * const_on(window_f32, y.device)
+    head = y[..., 1:h]
+    tail = y[..., h + 1 :].flip(-1)
+    e512 = torch.cat([y[..., :1], head + tail], dim=-1)
+    return e512, y[..., h : h + 1], head - tail
+
+
+def _tiled_unfold(a512, a_nyq, b, nfft: int) -> torch.Tensor:
+    h = nfft // 2
+    mid = a512[..., 1:h]
+    return torch.cat([a512[..., :1], mid + b, a_nyq, (mid - b).flip(-1)],
+                     dim=-1)
+
+
+def rfft_folded_tiled_parts(x: torch.Tensor, nfft: int, window_f32=None):
+    """rfft(x [* w]) -> (re512 [..., h], re_nyq [..., 1], im_eff [..., h-1]):
+    the packed-real spectrum in the tiled layout (bins 0..h-1, the Nyquist
+    bin, and Im 1..h-1). IEEE fp32 products."""
+    c512, s_eff, _, _, _, alt, sign_h = _tiled_consts_on(nfft, x.device)
+    e512, e_n, o = _tiled_fold(x, nfft, window_f32)
+    re512 = torch.matmul(e512, c512) + e_n * alt
+    re_nyq = (e512 * alt).sum(-1, keepdim=True) + e_n * sign_h
+    im_eff = torch.matmul(o, s_eff)
+    return re512, re_nyq, im_eff
+
+
+def irfft_folded_tiled_parts(re512, re_nyq, im_eff, nfft: int,
+                             per_bin_gains_f64=None) -> torch.Tensor:
+    """Tiled-layout packed spectrum -> real [..., N] (1/N included); a
+    REAL per-bin gain folds into the inverse constants. IEEE fp32."""
+    _, _, ci512, si_eff, cvec, alt, sign_h = _tiled_consts_on(nfft,
+                                                              re512.device)
+    g_nyq = 1.0
+    if per_bin_gains_f64 is not None:
+        ci512, si_eff, cvec, g_nyq = _tiled_gained_on(
+            nfft, _gains_bytes(per_bin_gains_f64), re512.device)
+    a512 = (torch.matmul(re512, ci512)
+            + (re_nyq * g_nyq) * (alt / nfft))
+    a_nyq = ((re512 * cvec).sum(-1, keepdim=True)
+             + re_nyq * (g_nyq * sign_h / nfft))
+    b = torch.matmul(im_eff, si_eff)
+    return _tiled_unfold(a512, a_nyq, b, nfft)
+
+
+def roundtrip_folded_tiled(frames: torch.Tensor, nfft: int,
+                           analysis_window_f64: np.ndarray,
+                           synthesis_window_f64=None,
+                           per_bin_gains_f64=None) -> torch.Tensor:
+    """irfft(rfft(frames * w) [* g]) [* w_s] in the tiled layout: four
+    [h, h]-core products and their rank-1 borders, IEEE fp32 at every
+    tier."""
+    w = np.asarray(analysis_window_f64, np.float32)
+    out = irfft_folded_tiled_parts(
+        *rfft_folded_tiled_parts(frames, nfft, w), nfft, per_bin_gains_f64)
+    if synthesis_window_f64 is not None:
+        out = out * const_on(np.asarray(synthesis_window_f64, np.float32),
+                             out.device)
+    return out

@@ -3,10 +3,10 @@
 Counterpart of the four Pallas kernels of `scripts/bench_pallas_int8_probe.py`
 (K8 `_kernel_bf16`, K9 `_kernel_i8`, K10 `_kernel_i8_3dot`, K11
 `_kernel_i8_fusedq`) and of the born-int16 wire tier's interior dots
-(`crlot_tpu/wire.py:105-179`). B6-i8, B6-bf16 and B6-limb run on the TMA +
-`wgmma` kernel of `csrc/b6_sm90.cu` (one template, a mode each; its tile
-per mode is `SM90_GEO`); B6-fusedq on the `mma.sync` loop of
-`csrc/int8_gemm.cu`.
+(`crlot_tpu/wire.py:105-179`), and of the reference's INT8X2 tier's
+`fft/int8_backend.dot_i8x2`. Every one runs on the TMA + `wgmma` kernel of
+`csrc/b6_sm90.cu` (one template, a mode each; its tile per mode is
+`SM90_GEO`).
 
 Operands. A product is C = A @ B with B given as `bt` [N, K] (K-contiguous,
 laid out once at design time). A is either a matrix [..., M, K] or, with
@@ -29,8 +29,19 @@ shifted dots (`_hopblock_apply_i8`) in one exact int32 product.
   (`i16_limb_bytes`: hi = the high byte, lo = the low byte of each
   sample).
 * `bf16_gemm` (B6-bf16, K8): bf16 x bf16 -> f32.
-* `fusedq_gemm` (B6-fusedq, K11): f32 rows quantized per row to two int8
-  limbs in the kernel, then the three dots of "probe3", times s*128.
+* `fusedq_gemm` (B6-fusedq, K11, the probe's variant): f32 rows
+  quantized per row to two int8 limbs in the kernel, then the three dots
+  of "probe3", times s*128.
+* `fusedq_ref_gemm` (K11, the reference's variant: `dot_i8x2`): the same
+  on the basis's limbs, each row quantized as `int8_backend.
+  _quantize_dynamic` does (`quantize_rows_ref`), times (128*s) * cs[col].
+
+K11's two variants share the row scale s = max(amax, 1e-30) * f32(1/16256)
+(`row_scale`: XLA folds both `/ 16256.0`s into that product, ROADMAP C8)
+and differ in q: the probe divides, rint(x / s); `dot_i8x2` multiplies by
+the f32 reciprocal, rint(x * (1/s)), which XLA keeps as written. The kernel
+takes s from a first pass over the rows, then quantizes each TMA stage of
+its rows into the limbs of wgmma's register A fragment; K is not capped.
 
 Plain versions. Integer products are exact: int32 `torch.matmul` on the
 CPU, float64 on any other device cast back (every sum is far below 2^53).
@@ -50,7 +61,8 @@ import torch
 from . import cuda_build
 
 # B6 kernel launches since import (or the caller's reset), per kernel.
-launches: Dict[str, int] = {"i8": 0, "limb": 0, "bf16": 0, "fusedq": 0}
+launches: Dict[str, int] = {"i8": 0, "limb": 0, "bf16": 0, "fusedq": 0,
+                            "fusedq_ref": 0}
 
 # The B operands of each B6-limb epilogue; every limb product takes two A
 # operands, the high and the low limb.
@@ -60,13 +72,14 @@ EPILOGUES = {"probe3": 2, "wire2": 2, "wire1": 1}
 _MODE_I32, _MODE_PROBE3, _MODE_BF16 = 0, 1, 4
 MODE_TF32X3 = 8  # B0, f32 in 3xTF32 (`fft/tf32x3.py`)
 I16_MODES = {"wire2": 6, "wire1": 7}
+FUSEDQ_MODES = {"probe": 5, "ref": 9}  # K11's variants (crlot_b6_fusedq)
 TILE = 64  # the kernels' N and K-byte granularity
 KTILE_BYTES = 128  # contraction bytes of one K tile of the TMA kernel
-FUSEDQ_MAX_K = 1024
 
 # b6_sm90.cu's `Cfg` per mode: (A tiles (int16: the two 64-sample boxes of
-# one tile), B tiles, int32 accumulators, tile columns BN, ring stages,
-# epilogue columns a pass, int16 input). The tile is 128 rows x BN.
+# one tile; K11: the four 32-float boxes of 128 f32 elements of K), B
+# tiles, int32 accumulators, tile columns BN, ring stages, epilogue columns
+# a pass, int16 input). The tile is 128 rows x BN.
 SM90_GEO = {
     0: (1, 1, 1, 128, 4, 128, False),  # K9 int8 -> int32
     4: (1, 1, 1, 128, 4, 128, False),  # K8 bf16 -> f32
@@ -74,6 +87,8 @@ SM90_GEO = {
     6: (2, 2, 4, 64, 4, 64, True),     # wire int8x2 on int16 samples
     7: (2, 1, 2, 128, 4, 64, True),    # wire int8x1 on int16 samples
     8: (1, 2, 2, 128, 4, 64, False),   # B0 3xTF32: sum and stage partial
+    5: (4, 2, 2, 128, 2, 64, False),   # K11, the probe's variant
+    9: (4, 2, 2, 128, 2, 64, False),   # K11, dot_i8x2's variant
 }
 SM90_MAX_SMEM = 232_448  # dynamic shared memory a CTA may use on sm_90
 SM90_ACC_REGS = 128  # of setmaxnreg's 232 a consumer thread
@@ -82,19 +97,21 @@ SM90_ACC_REGS = 128  # of setmaxnreg's 232 a consumer thread
 def sm90_budget(mode: int) -> dict:
     """Shared memory and accumulator registers of b6_sm90.cu's kernel in
     `mode`, as its `Geo` computes them: STAGES stages of NA 16 KB A tiles
-    (int16 input: one tile of 128 x 128 samples) and NB B tiles of BN x 128
-    bytes, two warpgroups' 64 x SC x 4-byte staging, the mbarriers, and 1
-    KB of alignment; each consumer thread holds NACC x BN / 2 accumulators
-    (and, for int16 input, 32 registers of limb fragments; for 3xTF32, 32
-    of TF32 hi / lo fragments)."""
+    (int16 input: one tile of 128 x 128 samples; K11: 128 rows x 128 f32)
+    and NB B tiles of BN x 128 bytes, two warpgroups' 64 x SC x 4-byte
+    staging, the mbarriers, and 1 KB of alignment; each consumer thread
+    holds NACC x BN / 2 accumulators (and, for int16 input and K11, 32
+    registers of limb fragments; for 3xTF32, 32 of TF32 hi / lo
+    fragments). K11's f32 stage of 96 KB leaves room for two."""
     na, nb, nacc, bn, stages, sc, i16 = SM90_GEO[mode]
+    fused = mode in FUSEDQ_MODES.values()
     stage = na * 128 * 128 + nb * bn * 128
     smem = stages * stage + 2 * 64 * sc * 4 + 2 * stages * 8 + 1024
     return {"tile": (128, bn), "stages": stages, "stage_bytes": stage,
             "smem": smem, "acc_regs": nacc * bn // 2,
-            "frag_regs": 32 if i16 or mode == MODE_TF32X3 else 0,
+            "frag_regs": 32 if i16 or fused or mode == MODE_TF32X3 else 0,
             "passes": bn // sc,
-            "ktile_a_bytes": KTILE_BYTES * (2 if i16 else 1)}
+            "ktile_a_bytes": KTILE_BYTES * (4 if fused else 2 if i16 else 1)}
 
 
 def sm90_tiles(mode: int, rows: int, n: int, batch: int = 1) -> int:
@@ -103,10 +120,13 @@ def sm90_tiles(mode: int, rows: int, n: int, batch: int = 1) -> int:
     bn = SM90_GEO[mode][3]
     return -(-rows // 128) * -(-n // bn) * batch
 
-# K11's quantization constants (the probe's :68-70). XLA folds the probe's
-# `/ 16256.0` (a division by a constant) into a product by the float32
-# reciprocal; the kernel and the plain version do the same, which the tests
-# hold bit for bit against the interpreted kernel. `x / s` stays a divide.
+# K11's quantization constants (the probe's :68-70, `int8_backend.py`'s
+# :84-86). XLA folds `/ 16256.0` (a division by a constant) into a product
+# by the float32 reciprocal, in the probe's kernel and in a jitted
+# `_quantize_dynamic` alike; the kernel and the plain versions do the same,
+# which the tests hold bit for bit against the interpreted kernel and the
+# jitted reference. The probe's `x / s` stays a divide, `_quantize_dynamic`'s
+# `x * (1.0 / s)` a product by the reciprocal (ROADMAP C8).
 _INV_QMAX = float(np.float32(1.0 / 16256.0))  # 127 * 128 = 16256
 _AMAX_FLOOR = 1e-30
 
@@ -247,22 +267,48 @@ def bf16_gemm_plain(a, bt) -> torch.Tensor:
     return torch.matmul(a.float(), bt.float().T)
 
 
-def quantize_rows(x: torch.Tensor):
-    """K11's in-kernel quantization of f32 rows: (hi, lo) int8 limbs and
-    the per-row s*128 (the probe's :66-70; round = half to even)."""
+def row_scale(x: torch.Tensor) -> torch.Tensor:
+    """K11's per-row scale of f32 rows [..., K]: max(amax, 1e-30) *
+    f32(1/16256), [..., 1] (its first pass)."""
     amax = x.abs().amax(dim=-1, keepdim=True)
     inv = torch.tensor(_INV_QMAX, dtype=torch.float32, device=x.device)
-    s = torch.clamp_min(amax, _AMAX_FLOOR) * inv
-    q = torch.round(x / s)
+    return torch.clamp_min(amax, _AMAX_FLOOR) * inv
+
+
+def _limbs(q: torch.Tensor):
     hi = torch.clamp(torch.round(q * (1.0 / 128.0)), -127.0, 127.0)
-    lo = q - hi * 128.0
-    return hi.to(torch.int8), lo.to(torch.int8), s * 128.0
+    return hi.to(torch.int8), (q - hi * 128.0).to(torch.int8)
+
+
+def quantize_rows(x: torch.Tensor):
+    """K11's in-kernel quantization of f32 rows, the probe's variant: (hi,
+    lo) int8 limbs and the per-row s*128 (the probe's :66-70; q = rint(x /
+    s), round = half to even)."""
+    s = row_scale(x)
+    return (*_limbs(torch.round(x / s)), s * 128.0)
+
+
+def quantize_rows_ref(x: torch.Tensor):
+    """The reference variant's quantization (`int8_backend.py:77-89`,
+    `_quantize_dynamic` as XLA lowers it): (hi, lo) int8 limbs and the
+    per-row s, [..., 1]; q = rint(x * f32(1/s)), x ~= (128*hi + lo) * s."""
+    s = row_scale(x)
+    return (*_limbs(torch.round(x * torch.reciprocal(s))), s)
 
 
 def fusedq_gemm_plain(x, bt, b2t) -> torch.Tensor:
     xh, xl, s128 = quantize_rows(x.float())
     acc = combine(_accumulators("probe3", [xh, xl], [bt, b2t]), "probe3")
     return acc * s128
+
+
+def fusedq_ref_gemm_plain(x, bh_t, bl_t, cs) -> torch.Tensor:
+    """`dot_i8x2` (`int8_backend.py:101-118`) on the basis's limbs as Bt [N,
+    K] and its per-column scale cs [N]: hh = xh . bh, cross = xh . bl + xl
+    . bh, (f32(hh)*128 + f32(cross)) * ((128*s) * cs)."""
+    xh, xl, s = quantize_rows_ref(x.float())
+    acc = combine(_accumulators("probe3", [xh, xl], [bh_t, bl_t]), "probe3")
+    return acc * ((128.0 * s) * cs)
 
 
 # --- kernels ---------------------------------------------------------------
@@ -372,24 +418,47 @@ def bf16_gemm_cuda(a, bt) -> torch.Tensor:
     return out
 
 
-def fusedq_gemm_cuda(x, bt, b2t) -> torch.Tensor:
-    """Launch B6-fusedq: x f32 [M, K] quantized per row in the kernel."""
-    cuda_build.require_cuda("B6-fusedq", x, bt, b2t)
+def _fusedq_launch(variant, x, bt, b2t, cs=None) -> torch.Tensor:
+    """One K11 launch (its row-scale pass and the TMA + wgmma kernel) on x
+    f32 [M, K] and Bt's [N, K] int8 limbs; cs f32 [N] for "ref"."""
+    what = f"K11 ({variant})"
+    cuda_build.require_cuda(what, x, bt, b2t, *([] if cs is None else [cs]))
     if x.dtype != torch.float32 or x.ndim != 2 or not x.is_contiguous():
-        raise ValueError(f"B6-fusedq takes contiguous f32 [M, K], got "
+        raise ValueError(f"{what} takes contiguous f32 [M, K], got "
                          f"{x.dtype} {tuple(x.shape)}")
     m, k = x.shape
-    if k % 128 or k > FUSEDQ_MAX_K or x.data_ptr() % 16:
-        raise ValueError(f"B6-fusedq: K = {k} must be a multiple of 128, at "
-                         f"most {FUSEDQ_MAX_K}, 16-byte aligned")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: A must be 16-byte aligned")
     for b in (bt, b2t):
-        _check_b("B6-fusedq", b, torch.int8, k=k)
+        _check_b(what, b, torch.int8, k=k)
     n = bt.shape[0]
+    if cs is not None and (cs.dtype != torch.float32 or cs.shape != (n,)
+                           or not cs.is_contiguous()):
+        raise ValueError(f"{what}: cs must be contiguous f32 [{n}], got "
+                         f"{cs.dtype} {tuple(cs.shape)}")
+    s = torch.empty((2, m), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     cuda_build.launch(
-        "crlot_b6_fusedq", x.device, x.data_ptr(), k, bt.data_ptr(),
-        b2t.data_ptr(), k, out.data_ptr(), n, m, n)
+        "crlot_b6_fusedq", x.device, 0 if cs is None else 1, x.data_ptr(), m,
+        k, bt.data_ptr(), b2t.data_ptr(), 0 if cs is None else cs.data_ptr(),
+        s.data_ptr(), out.data_ptr(), n)
+    return out
+
+
+def fusedq_gemm_cuda(x, bt, b2t) -> torch.Tensor:
+    """Launch K11, the probe's variant: x f32 [M, K] quantized per row in
+    the kernel (q = rint(x / s)), times Bt's [N, K] limbs b and b2."""
+    out = _fusedq_launch("probe", x, bt, b2t)
     launches["fusedq"] += 1
+    return out
+
+
+def fusedq_ref_gemm_cuda(x, bh_t, bl_t, cs) -> torch.Tensor:
+    """Launch K11, `dot_i8x2`'s variant: x f32 [M, K] quantized per row in
+    the kernel (q = rint(x * (1/s))), times the basis's limbs bh, bl as Bt
+    [N, K], scaled by (128*s) * cs[col]."""
+    out = _fusedq_launch("ref", x, bh_t, bl_t, cs)
+    launches["fusedq_ref"] += 1
     return out
 
 
@@ -424,3 +493,9 @@ def fusedq_gemm(x, bt, b2t):
     if x.device.type == "cpu":
         return fusedq_gemm_plain(x, bt, b2t)
     return fusedq_gemm_cuda(x, bt, b2t)
+
+
+def fusedq_ref_gemm(x, bh_t, bl_t, cs):
+    if x.device.type == "cpu":
+        return fusedq_ref_gemm_plain(x, bh_t, bl_t, cs)
+    return fusedq_ref_gemm_cuda(x, bh_t, bl_t, cs)

@@ -2,8 +2,8 @@
 
 Counterpart of `scripts/bench_pallas_int8_probe.py`, which asked a TPU
 whether Mosaic lowers in-kernel int8 dots at the double rate. Here the four
-variants run on B6 (`int8_gemm`: K8, K9 and K10 on `csrc/b6_sm90.cu`, K11
-on `csrc/int8_gemm.cu`) at the probe's
+variants run on B6 (`int8_gemm`: K8, K9, K10 and K11 on the TMA + `wgmma`
+modes of `csrc/b6_sm90.cu`) at the probe's
 workload, [F, 512] x [512, 512] with F = 11264, on inputs made from seed 0
 as the probe makes them (:113-122):
 

@@ -17,6 +17,12 @@ Branches of `round_trip` (names returned by `formulation_for`):
   epilogue menu, through the B2 kernel (`fft/fused_rt.py`);
 * "packed_parts": any other packed fn: folded forward, `fn.packed`, folded
   inverse, then the B1 OLA kernel;
+* "tiled_i8": the identity at `FftPrecision.INT8X2` where the blocked
+  formulation does not apply (N % hop != 0, or too few frames) and the
+  tiled layout does (N % 256 == 0): the tiled round-trip's four products
+  on K11 (`fft/int8_backend.roundtrip_folded_tiled_i8`), then B1;
+* "tiled": the same identity at HIGH or HIGHEST, its products IEEE fp32
+  (`fft/matmul_backend.roundtrip_folded_tiled`), then B1;
 * "stft_istft": everything else, `stft` -> fn -> `istft` (B1 for the OLA).
 """
 
@@ -45,7 +51,10 @@ from .fft.matmul_backend import (
     irfft_folded_parts,
     rfft_folded_packed,
     roundtrip_composed_blocked,
+    roundtrip_folded_tiled,
+    tiled_supported,
 )
+from .fft.int8_backend import roundtrip_folded_tiled_i8
 from .frame.framing import frame_signal
 from .ola.fused import ola_normalized_auto
 from .ola.norm import edge_norm
@@ -201,11 +210,13 @@ def formulation_for(
     cfg: StftConfig, spectral_fn: Optional[Callable], n_samples: int
 ) -> str:
     """The branch `round_trip(signal[..., n_samples], cfg, spectral_fn)`
-    takes: "fused_rt_frames", "blocked", "fused_rt_ola", "packed_parts" or
-    "stft_istft". For the configurations the reference's accelerator runs
-    through its blocked and fused kernels, this is the reference
-    accelerator's choice; where the reference would take one of its other
-    frames-level matmul routes, the port takes "stft_istft"."""
+    takes: "fused_rt_frames", "blocked", "fused_rt_ola", "packed_parts",
+    "tiled_i8", "tiled" or "stft_istft". For the configurations the
+    reference's accelerator runs through its blocked, fused and tiled
+    formulations, this is the reference accelerator's choice; where the
+    reference would take one of its other frames-level matmul routes (the
+    composed product of a fixed response too short for the blocked kernel,
+    the folded products for N % 256 != 0), the port takes "stft_istft"."""
     matmul_ok = cfg.fft_backend in (FftBackend.AUTO, FftBackend.MATMUL)
     nfft, hop = cfg.frame_size, cfg.hop_size
     if not matmul_ok:
@@ -223,7 +234,13 @@ def formulation_for(
         if nfft <= MAX_MATMUL_NFFT else None
     )
     if spectral_fn is None or per_bin is not None:
-        return "blocked" if _blocked_ok(cfg, n_samples) else "stft_istft"
+        if _blocked_ok(cfg, n_samples):
+            return "blocked"
+        if (spectral_fn is None and tiled_supported(nfft)
+                and cfg.frame_spec.num_frames(n_samples) > 0):
+            return ("tiled_i8" if cfg.fft_precision == FftPrecision.INT8X2
+                    else "tiled")
+        return "stft_istft"
     if not hasattr(spectral_fn, "packed"):
         return "stft_istft"
     if (
@@ -291,6 +308,11 @@ def round_trip(
             cfg.eps, spectral_packed=spectral_fn.packed,
         )
         return out[..., pad : pad + n]
+    if route in ("tiled_i8", "tiled"):
+        rt = (roundtrip_folded_tiled_i8 if route == "tiled_i8"
+              else roundtrip_folded_tiled)
+        return ola_crop(rt(frame_signal(signal, spec_), cfg.frame_size,
+                           _window_f64(cfg)))
     if route == "packed_parts":
         frames = frame_signal(signal, spec_)
         re, im = rfft_folded_packed(frames, cfg.frame_size, _window_np(cfg))

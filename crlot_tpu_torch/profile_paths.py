@@ -14,7 +14,9 @@ after it.
 
 Inputs, made from seed 0: 2 channels x `--seconds` of uniform noise at
 48 kHz (round-trip and sharded rows; N=1024, H=256, Hann, centered, the
-sharded rows center=False on T rounded down to a multiple of 4*H) and at
+sharded rows center=False on T rounded down to a multiple of 4*H; the
+INT8X2 and tiled rows at H=480, 10 ms, where no blocked kernel applies) and
+at
 44.1 kHz (resample rows); the demo reads a 2-ch 44.1 kHz 16-bit WAV of a
 997 Hz / 1 kHz sine pair plus noise, as `chip_smoke.py` phase 17 writes it.
 The streaming rows run the reference bench's stream (`--stream-chunks`
@@ -175,6 +177,9 @@ def main(argv=None) -> int:
     cfg = pt.StftConfig(frame_size=1024, hop_size=256, center=True)
     cfg_frames = dataclasses.replace(cfg, fused_roundtrip=True)
     cfg_nc = pt.StftConfig(frame_size=1024, hop_size=256, center=False)
+    cfg_i8 = pt.StftConfig(frame_size=1024, hop_size=480, center=True,
+                           fft_precision=pt.FftPrecision.INT8X2)
+    cfg_tiled = dataclasses.replace(cfg_i8, fft_precision=pt.FftPrecision.HIGH)
     gate = spectral.noise_gate(-30.0)
     t_sh = n48 // 1024 * 1024
     x_sh = x48[:, :t_sh].contiguous()
@@ -186,6 +191,10 @@ def main(argv=None) -> int:
         "round_trip fused_roundtrip": lambda: pt.round_trip(x48, cfg_frames),
         "istft(stft(x))": lambda: pt.istft(pt.stft(x48, cfg), cfg,
                                            length=n48),
+        "round_trip INT8X2 (tiled_i8), H 480": lambda: pt.round_trip(
+            x48, cfg_i8),
+        "round_trip HIGH (tiled), H 480": lambda: pt.round_trip(
+            x48, cfg_tiled),
         "sharded noise_gate (1, 1)": lambda: pt.sharded_round_trip(
             x_sh, cfg_nc, mesh11, gate),
         "sharded noise_gate (2, 2) on one device": lambda: (

@@ -11,8 +11,8 @@ Counterpart of `crlot_tpu/streaming_pipeline.py`.
   output equals `pipeline.blocked_composed_round_trip` over the unbroken
   stream bit for bit wherever the products are independent of the batch
   they sit in: on the card at HIGH (B0, a fixed order per output), and on
-  the CPU for the identity; at HIGHEST on the card cuBLAS may split a
-  chunk's product otherwise than the one-shot's. One chunk of latency:
+  the CPU for the identity; at HIGHEST on the card too (B0's fp32 kernel,
+  one fmaf chain per output). One chunk of latency:
   `feed` returns the predecessor.
 * `streaming_round_trip_blocks`, `streaming_round_trip` and
   `process_wav_file` stream framed blocks with the overlap-add tail carried
@@ -37,7 +37,7 @@ import torch
 
 from .core import device as _device
 from .core.consts import as_f32, const_on
-from .core.types import FftBackend, FftPrecision, StftConfig
+from .core.types import FftBackend, FftPrecision, StftConfig, float_tier
 from .fft import dispatch as _fft
 from .fft import tf32x3
 from .fft.fused_rt import roundtrip_of_frames
@@ -364,7 +364,7 @@ def _frames_round_trip(frames: torch.Tensor, cfg: StftConfig,
             frames, n, w64, per_bin, w64 if cfg.synthesis_window else None,
             cfg.fft_precision)
     on_packed = on_matmul and n % 256 == 0 and n <= MAX_MATMUL_NFFT
-    if (on_packed and cfg.fft_precision == FftPrecision.HIGH
+    if (on_packed and float_tier(cfg.fft_precision) == FftPrecision.HIGH
             and (spectral_fn is None or epilogue_of(spectral_fn) is not None)):
         return _synthesis(roundtrip_of_frames(
             frames, n, const_on(_window_np(cfg), frames.device),

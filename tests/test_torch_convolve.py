@@ -104,8 +104,22 @@ def test_convolve_precision_accepted_values_give_fp32(precision):
     assert torch.equal(lax, want)
 
 
-@pytest.mark.parametrize("precision", ["tf32", 3, FftPrecision.INT8X2])
+@pytest.mark.parametrize("precision", ["tf32", 3, object()])
 def test_convolve_unknown_precision_raises(precision):
     with pytest.raises(ValueError, match="precision"):
         convolve(np.zeros(64, np.float32), np.ones(3), precision=precision,
                  device="cpu")
+
+
+def test_convolve_int8_tier_runs_as_high():
+    """INT8X2 has no int8 formulation in convolve: it runs as HIGH, as the
+    reference's dispatch maps it for every lowering but the tiled one."""
+    from crlot_tpu_torch.convolve import _tier
+
+    assert _tier(FftPrecision.INT8X2) == FftPrecision.HIGH
+    x = np.random.default_rng(6).uniform(-1, 1, (2, 3000)).astype(np.float32)
+    taps = np.hanning(63)
+    assert torch.equal(
+        convolve(x, taps, "same", precision=FftPrecision.INT8X2,
+                 device="cpu"),
+        convolve(x, taps, "same", precision=FftPrecision.HIGH, device="cpu"))

@@ -124,6 +124,12 @@ def test_config_from_reference_round_trips_every_field(ref_kwargs):
 
 
 def test_int8_tier_refused_with_roadmap_item():
-    with pytest.raises(NotImplementedError, match="B6"):
-        ttypes.StftConfig(frame_size=1024, hop_size=256,
-                          fft_precision=ttypes.FftPrecision.INT8X2)
+    """The INT8X2 tier, once refused at construction, is accepted and
+    carried across from the reference field by field."""
+    ref = jtypes.StftConfig(frame_size=1024, hop_size=480,
+                            fft_precision=jtypes.FftPrecision.INT8X2)
+    got = config_from_reference(ref)
+    assert got == ttypes.StftConfig(frame_size=1024, hop_size=480,
+                                    fft_precision=ttypes.FftPrecision.INT8X2)
+    assert got.fft_precision.value == ref.fft_precision.value == "int8x2"
+    assert ttypes.float_tier(got.fft_precision) == ttypes.FftPrecision.HIGH

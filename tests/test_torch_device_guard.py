@@ -171,13 +171,29 @@ def _fusedq():
     return "crlot_b6_fusedq", x.device
 
 
+def _fusedq_ref():
+    x = _rand((64, 128), 30)
+    bh, bl = _rand((64, 128), 31, np.int8), _rand((64, 128), 32, np.int8)
+    b6.fusedq_ref_gemm_cuda(x, bh, bl, _rand((64,), 33))
+    return "crlot_b6_fusedq", x.device
+
+
+def _b0_fp32():
+    from crlot_tpu_torch.fft import fp32_window
+
+    x = _rand((2, 15 * 128 + 512), 34)
+    fp32_window.gemm_cuda(x, _rand((512, 128), 35), rows=16, lda=128)
+    return "crlot_fp32_window", x.device
+
+
 WRAPPERS = {
     "B0 tf32x3": _b0, "B1 ola_normalized": _b1, "B2 rt_ola": _b2,
     "B3 rt_frames": _b3, "B3 of frames": _b3_of_frames,
     "B4 runs": _b4, "B4 windows": _b4_unstaged, "B5 axpy": _axpy,
     "B5 axpy_windowed": _axpy_windowed, "B5 normalize": _normalize,
     "B6-i8": _i8, "B6-limb probe3": _probe3, "B6-limb int16": _wire_i16,
-    "B6-bf16": _bf16, "B6-fusedq": _fusedq,
+    "B6-bf16": _bf16, "B6-fusedq": _fusedq, "K11 dot_i8x2": _fusedq_ref,
+    "B0 fp32": _b0_fp32,
 }
 
 
@@ -261,10 +277,11 @@ def test_b6_sm90_sets_its_attributes_per_device():
     sm90 = (src / "b6_sm90.cu").read_text()
     assert re.search(r"static int entry_regs\[kMaxDevices\]", sm90)
     assert not re.search(r"static int entry_regs\s*=", sm90)
-    body = sm90[sm90.index("int launch_sm90("):]
-    assert body.index("cudaGetDevice(&device)") < body.index(
-        "prepare<MODE>(device)")
-    for name in ("resample.cu", "int8_gemm.cu"):
+    for entry in ("int launch_sm90(", "int launch_fusedq("):
+        body = sm90[sm90.index(entry):]
+        assert body.index("cudaGetDevice(&device)") < body.index(
+            "prepare<MODE>(device)")
+    for name in ("resample.cu",):
         text = (src / name).read_text()
         assert "cudaFuncSetAttribute" in text
         assert not re.search(r"\bstatic\b", text), name

@@ -141,20 +141,27 @@ def _cu_geometry():
 
 def test_sm90_geometry_mirrors_the_cu():
     assert _cu_geometry() == b6.SM90_GEO
-    assert {b6._MODE_I32, b6._MODE_PROBE3, b6._MODE_BF16,
-            b6.MODE_TF32X3} | set(b6.I16_MODES.values()) == set(b6.SM90_GEO)
+    assert ({b6._MODE_I32, b6._MODE_PROBE3, b6._MODE_BF16, b6.MODE_TF32X3}
+            | set(b6.I16_MODES.values()) | set(b6.FUSEDQ_MODES.values())
+            == set(b6.SM90_GEO))
 
 
 @pytest.mark.parametrize("mode", sorted(b6.SM90_GEO))
 def test_sm90_budget_fits_shared_memory_and_registers(mode):
     """Every mode's ring, staging and barriers fit 227 KB, and its
-    accumulators (plus the int16 modes' limb fragments) stay well inside
-    setmaxnreg's 232 registers a consumer thread."""
+    accumulators (plus the int16 modes' and K11's limb fragments) stay well
+    inside setmaxnreg's 232 registers a consumer thread. K11's stage holds
+    128 f32 elements of K for 128 rows (64 KB) beside its two B tiles, so
+    its ring has two stages; every other mode's at least three."""
     b = b6.sm90_budget(mode)
     assert b["smem"] <= b6.SM90_MAX_SMEM
     assert b["acc_regs"] <= b6.SM90_ACC_REGS
     assert b["acc_regs"] + b["frag_regs"] <= 160
-    assert b["stages"] >= 3 and b["tile"][0] == 128
+    k11 = mode in b6.FUSEDQ_MODES.values()
+    assert b["stages"] >= (2 if k11 else 3) and b["tile"][0] == 128
+    if k11:
+        assert b["stage_bytes"] == 4 * 128 * 128 + 2 * 128 * 128
+        assert b["ktile_a_bytes"] == 4 * b6.KTILE_BYTES
     if mode in (0, 4):
         assert b["smem"] == 197_696  # the K8 / K9 kernel, unchanged
 

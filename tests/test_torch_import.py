@@ -96,7 +96,7 @@ def test_nvcc_command_targets_sm90a_without_fast_math(monkeypatch, tmp_path):
     for cmd in compiles:
         assert sum(c.endswith(".cu") for c in cmd) == 1
     assert {Path(c).name for cmd in seen for c in cmd if c.endswith(".cu")} == {
-        "b6_sm90.cu", "fused_rt.cu", "int8_gemm.cu", "ola_fused.cu",
+        "b6_sm90.cu", "fp32_window.cu", "fused_rt.cu", "ola_fused.cu",
         "ola_kernels.cu", "resample.cu"}
     assert not list(tmp_path.rglob("*.so"))  # no half-written library left
 
