@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from `crlot_tpu_torch/csrc/` (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version on the card, then runs
-five paths through the public entry points, each with the kernels' launch
+six paths through the public entry points, each with the kernels' launch
 counters reset just before and read just after: on 2 channels x 60 s at
 48 kHz, N=1024 / H=256, Hann, seed 0, the round-trip path (`round_trip`,
 `stft`, `istft`; centered) and the fused-frames and sharded path
@@ -13,8 +13,10 @@ counters reset just before and read just after: on 2 channels x 60 s at
 and demo path (`resample`, `resample_chunked`, `resampled_stft`,
 `convolve`, the demo); the streaming, wire and probe path
 (`BlockedChunkStreamer`, `I16BlockedStreamer`, `i16_round_trip`,
-`process_wav_file`, `python -m crlot_tpu_torch.int8_probe`'s `run`); and
-the INT8X2 path (`round_trip` at N=1024 / H=480, the tiled int8 route).
+`process_wav_file`, `python -m crlot_tpu_torch.int8_probe`'s `run`); the
+INT8X2 path (`round_trip` at N=1024 / H=480, the tiled int8 route); and
+the streaming layer (`ShardedStreamer`, `sharded_stream`, `Framer`,
+`OLAAccumulator`, `checkpoint`, `FftPlan`) at BASELINE config 5's width.
 
 Phases (each prints one line; the script exits 1 if any fails):
   1. B1 (fused OLA + normalize) vs plain on [2, 11251, 1024] frames, and
@@ -51,10 +53,11 @@ Phases (each prints one line; the script exits 1 if any fails):
      shard, torch.equal to the (1, 1) mesh, and within max-abs 1e-5 of the
      one-shot round_trip (B2) over [N, T-N) (prints whether bit-identical).
  10. sharded identity (blocked route) on the same mesh and signal: blocked
-     engaged, one B0 launch a shard, interior SNR vs input >= 60 dB,
-     torch.equal to the (1, 1) mesh, and the in-mesh metrics' SNR within
-     0.01 dB of the host's SNR of the gathered output; then at HIGHEST:
-     one launch a shard of B0's fp32 kernel, (2, 2) torch.equal to (1, 1).
+     engaged, one B0 launch a shard and one for each channel group's head
+     and tail patch, interior SNR vs input >= 60 dB, torch.equal to the (1,
+     1) mesh, and the in-mesh metrics' SNR within 0.01 dB of the host's SNR
+     of the gathered output; then at HIGHEST: the same launches of B0's
+     fp32 kernel, (2, 2) torch.equal to (1, 1).
 The resample and demo path runs on 2 channels x 60 s at 44.1 kHz (uniform
 noise from seed 0 for the kernel checks, a 997 Hz / 1 kHz sine pair for
 fidelity), BASELINE config 3's long streams, fp32 with TF32 off:
@@ -139,6 +142,37 @@ Then the INT8X2 path, with the K11 and B1 counters reset just before:
      it; `roundtrip_composed_i8` with a +-10 dB EQ on the path's frames
      (K = N = 1024, one K11 launch, torch.equal to plain), >= 62 dB
      against a float64 oracle over the first 64 frames.
+Then the streaming layer, with the B0, B3 and K6 counters reset just
+before:
+ 27. BASELINE config 5: `ShardedStreamer` on 128 channels in chunks of
+     2^20 samples (uniform noise in +-0.9 made on the card from seed 5),
+     N=1024, H=256, Hann, center=False, on the (1, 1) and (2, 2) meshes of
+     the card. Over 4 chunks, for the identity at HIGH (B0) and at HIGHEST
+     (B0's fp32 kernel), the band_gain EQ (blocked, B0) and noise_gate
+     (masked, B3): chunked torch.equal to the one-shot
+     `sharded_round_trip` of the whole stream on each mesh, (2, 2) equal
+     to (1, 1), the launches counted exactly; `sharded_stream` (the masked
+     array form, noise_gate) equal to its one-shot with
+     allow_blocked=False; `state()` after chunk 2 loaded into a fresh
+     streamer resumes equal to the unbroken stream (identity and
+     noise_gate). Then an hour (165 chunks, 128 x 173 015 040 samples) at
+     the identity on (1, 1) with force=False, each output reduced on the
+     card to its interior SNR against its input: samples/s on the host
+     clock, the worst chunk's SNR (> 60 dB), the B0 launches; and the
+     card's idle share over 6 profiled chunks (`torch.profiler`).
+ 28. `Framer` (interleaved 10 ms pushes) feeding `OLAAccumulator` (Hann
+     inside, one frame at k*H and produce(H) a frame, then flush and
+     drain) on the main path's 2 ch x 60 s: every K6 launch of the drain
+     torch.equal to its plain version, the output torch.equal to the same
+     stream on the CPU, a `checkpoint.save_stream_state` at frame 2000
+     loaded and resumed equal to the unbroken run, interior SNR > 60 dB;
+     frames/s and the time per frame on the host clock, K6's time a launch
+     at [2, 256].
+ 29. `FftPlan` REAL and COMPLEX at N=1024, batch 64 on the card (the matmul
+     DFT): round-trips within `tests/test_fft.py`'s gates (RMSE < 1e-6;
+     max-abs < 1e-4) and every output within 2^-22 * sum|input| of its row
+     of the CPU's (`torch.fft`), the bound `tests/test_torch_fft_plan.py`
+     states.
 Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
 busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
@@ -432,6 +466,69 @@ def main() -> int:
                                    None if fn is None else fn.packed)
         return mask, int(mask.sum())
 
+    def host_f64(fn, ola: bool):
+        """B3's function (ola=False: [2, F, N] frames) or B2's (ola=True:
+        the overlap-added, normalized signal) in float64 on the host CPU
+        (`torch.fft`, the spectral fn's packed form on float64 parts): the
+        independent reference of phases 2 and 7, beside the fp32 plain
+        version there (`host_fp32`)."""
+        from crlot_tpu_torch.ola.reference import overlap_add
+
+        frames = padded.cpu().double().unfold(-1, NFFT, HOP)[:, :n_frames]
+        spec = torch.fft.rfft(frames * w32.cpu().double(), dim=-1)
+        if fn is not None:
+            spec = torch.complex(*fn.packed(spec.real, spec.imag))
+        of = torch.fft.irfft(spec, n=NFFT, dim=-1)
+        if not ola:
+            return of
+        acc = overlap_add(of, HOP, full)
+        return acc / torch.clamp_min(norm.cpu().double(), cfg.eps)
+
+    def host_fp32(fn, ola: bool):
+        """B3's (ola=False) or B2's (ola=True) fp32 plain version on the
+        host CPU, computed three times: (the result, a note). Twice in two
+        runs a single such computation missed the card by 8e-5 while the
+        card matched the float64 host reference and its plain version on
+        the card (ROADMAP C16), so each computation reads its inputs back
+        from the card anew, the readbacks must be bit-equal (a readback
+        racing a kernel would differ), and a computation that differs from
+        the other two, which agree, is a host fault: it is named, with
+        whether its frames or only its overlap-add differ, and left out.
+        Raises when no two of the three agree."""
+        from crlot_tpu_torch.ola.reference import normalize, overlap_add
+
+        packed = None if fn is None else fn.packed
+        runs, first = [], None
+        for _ in range(3):
+            inp = (padded.cpu(), w32.cpu(), norm.cpu())
+            first = first or inp
+            check(all(torch.equal(a, b) for a, b in zip(inp, first)),
+                  "the inputs read back from the card differ between "
+                  "readbacks")
+            fr = b2.roundtrip_frames_plain(inp[0], NFFT, HOP, n_frames,
+                                           inp[1], packed)
+            sig = (normalize(overlap_add(fr, HOP, full), inp[2][:full],
+                             cfg.eps)[..., :full] if ola else None)
+            runs.append((fr, sig))
+        res = [r[1] if ola else r[0] for r in runs]
+        agree = [i for i in range(3)
+                 if sum(torch.equal(res[i], res[j]) for j in range(3)) >= 2]
+        check(agree, "the three host fp32 computations all differ")
+        odd = [i for i in range(3) if i not in agree]
+        if not odd:
+            return res[agree[0]], "bit-equal in 3 host computations"
+        i, j = odd[0], agree[0]
+        d = (res[i] - res[j]).abs()
+        at = tuple(int(v) for v in np.unravel_index(int(d.argmax()),
+                                                     d.shape))
+        frames_same = torch.equal(runs[i][0], runs[j][0])
+        return res[j], (
+            f"host computation {i + 1} of 3 differed from the other two, "
+            f"which agree (max-abs {float(d.max()):.3e} at {at}, "
+            f"{int((d > 0).sum())} values; its frames "
+            f"{'equal, its overlap-add not' if frames_same else 'differ'}) "
+            f"and is left out (ROADMAP C16)")
+
     # 2. B2 vs plain.
     def p2():
         worst, lines = 0.0, []
@@ -450,26 +547,28 @@ def main() -> int:
             d = (got[:, crop] - want[:, crop]).abs()
             err = float(torch.where(keep, d, 0.0).max())
             snr = pt.snr_db(want[:, crop], got[:, crop])
-            # The same plain version on the host CPU (other GEMM order): an
-            # independent second reference.
-            host = b2.roundtrip_signal_plain(
-                padded.cpu(), NFFT, HOP, n_frames, w32.cpu(), norm.cpu(),
-                cfg.eps, full, fn.packed)
-            diff = (got[:, crop].cpu() - host[:, crop]).abs()
+            # An independent second reference: the function in float64 on
+            # the host CPU; beside it the fp32 plain version there.
             keep_h = keep.cpu()
-            err_host = float(torch.where(keep_h, diff, 0.0).max())
+            ref = host_f64(fn, ola=True)[:, crop]
+            diff = (got[:, crop].cpu().double() - ref).abs()
+            err_f64 = float(torch.where(keep_h, diff, 0.0).max())
             i = int(diff.argmax())
             at = divmod(i, n)  # (channel, sample)
+            host, note = host_fp32(fn, ola=True)
+            err_host = float(torch.where(
+                keep_h, (got[:, crop].cpu() - host[:, crop]).abs(), 0.0).max())
             lines.append(
                 f"{name}: {left} ambiguous frames of {n_rows} left out; "
                 f"max-abs {err:.3e} snr {snr:.1f} dB (all samples: max-abs "
-                f"{float(d.max()):.3e}); vs plain on the host CPU: max-abs "
-                f"{err_host:.3e} (all samples: {float(diff.max()):.3e} at "
+                f"{float(d.max()):.3e}); vs float64 on the host CPU: max-abs "
+                f"{err_f64:.3e} (all samples: {float(diff.max()):.3e} at "
                 f"{at}, in an ambiguous frame: "
-                f"{not bool(keep_h.reshape(-1)[i])})")
+                f"{not bool(keep_h.reshape(-1)[i])}); vs the fp32 plain "
+                f"version on the host CPU: max-abs {err_host:.3e} ({note})")
             worst = max(worst, err)
-            check(err <= 1e-5 and snr >= 100.0 and err_host <= 1e-5
-                  and left <= 1e-3 * n_rows, lines[-1])
+            check(err <= 1e-5 and snr >= 100.0 and err_f64 <= 1e-5
+                  and err_host <= 1e-5 and left <= 1e-3 * n_rows, lines[-1])
         results["b2_err"] = worst
         return "; ".join(lines)
 
@@ -551,17 +650,21 @@ def main() -> int:
             keep = ~mask[..., None]
             err = float(torch.where(keep, (got - want).abs(), 0.0).max())
             snr = pt.snr_db(want, got)
-            host = b2.roundtrip_frames_plain(padded.cpu(), NFFT, HOP,
-                                             n_frames, w32.cpu(), packed)
+            err_f64 = float(torch.where(
+                keep.cpu(), (got.cpu().double() - host_f64(fn, False)).abs(),
+                0.0).max())
+            host, note = host_fp32(fn, ola=False)
             err_host = float(torch.where(keep.cpu(), (got.cpu() - host).abs(),
                                          0.0).max())
             lines.append(f"{name}: {left} ambiguous frames of {n_rows} left "
                          f"out; max-abs {err:.3e} snr {snr:.1f} dB (all "
                          f"frames: {float((got - want).abs().max()):.3e}); "
-                         f"vs plain on the host CPU: max-abs {err_host:.3e}")
+                         f"vs float64 on the host CPU: max-abs {err_f64:.3e}; "
+                         f"vs the fp32 plain version on the host CPU: max-abs "
+                         f"{err_host:.3e} ({note})")
             worst = max(worst, err)
-            check(err <= 1e-5 and err_host <= 1e-5 and snr >= 100.0
-                  and left <= 1e-3 * n_rows, lines[-1])
+            check(err <= 1e-5 and err_f64 <= 1e-5 and err_host <= 1e-5
+                  and snr >= 100.0 and left <= 1e-3 * n_rows, lines[-1])
         # A signal shorter than its frames' span: reads past its end are 0.
         short = padded[:, :5000].contiguous()
         got = b2.roundtrip_frames_cuda(short, NFFT, HOP, 30, w32, None)
@@ -626,6 +729,10 @@ def main() -> int:
                 f"bit-identical {same}")
 
     def p10():
+        with EdgePatchHold(check) as hold:
+            return p10_held(hold)
+
+    def p10_held(hold):
         calls = []
         orig = spl._blocked_local_round_trip
 
@@ -641,10 +748,19 @@ def main() -> int:
         finally:
             spl._blocked_local_round_trip = orig
         launched = b0.launches - before
+        held = hold.verify()
+        check(held["HIGH"] == 4, f"{held['HIGH']} edge patches held on the "
+              f"(2, 2) mesh, 4 expected")
         check(len(calls) == 2, f"blocked route engaged {len(calls)} times")
-        check(launched == 4, f"{launched} B0 launches for 4 shards")
+        check(launched == 8, f"{launched} B0 launches for 4 shards and "
+              f"2 x 2 edge patches")
         finite(y, (2, T_SHARDED))
         one = pt.sharded_round_trip(x9, cfg_nc, mesh11)
+        held = hold.verify()
+        check(held["HIGH"] == 2, f"{held['HIGH']} edge patches held on the "
+              f"(1, 1) mesh, 2 expected")
+        ones = np.ones(NFFT // 2 + 1)
+        edges = [edge_check(check, "HIGH", x9, y, cfg_nc, ones)]
         snr = pt.snr_db(x9_np[:, inner], y[:, inner])
         check(snr >= 60.0, f"interior snr {snr:.2f} dB")
         check(torch.equal(y, one),
@@ -660,8 +776,13 @@ def main() -> int:
         before = b0f.launches
         y_h = pt.sharded_round_trip(x9, cfg_hst, mesh22)
         launched_h = b0f.launches - before
-        check(launched_h == 4, f"{launched_h} fp32 B0 launches for 4 shards")
+        check(launched_h == 8, f"{launched_h} fp32 B0 launches for 4 shards "
+              f"and 2 x 2 edge patches")
         one_h = pt.sharded_round_trip(x9, cfg_hst, mesh11)
+        held = hold.verify()
+        check(held["HIGHEST"] == 6, f"{held['HIGHEST']} fp32 edge patches "
+              f"held on (2, 2) and (1, 1), 6 expected")
+        edges.append(edge_check(check, "HIGHEST", x9, y_h, cfg_hst, ones))
         check(torch.equal(y_h, one_h),
               f"HIGHEST: (2, 2) mesh != (1, 1), max-abs "
               f"{float((y_h - one_h).abs().max()):.3e}")
@@ -671,7 +792,8 @@ def main() -> int:
                 f"interior snr {snr:.2f} dB; (2, 2) == (1, 1) bit for bit; "
                 f"metrics snr {mesh_snr:.4f} dB vs host {host_snr:.4f} dB; "
                 f"HIGHEST: B0 fp32 launches +{launched_h}, (2, 2) == (1, 1) "
-                f"bit for bit, interior snr {snr_h:.2f} dB")
+                f"bit for bit, interior snr {snr_h:.2f} dB; "
+                f"{hold.summary()}; " + "; ".join(edges))
 
     phase("8 round_trip fused_roundtrip", p8)
     phase("9 sharded noise_gate (B3)", p9)
@@ -690,6 +812,7 @@ def main() -> int:
     path_b0 = b0_checks(dev, phase, check, cfg, padded, n_frames, band)
     path4 = wire_path(dev, phase, check, failures)
     path5 = int8_tier_path(dev, phase, check, failures, x, x_np)
+    path6 = stream_path(dev, phase, check, failures, x_np)
 
     # Timings.
     def e2e_rate(fn, samples=2 * n):
@@ -826,7 +949,8 @@ def main() -> int:
         {"name": "hopblock_apply (B0)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/b6_sm90.cu",
          "replaces": "crlot_tpu/fft/matmul_backend.py:633",
-         "launches": counts["b0"], "max_abs_err": path_b0["err"],
+         "launches": counts["b0"] + path6["counts"]["b0"],
+         "max_abs_err": path_b0["err"],
          "ms": timing["b0"], "plain_ms": timing["b0_plain"],
          **bound(nbytes(x_ext, *bt0) + x_ext.shape[0] * rows0 * gh0 * 4,
                  3 * b0_ops, "tf32"),
@@ -850,7 +974,8 @@ def main() -> int:
         {"name": "rt_frames (B3)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/fused_rt.cu",
          "replaces": "crlot_tpu/fft/pallas_rt.py:277",
-         "launches": counts2["b3"], "max_abs_err": results["b3_err"],
+         "launches": counts2["b3"] + path6["counts"]["b3"],
+         "max_abs_err": results["b3_err"],
          "ms": timing["b3"], "plain_ms": timing["b3_plain"],
          **bound(nbytes(padded, w32, *tf32_bases) + 2 * n_frames * NFFT * 4,
                  3 * dft_ops, "tf32"), **b23_fp32,
@@ -876,7 +1001,8 @@ def main() -> int:
             "name": f"{name} (B5)", "route": "cuda",
             "source": "crlot_tpu_torch/csrc/ola_kernels.cu",
             "replaces": f"crlot_tpu/ola/kernels.py:{line}",
-            "launches": path3["counts"][name],
+            "launches": path3["counts"][name] + (
+                path6["counts"]["k6"] if name == "normalize_and_clear" else 0),
             "max_abs_err": path3["results"][f"{name}_err"],
             "ms": timing[name], "plain_ms": timing[f"{name}_plain"],
             **bound(b5_io[name] * n5, 2.0 * N_B5),
@@ -886,7 +1012,8 @@ def main() -> int:
         "name": "hopblock_apply fp32 (B0, HIGHEST)", "route": "cuda",
         "source": "crlot_tpu_torch/csrc/fp32_window.cu",
         "replaces": "crlot_tpu/fft/matmul_backend.py:633",
-        "launches": counts2["b0_fp32"] + path4["counts"]["b0_fp32"],
+        "launches": (counts2["b0_fp32"] + path4["counts"]["b0_fp32"]
+                     + path6["counts"]["b0_fp32"]),
         "max_abs_err": path_b0["fp32_err"], "ms": timing["b0_fp32"],
         "plain_ms": timing["b0_fp32_plain"],
         **bound(nbytes(x_ext, kern0) + x_ext.shape[0] * rows0 * gh0 * 4,
@@ -1662,6 +1789,154 @@ def b0_checks(dev, phase, check, cfg, padded, n_frames, band) -> dict:
     return out
 
 
+class EdgePatchHold:
+    """Every B0 launch at the sharded edge patch's shapes (`blocked_edge_patch`
+    with `fixed_order`: an [N, N] composed basis over the R-1 boundary
+    frames, read in place at lda = hop) while the context is open, kept
+    with its operands and held against its plain version on them by
+    `verify`: at HIGH `tf32x3.gemm_plain` within tf32x3.REL_TOL of
+    sum |x||k| per output, at HIGHEST `fp32_window.chain_plain` (the
+    kernel's fmaf chain) bit for bit. The operands' version counters show
+    that nothing wrote them between the launch and the check."""
+
+    def __init__(self, check):
+        from crlot_tpu_torch.fft import fp32_window, tf32x3
+
+        self.b0, self.b0f, self.check = tf32x3, fp32_window, check
+        self.rows = NFFT // HOP - 1
+        self.kept = []
+        self.worst = 0.0
+        self.held = {"HIGH": 0, "HIGHEST": 0}
+
+    def __enter__(self):
+        self.orig = high, fp32 = self.b0.gemm_cuda, self.b0f.gemm_cuda
+
+        def keep(tier, a, b, rows, lda, out):
+            self.kept.append((tier, a, b, rows, lda, out, a._version,
+                              out._version))
+
+        def spy_high(a, bt_hi, bt_lo, rows=None, lda=None):
+            out = high(a, bt_hi, bt_lo, rows=rows, lda=lda)
+            if rows == self.rows and tuple(bt_hi.shape) == (NFFT, NFFT):
+                keep("HIGH", a, (bt_hi, bt_lo), rows, lda, out)
+            return out
+
+        def spy_fp32(a, kern, rows=None, lda=None):
+            out = fp32(a, kern, rows=rows, lda=lda)
+            if rows == self.rows and tuple(kern.shape) == (NFFT, NFFT):
+                keep("HIGHEST", a, kern, rows, lda, out)
+            return out
+
+        self.b0.gemm_cuda, self.b0f.gemm_cuda = spy_high, spy_fp32
+        return self
+
+    def __exit__(self, *exc):
+        self.b0.gemm_cuda, self.b0f.gemm_cuda = self.orig
+
+    def verify(self) -> dict:
+        """Hold the launches kept since the last call; returns the counts
+        held at each tier since the last call."""
+        import torch
+
+        from crlot_tpu_torch.int8_gemm import windows
+
+        counts = {"HIGH": 0, "HIGHEST": 0}
+        for tier, a, b, rows, lda, out, va, vo in self.kept:
+            self.check(a._version == va and out._version == vo,
+                       f"edge patch ({tier}): operands written after launch")
+            what = (f"edge patch ({tier}, [{a.shape[0]} x {rows} rows] at "
+                    f"lda {lda})")
+            if tier == "HIGH":
+                want = self.b0.gemm_plain(a, *b, rows=rows, lda=lda)
+                kern = (b[0] + b[1]).T
+                scale = torch.matmul(
+                    windows(a, rows, lda, kern.shape[0]).abs(), kern.abs())
+                rel = float(((out - want).abs()
+                             / scale.clamp_min(1e-30)).max())
+                self.worst = max(self.worst, rel)
+                self.check(rel <= self.b0.REL_TOL,
+                           f"{what}: {rel:.3e} of sum|x||k| from plain "
+                           f"(bound {self.b0.REL_TOL:.3e})")
+            else:
+                want = self.b0f.chain_plain(a, b, rows=rows, lda=lda)
+                self.check(torch.equal(out, want),
+                           f"{what}: != the fmaf chain emulation, max-abs "
+                           f"{float((out - want).abs().max()):.3e}")
+            counts[tier] += 1
+            self.held[tier] += 1
+        self.kept.clear()
+        return counts
+
+    def summary(self) -> str:
+        return (f"edge-patch launches held against plain: "
+                f"{self.held['HIGH']} at HIGH (worst "
+                f"{self.worst:.3e} of sum|x||k|, bound "
+                f"{self.b0.REL_TOL:.3e}), {self.held['HIGHEST']} at "
+                f"HIGHEST (each torch.equal to the fmaf chain)")
+
+
+EDGE_BOUND = 2.0 ** -14  # K * 2^-24 at K = N = 1024
+
+
+def edge_check(check, label, x, y, cfg, per_bin) -> str:
+    """The first and last (R-1)*hop samples of a center=False blocked
+    round-trip `y` of `x` against the same samples computed in float64 on
+    the host CPU (`torch.fft`): the R-1 frames that reach them, windowed
+    (periodic Hann), times the per-bin response, inverted (and windowed
+    again with a synthesis window), overlap-added. Compared before the
+    norm divide (y times its eps-clamped f32 norm, as the tests compare
+    edges), within EDGE_BOUND * sum|x||k| (the f64 basis's magnitudes,
+    over the same frames) + 2^-23 |ref| + 2^-40 sum|x|: the bound of one
+    f32 fmaf chain of K = N terms, which also covers 3xTF32, the f32
+    basis, the overlap-add and the divide; the last term is the float64
+    designs' own noise (an entry that is 0 in exact arithmetic is ~1e-17
+    in either basis)."""
+    import numpy as np
+    import torch
+
+    n, hop = cfg.frame_size, cfg.hop_size
+    r_count = n // hop
+    edge, span = (r_count - 1) * hop, (r_count - 2) * hop + n
+    w = 0.5 - 0.5 * torch.cos(2 * math.pi * torch.arange(
+        n, dtype=torch.float64) / n)
+    g = torch.from_numpy(np.asarray(per_bin, np.complex128))
+    kern = torch.fft.irfft(torch.fft.rfft(torch.diag(w), dim=-1) * g, n=n,
+                           dim=-1)
+    contrib = w
+    if cfg.synthesis_window:
+        kern, contrib = kern * w, w * w
+    worst, worst_abs = 0.0, 0.0
+    for side in ("head", "tail"):
+        seg = (x[:, :span] if side == "head"
+               else x[:, x.shape[1] - span:]).cpu().double()
+        frames = seg.unfold(-1, n, hop)[:, : r_count - 1]
+        of = frames @ kern
+        sc = frames.abs() @ kern.abs() + 2.0 ** -40 * frames.abs().sum(
+            -1, keepdim=True) / EDGE_BOUND
+        acc = seg.new_zeros(seg.shape)
+        scale = seg.new_zeros(seg.shape)
+        norm = torch.zeros(span, dtype=torch.float64)
+        for f in range(r_count - 1):
+            acc[:, f * hop : f * hop + n] += of[:, f]
+            scale[:, f * hop : f * hop + n] += sc[:, f]
+            norm[f * hop : f * hop + n] += contrib
+        part = slice(0, edge) if side == "head" else slice(span - edge, span)
+        got = (y[:, :edge] if side == "head"
+               else y[:, y.shape[1] - edge:]).cpu().double()
+        norm32 = torch.clamp_min(norm[part], cfg.eps).float().double()
+        ref = acc[:, part]
+        d = (got * norm32 - ref).abs()
+        tol = EDGE_BOUND * scale[:, part] + 2.0 ** -23 * ref.abs()
+        ratio = float(torch.where(d > 0, d / tol.clamp_min(1e-300),
+                                  0.0).max())
+        worst, worst_abs = max(worst, ratio), max(worst_abs, float(d.max()))
+        check(ratio <= 1.0, f"{label} {side} edge vs float64: {ratio:.3e} "
+              f"of the bound, max-abs {float(d.max()):.3e} before the norm")
+    return (f"{label}: first and last {edge} samples vs float64 on the host "
+            f"CPU, before the norm: max-abs {worst_abs:.3e}, {worst:.3e} of "
+            f"the bound")
+
+
 def wire_path(dev, phase, check, failures) -> dict:
     """Phases 20-24, with the B6 counters reset just before: the f32
     blocked streamer, the born-int16 wire tier (both tiers), the full-range
@@ -1997,6 +2272,424 @@ def int8_tier_path(dev, phase, check, failures, x, x_np) -> dict:
         f"B1 {out['counts']['b1']}")
     if not all(out["counts"].values()):
         failures.append("launch counts (path 5)")
+        log("FAIL launch counts: a kernel of the path was not launched")
+    return out
+
+
+# The streaming slice: BASELINE config 5's sharded stream (128 channels, an
+# hour at 48 kHz in chunks of 2^20), the Framer feeding the OLAAccumulator
+# on the main path's signal, and FftPlan.
+STREAM_CH = 128
+STREAM_CHUNK = 1 << 20
+STREAM_HOUR = 3600 * SR
+STREAM_SEED = 5
+STREAM_PROFILED = 6  # chunks under torch.profiler for the idle share
+OLA_SAVE_AT = 2000  # the accumulator's checkpoint frame
+PLAN_BATCH = 64
+PLAN_NFFTS = (NFFT, 4096)  # 4096: the largest N the matmul DFT takes
+
+
+def stream_path(dev, phase, check, failures, x_np) -> dict:
+    """Phases 27-29, with the B0, B3 and K6 counters reset just before:
+    the sharded streamer at BASELINE config 5's width, the Framer feeding
+    the OLAAccumulator, and FftPlan on the card."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch import checkpoint, spectral
+    from crlot_tpu_torch.fft import fp32_window as b0f
+    from crlot_tpu_torch.fft import fused_rt as b3
+    from crlot_tpu_torch.fft import tf32x3 as b0
+    from crlot_tpu_torch.ola import kernels as b5
+    from crlot_tpu_torch.profile_paths import _device_events
+
+    sync = torch.cuda.synchronize
+    cfg = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=False)
+    cfg_hst = dataclasses.replace(cfg, fft_precision=pt.FftPrecision.HIGHEST)
+    gate = spectral.noise_gate(-30.0)
+    band = spectral.band_gain([500.0, 4000.0], [0.5, 1.0, 0.25], SR, NFFT)
+    meshes = {"(1, 1)": pt.make_mesh(1, 1, devices=[dev]),
+              "(2, 2)": pt.make_mesh(2, 2, devices=[dev] * 4)}
+    out = {"results": {}}
+    for k in b5.launches:
+        b5.launches[k] = 0
+    b0.launches = 0
+    b0f.launches = 0
+    b3.frames_launches = 0
+
+    def chunk_source(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+
+        def make():  # uniform in +-0.9, made on the card
+            return torch.rand((STREAM_CH, STREAM_CHUNK), generator=g,
+                              device=dev) * 1.8 - 0.9
+        return make
+
+    def stream(chunks, cfg_, mesh, fn=None):
+        st = pt.ShardedStreamer(cfg_, mesh, fn)
+        ys = [st.feed(c, force=False) for c in chunks]
+        ys.append(st.finish(force=False))
+        return torch.cat([y for y in ys if y is not None], dim=1), st
+
+    def snr(ref, got):
+        noise = float(((got.double() - ref.double()) ** 2).sum())
+        sig = float((ref.double() ** 2).sum())
+        return math.inf if noise == 0 else 10 * math.log10(sig / noise)
+
+    def p27():
+        with EdgePatchHold(check) as hold:
+            lines = p27_held(hold)
+        return p27_hour(lines)
+
+    def p27_held(hold):
+        """The 4-chunk checks, every edge-patch launch held against plain
+        (`EdgePatchHold`)."""
+        make = chunk_source(STREAM_SEED)
+        chunks = [make() for _ in range(4)]
+        x = torch.cat(chunks, dim=1)
+        total = x.shape[1]
+        inner = slice(NFFT, total - NFFT)
+        lines = []
+        per_bin = {None: np.ones(NFFT // 2 + 1),
+                   band: band.per_bin_gains(NFFT)}
+        tier = {"b0": "HIGH", "b0f": "HIGHEST"}
+        modes = (("identity HIGH (B0 3xTF32)", cfg, None, True, "b0"),
+                 ("identity HIGHEST (B0 fp32)", cfg_hst, None, True, "b0f"),
+                 ("band_gain EQ (B0 3xTF32)", cfg, band, True, "b0"),
+                 ("noise_gate (B3)", cfg, gate, False, "b3"))
+        counters = {"b0": lambda: b0.launches, "b0f": lambda: b0f.launches,
+                    "b3": lambda: b3.frames_launches}
+        kept = {}
+        for name, cfg_, fn, blocked, key in modes:
+            ys = {}
+            for mname, mesh in meshes.items():
+                before = counters[key]()
+                y, st = stream(chunks, cfg_, mesh, fn)
+                sync()
+                launched = counters[key]() - before
+                groups = mesh.shape["channel"]
+                shards = groups * mesh.shape["time"]
+                # A blocked chunk program patches its in-mesh head and tail
+                # on each channel group (in the discarded context); the
+                # stream's own head and tail patches come on top.
+                want = (4 * (shards + 2 * groups) + 2 * groups if blocked
+                        else 4 * shards)
+                check(st.blocked == blocked,
+                      f"{name} {mname}: blocked {st.blocked}")
+                check(launched == want,
+                      f"{name} {mname}: {launched} launches for 4 chunks on "
+                      f"{shards} shards, {want} expected")
+                one = pt.sharded_round_trip(x, cfg_, mesh, fn)
+                # Each chunk's two in-mesh patches and the stream's head and
+                # tail on every channel group, and the one-shot's two.
+                held = hold.verify()
+                want = 12 * groups if blocked else 0
+                check(held.get(tier.get(key), 0) == want
+                      and sum(held.values()) == want,
+                      f"{name} {mname}: edge patches held {held}, {want} "
+                      f"expected")
+                same = torch.equal(y, one)
+                check(same, f"{name} {mname}: chunked != one-shot, max-abs "
+                      f"{float((y - one).abs().max()):.3e}")
+                check(bool(torch.isfinite(y).all())
+                      and tuple(y.shape) == tuple(x.shape), f"{name} output")
+                ys[mname] = y
+                del one
+            check(torch.equal(ys["(2, 2)"], ys["(1, 1)"]),
+                  f"{name}: (2, 2) != (1, 1), max-abs "
+                  f"{float((ys['(2, 2)'] - ys['(1, 1)']).abs().max()):.3e}")
+            msg = (f"{name}: chunked == one-shot on (1, 1) and (2, 2), "
+                   f"(2, 2) == (1, 1)")
+            if blocked:
+                msg += "; " + edge_check(check, name, x, ys["(1, 1)"], cfg_,
+                                         per_bin[fn])
+            if fn is None:
+                s = snr(x[:, inner], ys["(1, 1)"][:, inner])
+                check(s > 60.0, f"{name}: interior snr {s:.2f} dB")
+                msg += f", interior snr {s:.2f} dB"
+            lines.append(msg)
+            if key != "b0f" and fn is not band:
+                kept[name] = ys["(1, 1)"]
+        # The masked array form against its one-shot.
+        y = pt.sharded_stream(x, cfg, meshes["(1, 1)"], STREAM_CHUNK, gate)
+        one = pt.sharded_round_trip(x, cfg, meshes["(1, 1)"], gate,
+                                    allow_blocked=False)
+        check(torch.equal(y, one), "sharded_stream != one-shot "
+              f"(allow_blocked=False), max-abs "
+              f"{float((y - one).abs().max()):.3e}")
+        lines.append("sharded_stream (masked, noise_gate) == one-shot with "
+                     "allow_blocked=False")
+        del y, one
+        # Resume: state() after chunk 2 into a fresh streamer.
+        for name, fn in (("identity HIGH (B0 3xTF32)", None),
+                         ("noise_gate (B3)", gate)):
+            st = pt.ShardedStreamer(cfg, meshes["(1, 1)"], fn)
+            st.feed(chunks[0], force=False)
+            st.feed(chunks[1], force=False)
+            saved = st.state()
+            st2 = pt.ShardedStreamer(cfg, meshes["(1, 1)"], fn)
+            st2.load_state(saved)
+            rest = [st2.feed(c, force=False) for c in chunks[2:]]
+            rest.append(st2.finish(force=False))
+            got = torch.cat(rest, dim=1)
+            want = kept[name][:, STREAM_CHUNK:]
+            check(torch.equal(got, want), f"{name}: resumed != unbroken, "
+                  f"max-abs {float((got - want).abs().max()):.3e}")
+            held = sum(hold.verify().values())
+            check(held == (10 if fn is None else 0),
+                  f"{name}: {held} edge patches held over the resumed run")
+        lines.append("state() after chunk 2 resumed in a fresh streamer == "
+                     "the unbroken stream (identity, noise_gate)")
+        lines.append(hold.summary() + " (the hour's and the profiled "
+                     "chunks' are not: a spy there would be in the timing)")
+        out["results"]["stream_4"] = lines
+        return lines
+
+    def p27_hour(lines):
+        torch.cuda.empty_cache()
+        # An hour of 128 channels at 48 kHz, identity, (1, 1), force=False.
+        n_chunks = -(-STREAM_HOUR // STREAM_CHUNK)
+        make = chunk_source(STREAM_SEED + 1)
+        st = pt.ShardedStreamer(cfg, meshes["(1, 1)"])
+        sums = []
+
+        def reduce(xk, yk, first, last):
+            a = NFFT if first else 0
+            b = STREAM_CHUNK - NFFT if last else STREAM_CHUNK
+            d = yk[:, a:b] - xk[:, a:b]
+            sums.append(torch.stack([(xk[:, a:b] ** 2).sum(),
+                                     (d * d).sum()]))
+
+        before = b0.launches
+        sync()
+        t0 = time.perf_counter()
+        prev = None
+        for k in range(n_chunks):
+            c = make()
+            y = st.feed(c, force=False)
+            if y is not None:
+                reduce(prev, y, k == 1, False)
+            prev = c
+        reduce(prev, st.finish(force=False), n_chunks == 1, True)
+        sync()
+        wall = time.perf_counter() - t0
+        hour_b0 = b0.launches - before
+        sig, noise = torch.stack(sums).double().cpu().unbind(1)
+        per_chunk = [math.inf if float(e) == 0 else
+                     10 * math.log10(float(s) / float(e))
+                     for s, e in zip(sig, noise)]
+        worst = min(per_chunk)
+        rate = STREAM_CH * n_chunks * STREAM_CHUNK / wall
+        check(worst > 60.0, f"hour: worst chunk snr {worst:.2f} dB")
+        check(hour_b0 == 3 * n_chunks + 2, f"hour: {hour_b0} B0 launches "
+              f"for {n_chunks} chunks (a chunk's hop blocks and its two "
+              f"in-mesh patches, the stream's two patches)")
+        # The card's idle share over a few profiled chunks.
+        make = chunk_source(STREAM_SEED + 2)
+        st = pt.ShardedStreamer(cfg, meshes["(1, 1)"])
+        for _ in range(2):
+            st.feed(make(), force=False)
+        sync()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(STREAM_PROFILED):
+                st.feed(make(), force=False)
+            sync()
+            wall_p = time.perf_counter() - t0
+        rows = _device_events(prof)
+        device_ms = sum(us for _, us in rows.values()) / 1e3
+        idle = 1 - device_ms / (wall_p * 1e3)
+        top = sorted(rows.items(), key=lambda r: -r[1][1])[:6]
+        out["results"].update(
+            hour_chunks=n_chunks, hour_wall=wall, hour_rate=rate,
+            hour_worst_snr=worst, hour_b0=hour_b0, idle=idle,
+            profiled_wall_ms=wall_p * 1e3 / STREAM_PROFILED,
+            profiled_device_ms=device_ms / STREAM_PROFILED)
+        lines.append(
+            f"an hour of {STREAM_CH} ch at {SR} Hz: {n_chunks} chunks of "
+            f"{STREAM_CHUNK} (no cut), identity on (1, 1), force=False: "
+            f"{rate:.4e} samples/s ({wall:.3f} s host clock, chunks made "
+            f"on the card and reduced to their interior snr there), worst "
+            f"chunk snr {worst:.2f} dB, B0 launches {hour_b0}; "
+            f"{STREAM_PROFILED} profiled chunks: "
+            f"{wall_p * 1e3 / STREAM_PROFILED:.3f} ms a chunk end to end, "
+            f"device {device_ms / STREAM_PROFILED:.3f} ms, idle share "
+            f"{idle:.3f}; device events "
+            + ", ".join(f"{k[:40]} x{c / STREAM_PROFILED:g} "
+                        f"{us / STREAM_PROFILED / 1e3:.3f} ms"
+                        for k, (c, us) in top))
+        return "; ".join(lines)
+
+    def p28():
+        from crlot_tpu_torch.window.windows import get_window
+
+        ocfg = pt.OLAConfig(sample_rate=SR, frame_size=NFFT, hop_size=HOP,
+                            channels=2, apply_window_inside=True)
+        w = get_window(pt.WindowType.HANN, NFFT, periodic=True)
+        aos = np.ascontiguousarray(x_np.T).reshape(-1)  # interleaved
+        block = 2 * (SR // 100)  # 10 ms of both channels
+
+        def run(device, start=0, state=None, save=None):
+            fr = pt.Framer(NFFT, HOP, 2, device=device)
+            acc = pt.OLAAccumulator(ocfg, device=device)
+            acc.set_window(w)
+            if state is not None:
+                acc.load_state(state)
+            outs, k, spans = [], start, 0
+
+            def produce(count):
+                """acc.produce, counting the ring spans it drains (one K6
+                launch each) from the read cursor."""
+                nonlocal spans
+                lo = acc.state.read_pos % ocfg.ring_len
+                o = acc.produce(count)
+                got = o.shape[1]
+                spans += (got > 0) + (lo + got > ocfg.ring_len)
+                return o
+
+            def drain_frames():
+                nonlocal k
+                while (f := fr.pop()) is not None:
+                    if save is not None and k == OLA_SAVE_AT:
+                        checkpoint.save_stream_state(save, acc.state, ocfg, k)
+                    acc.add_frame_soa(f, k * HOP)
+                    outs.append(produce(HOP))
+                    k += 1
+
+            src = aos[start * HOP * 2:]
+            for i in range(0, src.size, block):
+                fr.push(src[i : i + block])
+                drain_frames()
+            fr.flush()
+            drain_frames()
+            acc.flush()
+            while (o := produce(ocfg.ring_len)).shape[1]:
+                outs.append(o)
+            return torch.cat(outs, dim=1), k, spans
+
+        kernel = b5.normalize_and_clear_cuda
+        bad = []
+
+        def spy(acc, norm, eps):  # every K6 launch against its plain version
+            o, cleared = kernel(acc, norm, eps)
+            want = b5.normalize_and_clear_reference(acc, norm, eps)[0]
+            bad.append((o != want).sum() + (cleared != 0).sum())
+            return o, cleared
+
+        tmp = tempfile.mkdtemp()
+        path = os.path.join(tmp, "stream.ckpt.npz")
+        b5.normalize_and_clear_cuda = spy
+        before = b5.launches["normalize_and_clear"]
+        try:
+            y, frames, spans = run(dev, save=path)
+            sync()
+        finally:
+            b5.normalize_and_clear_cuda = kernel
+        k6 = b5.launches["normalize_and_clear"] - before
+        mism = int(torch.stack(bad).sum()) if bad else 0
+        check(mism == 0, f"{mism} K6 outputs differ from plain")
+        check(k6 == spans, f"{k6} K6 launches for {spans} drained ring "
+              f"spans ({frames} frames)")
+        y_cpu = run("cpu")[0]
+        check(torch.equal(y.cpu(), y_cpu), f"card != CPU, max-abs "
+              f"{float((y.cpu() - y_cpu).abs().max()):.3e}")
+        state, cfg2, fi, _ = checkpoint.load_stream_state(path, device=dev)
+        check(cfg2 == ocfg and fi == OLA_SAVE_AT, "checkpoint meta")
+        y_res = run(dev, start=fi, state=state)[0]
+        tail = y[:, y.shape[1] - y_res.shape[1]:]
+        check(torch.equal(y_res, tail), "resumed != unbroken, max-abs "
+              f"{float((y_res - tail).abs().max()):.3e}")
+        n = x_np.shape[1]
+        s = pt.snr_db(x_np[:, NFFT:n - NFFT], y[:, NFFT:n - NFFT])
+        check(s > 60.0, f"interior snr {s:.2f} dB")
+        sync()
+        t0 = time.perf_counter()
+        run(dev)
+        sync()
+        wall = time.perf_counter() - t0
+        a = torch.rand((2, HOP), device=dev)
+        nrm = torch.rand((2, HOP), device=dev) + 0.5
+        from crlot_tpu_torch.timing import cuda_ms
+
+        counted = b5.launches["normalize_and_clear"]
+        q, per_call = cuda_ms(lambda: kernel(a, nrm, ocfg.eps))
+        b5.launches["normalize_and_clear"] = counted  # timing, not the path
+        k6_ms = per_call if q is None else q
+        out["results"].update(ola_frames=frames, ola_wall=wall, ola_k6=k6,
+                              ola_k6_ms=k6_ms, ola_snr=s)
+        return (f"2 ch x {SECONDS} s through Framer (10 ms interleaved "
+                f"pushes) and OLAAccumulator (N {NFFT}, H {HOP}, Hann "
+                f"inside): {frames} frames, K6 launches {k6} (one a "
+                f"drained ring span), each torch.equal to plain; card == CPU bit for bit; "
+                f"save_stream_state at frame {OLA_SAVE_AT} resumed == "
+                f"unbroken; interior snr {s:.2f} dB; {frames / wall:.1f} "
+                f"frames/s ({wall / frames * 1e6:.1f} us a frame, host "
+                f"clock, synchronized); K6 at [2, {HOP}] "
+                f"{k6_ms * 1e3:.2f} us a launch "
+                f"({'queued' if q else 'per call'}, CUDA events, median of "
+                f"{REPS})")
+
+    def p29():
+        return "; ".join(plan_check(nfft) for nfft in PLAN_NFFTS)
+
+    def plan_check(nfft):
+        rng = np.random.default_rng(29)
+        xr = rng.uniform(-1, 1, (PLAN_BATCH, nfft)).astype(np.float32)
+        xc = (rng.standard_normal((PLAN_BATCH, nfft)) + 1j
+              * rng.standard_normal((PLAN_BATCH, nfft))).astype(np.complex64)
+
+        def within(got, want, inp):
+            """|got - want| <= 2^-22 * sum|inp| per row (the bound stated in
+            tests/test_torch_fft_plan.py); returns the worst ratio."""
+            bound = 2.0 ** -22 * np.abs(inp).sum(axis=-1, keepdims=True)
+            r = float(np.max(np.abs(got.cpu().numpy() - want.numpy())
+                             / bound))
+            check(r <= 1.0, f"N {nfft}: card vs CPU at {r:.3f} of the bound")
+            return r
+
+        real = pt.make_fft_plan(pt.FftPlanDesc(pt.FftDomain.REAL, nfft,
+                                               batch=PLAN_BATCH))
+        spec, spec_c = real.forward(xr), real.forward(xr, device="cpu")
+        y = real.inverse(spec)
+        rmse = float(((y.cpu() - torch.from_numpy(xr)) ** 2).mean().sqrt())
+        check(rmse < 1e-6, f"N {nfft}: REAL round-trip rmse {rmse:.3e}")
+        sc = spec_c.numpy()
+        r1 = within(spec, spec_c, xr)
+        r2 = within(y, real.inverse(spec_c), 2 * (np.abs(sc.real)
+                                                  + np.abs(sc.imag)) / nfft)
+        cplx = pt.make_fft_plan(pt.FftPlanDesc(pt.FftDomain.COMPLEX, nfft))
+        cs, cs_c = cplx.forward_complex(xc), cplx.forward_complex(
+            xc, device="cpu")
+        yc = cplx.inverse_complex(cs)
+        err = float((yc.cpu() - torch.from_numpy(xc)).abs().max())
+        check(err < 1e-4, f"N {nfft}: COMPLEX round-trip max-abs {err:.3e}")
+        cc = cs_c.numpy()
+        r3 = within(cs, cs_c, np.abs(xc.real) + np.abs(xc.imag))
+        r4 = within(yc, cplx.inverse_complex(cs_c),
+                    (np.abs(cc.real) + np.abs(cc.imag)) / nfft)
+        return (f"N {nfft}, batch {PLAN_BATCH} on the card: REAL (matmul "
+                f"DFT) round-trip rmse {rmse:.3e} (< 1e-6), COMPLEX "
+                f"(torch.fft) max-abs {err:.3e} (< 1e-4); vs the CPU "
+                f"(torch.fft) forward / inverse at {r1:.3f} / {r2:.3f} "
+                f"(REAL) and {r3:.3f} / {r4:.3f} (COMPLEX) of 2^-22 * "
+                f"sum|input| a row")
+
+    phase("27 sharded streamer, 128 ch (config 5)", p27)
+    phase("28 Framer + OLAAccumulator (K6)", p28)
+    phase("29 FftPlan", p29)
+    out["counts"] = {"b0": b0.launches, "b0_fp32": b0f.launches,
+                     "b3": b3.frames_launches,
+                     "k6": b5.launches["normalize_and_clear"]}
+    log(f"streaming path launches: B0 {out['counts']['b0']}, B0 fp32 "
+        f"{out['counts']['b0_fp32']}, B3 {out['counts']['b3']}, K6 "
+        f"{out['counts']['k6']}")
+    if not all(out["counts"].values()):
+        failures.append("launch counts (path 6)")
         log("FAIL launch counts: a kernel of the path was not launched")
     return out
 

@@ -26,6 +26,13 @@ def resolve(device=None) -> torch.device:
     return dev
 
 
+def resolve_indexed(device=None) -> torch.device:
+    """`resolve(device)` as the tensors made there report it: "cuda" names
+    the current card by its index, so it compares equal to a tensor's
+    device."""
+    return torch.empty(0, device=resolve(device)).device
+
+
 def place(x, device=None, dtype=None) -> torch.Tensor:
     """A tensor as it is (cast to `dtype` if given; `device` must then be
     None), or an array-like as a new tensor on `resolve(device)`."""

@@ -1,4 +1,5 @@
-"""Config types for the PyTorch port: the STFT pipeline's frozen configs.
+"""Config types for the PyTorch port: the STFT pipeline's, the streaming
+OLA accumulator's and the FFT plan's frozen configs.
 
 Counterpart of `crlot_tpu/core/types.py`. The enums keep the reference's
 member names and `.value` strings, so `convert.config_from_reference` can map
@@ -50,6 +51,21 @@ class PadMode(enum.Enum):
     CONSTANT = "constant"
     REFLECT = "reflect"
     EDGE = "edge"
+
+
+class BoundaryMode(enum.Enum):
+    """Streaming framer tail policy: ZERO_PAD releases one zero-filled
+    partial frame after `flush`, DROP refuses partial frames."""
+
+    ZERO_PAD = "zero_pad"
+    DROP = "drop"
+
+
+class FftDomain(enum.Enum):
+    """FFT plan domain."""
+
+    REAL = "real"
+    COMPLEX = "complex"
 
 
 class FftPrecision(enum.Enum):
@@ -106,6 +122,82 @@ class FrameSpec:
         if padded < self.frame_size:
             return 0
         return (padded - self.tail) // self.hop_size
+
+
+@dataclass(frozen=True)
+class FftPlanDesc:
+    """FFT plan descriptor: REAL plans need an even nfft, in-place
+    transforms are not supported, batch and strides are >= 1. The batch is
+    not capped (`FftPlan.max_batch_size`)."""
+
+    domain: FftDomain
+    nfft: int
+    in_place: bool = False
+    batch: int = 1
+    stride_in: int = 1
+    stride_out: int = 1
+    scrub: bool = True  # NaN/Inf -> 0 and |x| < 1e-30 -> 0
+    backend: FftBackend = FftBackend.AUTO
+
+    def __post_init__(self) -> None:
+        if self.nfft <= 0:
+            raise ValueError(f"nfft must be > 0, got {self.nfft}")
+        if self.domain == FftDomain.REAL and self.nfft % 2 != 0:
+            raise ValueError(
+                f"REAL domain requires even nfft, got {self.nfft}")
+        if self.in_place:
+            raise ValueError("in_place transforms are not supported")
+        if self.batch < 1:
+            raise ValueError(f"batch must be >= 1, got {self.batch}")
+        if self.stride_in < 1 or self.stride_out < 1:
+            raise ValueError("strides must be >= 1")
+
+    @property
+    def num_bins(self) -> int:
+        """Output bins of the REAL forward transform (n/2+1)."""
+        return self.nfft // 2 + 1
+
+
+@dataclass(frozen=True)
+class OLAConfig:
+    """Streaming overlap-add accumulator config. The ring holds
+    ceil(N/H) + `ring_margin_hops` hops."""
+
+    sample_rate: int
+    frame_size: int
+    hop_size: int
+    channels: int = 1
+    eps: float = 1e-8
+    apply_window_inside: bool = True
+    ring_margin_hops: int = 20
+
+    def __post_init__(self) -> None:
+        if self.sample_rate <= 0:
+            raise ValueError(
+                f"sample_rate must be > 0, got {self.sample_rate}")
+        if self.frame_size <= 0:
+            raise ValueError(f"frame_size must be > 0, got {self.frame_size}")
+        if self.hop_size <= 0:
+            raise ValueError(f"hop_size must be > 0, got {self.hop_size}")
+        if self.hop_size > self.frame_size:
+            raise ValueError(
+                f"hop_size ({self.hop_size}) must be <= frame_size "
+                f"({self.frame_size})"
+            )
+        if self.channels <= 0:
+            raise ValueError(f"channels must be > 0, got {self.channels}")
+        if self.eps <= 0:
+            raise ValueError(f"eps must be > 0, got {self.eps}")
+
+    @property
+    def overlap_count(self) -> int:
+        """Max frames covering one sample: ceil(frame/hop)."""
+        return -(-self.frame_size // self.hop_size)
+
+    @property
+    def ring_len(self) -> int:
+        """Hop-aligned ring length: (ceil(N/H) + margin) * H."""
+        return (self.overlap_count + self.ring_margin_hops) * self.hop_size
 
 
 @dataclass(frozen=True)

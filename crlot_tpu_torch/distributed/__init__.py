@@ -1,7 +1,7 @@
-"""Distributed execution: (channel, time) meshes, halo exchange and the
-sharded round-trip (counterpart of `crlot_tpu/distributed/`), single
-controller. Multi-process meshes, the sharded streamer, checkpointing and
-the reference's HLO accounting are still to port."""
+"""Distributed execution: (channel, time) meshes, halo exchange, the
+sharded round-trip and the sharded streamer (counterpart of
+`crlot_tpu/distributed/`), single controller. Multi-process meshes and the
+reference's HLO accounting are still to port."""
 
 from .halo import pull_left_halo, pull_right_halo, push_right_tail
 from .mesh import CHANNEL_AXIS, TIME_AXIS, Mesh, auto_mesh, make_mesh
@@ -11,10 +11,12 @@ from .sharded_pipeline import (
     sharded_round_trip,
     sharded_round_trip_jit,
 )
+from .stream import ShardedStreamer, sharded_stream, sharded_stream_iter
 
 __all__ = [
     "CHANNEL_AXIS",
     "Mesh",
+    "ShardedStreamer",
     "TIME_AXIS",
     "auto_mesh",
     "blocked_per_bin",
@@ -25,4 +27,6 @@ __all__ = [
     "push_right_tail",
     "sharded_round_trip",
     "sharded_round_trip_jit",
+    "sharded_stream",
+    "sharded_stream_iter",
 ]

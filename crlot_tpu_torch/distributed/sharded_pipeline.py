@@ -169,12 +169,13 @@ def _blocked_local_round_trip(
                              bt)
         if t == 0:
             acc[..., :halo] = blocked_edge_patch(
-                x_blk[..., halo : halo + span_p], n, hop, wb, sb, rb, "head"
+                x_blk[..., halo : halo + span_p], n, hop, wb, sb, rb, "head",
+                cfg.fft_precision, fixed_order=True,
             )
         if t == n_time - 1:
             acc[..., off - halo : off] = blocked_edge_patch(
                 x_blk[..., off + halo - span_p : off + halo], n, hop, wb, sb,
-                rb, "tail",
+                rb, "tail", cfg.fft_precision, fixed_order=True,
             )
         accs.append(acc)
     return accs

@@ -407,21 +407,46 @@ def blocked_edge_patch(
     swin_bytes,
     response_bytes: bytes,
     side: str = "head",
+    precision=FftPrecision.HIGH,
+    fixed_order: bool = False,
 ) -> torch.Tensor:
     """UN-normalized local OLA of the R-1 real boundary frames at the
     stream head (or tail), [..., (R-1)*hop]: the exact values of the blocks
     where the Toeplitz product sees phantom frames. Frames are summed in
-    ascending order."""
+    ascending order.
+
+    The frames' product by the composed basis is a `torch.matmul`, unless
+    `fixed_order` asks for bits that do not depend on how many channels
+    share the call (a channel-sharded mesh patches its edges as one shard
+    does): then a CUDA tensor runs it in a fixed order per output, the
+    frames read in place, on B0 at HIGH (and INT8X2) and on B0's fp32
+    kernel at HIGHEST. (cuBLAS sums differently at 64 and 128 channels,
+    and the edge samples' near-zero norm made that 0.75 apart, ROADMAP
+    C15; on one channel count it is the same sum every call, and about
+    three times faster than B0 on these few rows.)"""
     r_count = nfft // hop
     edge = (r_count - 1) * hop
-    m = _composed_basis_on(
-        nfft, awin_bytes, swin_bytes, response_bytes, x_region.device
-    )
-    frames_small = torch.stack(
-        [x_region[..., f * hop : f * hop + nfft] for f in range(r_count - 1)],
-        dim=-2,
-    )  # [..., R-1, N]
-    of = torch.matmul(frames_small, m)
+    keys = (nfft, awin_bytes, swin_bytes, response_bytes)
+    dev = x_region.device
+    if (fixed_order and dev.type != "cpu"
+            and tf32x3.supported(nfft, nfft, nfft)):
+        frames = x_region.float().contiguous().unfold(-1, nfft, hop)[
+            ..., : r_count - 1, :]
+        x, rows, lda = tf32x3.frame_rows(frames)
+        if float_tier(precision) == FftPrecision.HIGH:
+            of = tf32x3.gemm_cuda(x, *_composed_bt_on(*keys, dev), rows=rows,
+                                  lda=lda)
+        else:
+            of = fp32_window.gemm_cuda(x, _composed_basis_on(*keys, dev),
+                                       rows=rows, lda=lda)
+        of = of.reshape(frames.shape)
+    else:
+        frames = torch.stack(
+            [x_region[..., f * hop : f * hop + nfft]
+             for f in range(r_count - 1)],
+            dim=-2,
+        )  # [..., R-1, N]
+        of = torch.matmul(frames, _composed_basis_on(*keys, dev))
     span_l = (r_count - 2) * hop + nfft
     acc_l = of.new_zeros(of.shape[:-2] + (span_l,))
     for f in range(r_count - 1):

@@ -22,7 +22,14 @@ at
 The streaming rows run the reference bench's stream (`--stream-chunks`
 device-resident chunks of 2 097 152 mono samples, uniform noise in +-0.9
 from seed 9, N=1024, H=256, center=False) through `BlockedChunkStreamer`
-and, as int16, through both tiers of `I16BlockedStreamer`.
+and, as int16, through both tiers of `I16BlockedStreamer`. The config-5
+rows stream `--config5-chunks` chunks of `--config5-channels` (default
+128, BASELINE.json config 5's width) x 2^20 samples (uniform noise in
++-0.9 made on the device from seed 5) through `ShardedStreamer` on a (1,
+1) mesh, identity (blocked, B0) and noise_gate (masked, B3). The
+accumulator row pushes the first 5 s (at most `--seconds`) of the 48 kHz
+signal through `Framer` (10 ms interleaved pushes) and `OLAAccumulator`
+(N=1024, H=256, Hann inside, one produce a hop; its drain is K6).
 On a CPU device the device time is "not measured".
 """
 
@@ -42,6 +49,7 @@ import torch
 
 WARMUPS, CALLS = 3, 5
 STREAM_CHUNK = 2_097_152
+OLA_SECONDS = 5.0  # of the 48 kHz signal through the accumulator row
 
 
 def _sync(dev: torch.device) -> None:
@@ -143,6 +151,9 @@ def main(argv=None) -> int:
     ap.add_argument("--stream-chunks", type=int, default=13,
                     help=f"chunks of {STREAM_CHUNK} samples in the "
                     f"streaming rows (default 13, the bench's 9.47 min)")
+    ap.add_argument("--config5-chunks", type=int, default=4,
+                    help="chunks of 128 x 2^20 samples in the config-5 rows")
+    ap.add_argument("--config5-channels", type=int, default=128)
     args = ap.parse_args(argv)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -220,22 +231,68 @@ def main(argv=None) -> int:
     x16 = torch.clamp(torch.round(xs * 32768.0), -32768, 32767).to(
         torch.int16)
 
-    def stream(st, x):
-        ys = [st.feed(c, force=False) for c in x.split(STREAM_CHUNK)]
+    def stream(st, chunks):
+        ys = [st.feed(c, force=False) for c in chunks]
         return ys + [st.finish(force=False)]
 
     streams = {
         "BlockedChunkStreamer (f32)": lambda: stream(
-            pt.BlockedChunkStreamer(cfg_nc), xs),
+            pt.BlockedChunkStreamer(cfg_nc), xs.split(STREAM_CHUNK)),
         "I16BlockedStreamer int8x2": lambda: stream(
-            pt.I16BlockedStreamer(cfg_nc, tier="int8x2"), x16),
+            pt.I16BlockedStreamer(cfg_nc, tier="int8x2"),
+            x16.split(STREAM_CHUNK)),
         "I16BlockedStreamer int8x1": lambda: stream(
-            pt.I16BlockedStreamer(cfg_nc, tier="int8x1"), x16),
+            pt.I16BlockedStreamer(cfg_nc, tier="int8x1"),
+            x16.split(STREAM_CHUNK)),
     }
     for name, fn in streams.items():
         print(profile_call(f"{name}, {args.stream_chunks} x {STREAM_CHUNK} "
                            f"mono", fn, dev), flush=True)
+    del xs, x16
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    chunks5 = [torch.rand((args.config5_channels, 1 << 20), generator=g,
+                          device=dev) * 1.8 - 0.9
+               for _ in range(args.config5_chunks)]
+    for name, fn in (("identity (blocked, B0)", None),
+                     ("noise_gate (masked, B3)", gate)):
+        print(profile_call(
+            f"ShardedStreamer {name}, (1, 1), {args.config5_chunks} x "
+            f"{args.config5_channels} ch x 2^20",
+            lambda fn=fn: stream(pt.ShardedStreamer(cfg_nc, mesh11, fn),
+                                 chunks5), dev), flush=True)
+    del chunks5
+    ola_s = min(OLA_SECONDS, args.seconds)
+    print(profile_call(f"Framer + OLAAccumulator, 2 x {ola_s:g} s",
+                       lambda: _ola_stream(x48, ola_s, dev), dev), flush=True)
     return 0
+
+
+def _ola_stream(x48: torch.Tensor, seconds: float, dev: torch.device):
+    """The first `seconds` of x48 pushed through a Framer in interleaved
+    10 ms blocks, each frame into an OLAAccumulator at k*hop and one hop
+    produced after it, then flushed and drained."""
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch.window.windows import get_window
+
+    n, hop = 1024, 256
+    cfg = pt.OLAConfig(sample_rate=48000, frame_size=n, hop_size=hop,
+                       channels=2)
+    fr = pt.Framer(n, hop, 2, device=dev)
+    acc = pt.OLAAccumulator(cfg, device=dev)
+    acc.set_window(get_window(pt.WindowType.HANN, n, periodic=True))
+    aos = x48[:, : int(48000 * seconds)].t().contiguous().cpu().numpy()
+    aos = aos.reshape(-1)
+    k, outs = 0, []
+    for i in range(0, aos.size, 960):
+        fr.push(aos[i : i + 960])
+        while (f := fr.pop()) is not None:
+            acc.add_frame_soa(f, k * hop)
+            outs.append(acc.produce(hop))
+            k += 1
+    acc.flush()
+    outs.append(acc.produce(cfg.ring_len))
+    return outs
 
 
 if __name__ == "__main__":

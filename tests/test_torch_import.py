@@ -45,6 +45,37 @@ def test_import_pulls_in_no_jax_crlot_tpu_or_triton(tmp_path):
     assert "LIB None" in out.stdout
 
 
+def test_streaming_layer_names_import_no_jax(tmp_path):
+    """The reference's top-level streaming and FFT-plan names, and the
+    sharded streamer, come from the port without importing jax."""
+    code = (
+        "import sys, crlot_tpu_torch as pt\n"
+        "names = ['Framer', 'OLAConfig', 'BoundaryMode', 'FftDomain', "
+        "'FftPlanDesc', 'FftPlan', 'make_fft_plan', 'WavReader', "
+        "'WavWriter', 'PeakMeter', 'xcorr_delay_ms', 'checkpoint', "
+        "'OLAAccumulator', 'ShardedStreamer', 'sharded_stream', "
+        "'sharded_stream_iter']\n"
+        "missing = [n for n in names if not hasattr(pt, n)]\n"
+        "missing += [n for n in ('ShardedStreamer', 'sharded_stream', "
+        "'sharded_stream_iter') if not hasattr(pt.distributed, n)]\n"
+        "import crlot_tpu_torch.checkpoint, crlot_tpu_torch.fft.api, "
+        "crlot_tpu_torch.frame.streaming, crlot_tpu_torch.ola.streaming, "
+        "crlot_tpu_torch.distributed.stream\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'crlot_tpu', 'triton'))\n"
+        "print('MISSING', missing)\n"
+        "print('BAD', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=tmp_path, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "MISSING []" in out.stdout
+    assert "BAD []" in out.stdout
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

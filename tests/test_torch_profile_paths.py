@@ -21,3 +21,18 @@ def test_report_orders_device_events_and_gives_the_idle_share():
                     "idle share 0.950")
     assert big.split() == ["0.1800", "ms", "x1", "big"]
     assert small.split() == ["0.0200", "ms", "x2", "small"]
+
+
+def test_accumulator_row_reconstructs_its_input():
+    """The Framer + OLAAccumulator row on the CPU: one frame a hop, drained
+    a hop at a time, then flushed; the interior is the input."""
+    import numpy as np
+
+    from crlot_tpu_torch.metrics import snr_db
+
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1, 1, (2, 9600)).astype(np.float32))
+    y = torch.cat(P._ola_stream(x, 0.2, torch.device("cpu")), dim=1)
+    span = (9600 - 1024) // 256 * 256 + 1024  # the full frames' span
+    assert tuple(y.shape) == (2, span)
+    assert snr_db(x[:, 1024:span - 1024], y[:, 1024:span - 1024]) > 100
