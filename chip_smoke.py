@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from `crlot_tpu_torch/csrc/` (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version on the card, then runs
-six paths through the public entry points, each with the kernels' launch
+seven paths through the public entry points, each with the kernels' launch
 counters reset just before and read just after: on 2 channels x 60 s at
 48 kHz, N=1024 / H=256, Hann, seed 0, the round-trip path (`round_trip`,
 `stft`, `istft`; centered) and the fused-frames and sharded path
@@ -173,6 +173,44 @@ before:
      max-abs < 1e-4) and every output within 2^-22 * sum|input| of its row
      of the CPU's (`torch.fft`), the bound `tests/test_torch_fft_plan.py`
      states.
+Then the analysis path, with the B1 and B0 fp32 counters reset just
+before (the features' filterbank products run on B0's fp32 kernel), on the main
+path's 2 ch x 60 s (N=1024, H=256, Hann, centered). Its counts are those of
+its untimed calls (each timed or profiled repeat puts them back), and every
+B0 fp32 launch of those calls is held torch.equal to the fmaf chain
+(`fp32_window.chain_plain`) on its own operands (`ProductHold`):
+ 30. The IIR filters (the log-depth scan, float64): `sosfilt` with
+     `butter_sos(8, 1 kHz)` and `a_weighting_sos(48 kHz)`, `lfilter` of
+     scipy's `butter(4, 0.25)`, `sosfiltfilt`, `deemphasis(preemphasis(x))`:
+     each >= 70 dB against scipy.signal in float64 on the host (the
+     round-trip >= 100 dB against x) and torch.equal to the port on the
+     host CPU; `sosfilt` in chunks of 2^18 with a carried zi > 90 dB
+     against one-shot (tests/test_iir.py's gate); then at BASELINE config
+     5's width (128 x 2^20, uniform noise in +-0.9 made on the card from
+     seed 5): samples/s on the host clock (median of 3), device time and
+     idle share (`torch.profiler`, 2 calls), peak device memory. C18: the
+     A and C weighting filters' cascade in float64 (>= 70 dB), float32 and
+     float32 with float64 combines against scipy, and each variant's time
+     for `a_weighting_sos` at config 5's width.
+ 31. The features (`mel_spectrogram`, `mfcc`, `pcen` of the mel, spectral
+     centroid / bandwidth / rolloff / flatness / contrast, `chroma`,
+     `chroma_cqt`, `lpc`, zero-crossing rate, `frame_rms`, `envelope`):
+     the first 1 s of frames (the envelope: the whole signal) within
+     FEATURE_TOL of a float64 numpy / scipy computation, on the card and in
+     the port on the host CPU, and card vs host CPU within twice it; two
+     1-channel shards on the card torch.equal to the 2-channel call for
+     each of them but the envelope, and `sosfilt`, `pseudo_cqt`, `tonnetz`;
+     `mel_spectrogram` + `pcen` at config 5's width as in phase 30.
+ 32. `griffin_lim` (32 iterations, synthesis window) of the magnitude of 2
+     ch x 60 s of tones and a 100 Hz -> 8 kHz chirp: 33 B1 launches,
+     spectral convergence <= -20 dB (tests/test_griffinlim.py's gate), wall
+     and device time; card vs host CPU from one initial phase at 2
+     iterations >= 90 dB (the initial phase, hashed on the card,
+     torch.equal to the host CPU's); `mel_to_audio` once (128 mels), wall
+     and device time.
+ 33. `split_silence` / `trim_silence` (top_db 40) of 60 s of tones with 2 s
+     of digital silence between them: the same intervals as the port on
+     the host CPU, each covering its tone within a frame.
 Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
 busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
@@ -813,6 +851,7 @@ def main() -> int:
     path4 = wire_path(dev, phase, check, failures)
     path5 = int8_tier_path(dev, phase, check, failures, x, x_np)
     path6 = stream_path(dev, phase, check, failures, x_np)
+    path7 = analysis_path(dev, phase, check, failures, x_np)
 
     # Timings.
     def e2e_rate(fn, samples=2 * n):
@@ -958,7 +997,8 @@ def main() -> int:
          "library_ms": timing["b0_library"]},
         {"name": "ola_normalized (B1)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/ola_fused.cu",
-         "replaces": "crlot_tpu/ola/fused.py:39", "launches": counts["b1"],
+         "replaces": "crlot_tpu/ola/fused.py:39",
+         "launches": counts["b1"] + path7["counts"]["b1"],
          "max_abs_err": results["b1_err"], "ms": timing["b1"],
          "plain_ms": timing["b1_plain"],
          **bound(nbytes(frames, norm) + 2 * full * 4, frames.numel()),
@@ -1013,7 +1053,8 @@ def main() -> int:
         "source": "crlot_tpu_torch/csrc/fp32_window.cu",
         "replaces": "crlot_tpu/fft/matmul_backend.py:633",
         "launches": (counts2["b0_fp32"] + path4["counts"]["b0_fp32"]
-                     + path6["counts"]["b0_fp32"]),
+                     + path6["counts"]["b0_fp32"]
+                     + path7["counts"]["b0_fp32"]),
         "max_abs_err": path_b0["fp32_err"], "ms": timing["b0_fp32"],
         "plain_ms": timing["b0_fp32_plain"],
         **bound(nbytes(x_ext, kern0) + x_ext.shape[0] * rows0 * gh0 * 4,
@@ -1875,6 +1916,61 @@ class EdgePatchHold:
                 f"HIGHEST (each torch.equal to the fmaf chain)")
 
 
+class ProductHold:
+    """Every launch of B0's fp32 kernel while the context is open (in
+    phases 31 and 32 the features' filterbank and DCT products,
+    `features._product`, at the shapes the path gives them), kept with its
+    operands and held bit for bit against `fp32_window.chain_plain` (the
+    kernel's fmaf chain) on them by `verify`. The operands' version
+    counters show that nothing wrote them between the launch and the
+    check."""
+
+    def __init__(self, check):
+        from crlot_tpu_torch.fft import fp32_window
+
+        self.b0f, self.check = fp32_window, check
+        self.kept = []
+        self.held = 0
+        self.shapes = set()
+
+    def __enter__(self):
+        self.orig = launch = self.b0f.gemm_cuda
+
+        def spy(a, kern, rows=None, lda=None):
+            out = launch(a, kern, rows=rows, lda=lda)
+            self.kept.append((a, kern, rows, lda, out, a._version,
+                              kern._version, out._version))
+            return out
+
+        self.b0f.gemm_cuda = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.b0f.gemm_cuda = self.orig
+
+    def verify(self) -> None:
+        """Hold the launches kept since the last call."""
+        import torch
+
+        for a, kern, rows, lda, out, va, vk, vo in self.kept:
+            what = f"B0 fp32 {list(a.shape)} x {list(kern.shape)}"
+            self.check((a._version, kern._version, out._version)
+                       == (va, vk, vo),
+                       f"{what}: operands written after launch")
+            want = self.b0f.chain_plain(a, kern, rows=rows, lda=lda)
+            self.check(torch.equal(out, want),
+                       f"{what}: != the fmaf chain emulation, max-abs "
+                       f"{float((out - want).abs().max()):.3e}")
+            self.held += 1
+            self.shapes.add((tuple(a.shape), tuple(kern.shape)))
+        self.kept.clear()
+
+    def summary(self) -> str:
+        return (f"{self.held} launches of B0 fp32 (the features' products) "
+                f"held torch.equal to the fmaf chain on their operands, "
+                f"{len(self.shapes)} shapes")
+
+
 EDGE_BOUND = 2.0 ** -14  # K * 2^-24 at K = N = 1024
 
 
@@ -2691,6 +2787,529 @@ def stream_path(dev, phase, check, failures, x_np) -> dict:
     if not all(out["counts"].values()):
         failures.append("launch counts (path 6)")
         log("FAIL launch counts: a kernel of the path was not launched")
+    return out
+
+
+ANALYSIS_SEED = 5  # the config-5 width signal, made on the card
+IIR_CHUNK = 1 << 18  # phase 30's chunked stream
+GL_ITERS = 32
+GL_CHECK_ITERS = 2  # phase 32's card vs host CPU, from one initial phase
+FEATURE_FRAMES = SR // HOP  # frames held against float64: the first 1 s
+C18_VARIANTS = ("float64", "float32", "float32_f64_combines")
+# Phase 31's bounds against the float64 host computation of the same
+# function, each relative to the largest |value| of the feature over the
+# compared frames, except mfcc (absolute, in the dB domain: the atol of
+# tests/test_features.py::test_mfcc_matches_scipy_dct_of_logmel) and lpc
+# (|a - a64| <= 5e-3 |a64| + 5e-4: the gate of
+# tests/test_features.py::test_lpc_matches_normal_equation_oracle).
+# spectral_rolloff is held to one bin (SR / NFFT Hz). The card and the
+# port on the host CPU each meet these bounds; card vs host CPU, twice them.
+FEATURE_TOL = {
+    "mel_spectrogram": 1e-5, "mfcc": 2e-3, "pcen": 1e-5,
+    "spectral_centroid": 1e-5, "spectral_bandwidth": 1e-5,
+    "spectral_flatness": 1e-4, "spectral_contrast": 1e-3, "chroma": 1e-5,
+    "chroma_cqt": 1e-5, "lpc": 5e-3, "zero_crossing_rate": 1e-6,
+    "frame_rms": 1e-6, "envelope": 1e-5,
+}
+LPC_ORDER = 16
+
+
+def _f64_features(x_np, cfg) -> dict:
+    """Phase 31's float64 host computations of the first FEATURE_FRAMES
+    frames of each channel (envelope: the whole signal), from numpy and
+    scipy and the port's float32 design arrays read as float64."""
+    import numpy as np
+    import scipy.linalg
+    import scipy.signal
+
+    from crlot_tpu_torch import features as F
+    from crlot_tpu_torch.pipeline import _window_f64
+
+    x64 = x_np.astype(np.float64)
+    w = _window_f64(cfg)
+    pad = NFFT // 2
+    xp = np.pad(x64[:, : SR + 2 * NFFT], ((0, 0), (pad, pad)),
+                mode="reflect")  # numpy's reflect is reflect101
+    idx = np.arange(FEATURE_FRAMES)[:, None] * HOP + np.arange(NFFT)[None]
+    frames = xp[:, idx]  # [C, F0, N]
+    p = np.abs(np.fft.rfft(frames * w, axis=-1)) ** 2
+    freqs = np.fft.rfftfreq(NFFT, 1.0 / SR)
+    mag = np.sqrt(p)
+    out = {}
+    mel = p @ F.mel_filterbank(SR, NFFT, 64).astype(np.float64).T
+    out["mel_spectrogram"] = mel
+    logmel = 10.0 * np.log10(np.maximum(mel, 1e-10))
+    out["mfcc"] = logmel @ F._dct_ii_ortho(13, 64).astype(np.float64).T
+    t = 0.4 * SR / HOP
+    s = (np.sqrt(1.0 + 4.0 * t * t) - 1.0) / (2.0 * t * t)
+    m = np.empty_like(mel)
+    prev = mel[:, 0]
+    for k in range(mel.shape[1]):
+        prev = (1 - s) * prev + s * mel[:, k]
+        m[:, k] = prev
+    out["pcen"] = (mel / (1e-6 + m) ** 0.98 + 2.0) ** 0.5 - 2.0 ** 0.5
+    den = mag.sum(-1)
+    cent = (mag * freqs).sum(-1) / den
+    out["spectral_centroid"] = cent
+    out["spectral_bandwidth"] = np.sqrt(
+        (mag * (freqs - cent[..., None]) ** 2).sum(-1) / den)
+    csum = np.cumsum(p, axis=-1)
+    out["spectral_rolloff"] = freqs[np.argmax(csum >= 0.85 * csum[..., -1:],
+                                              axis=-1)]
+    pe = p + 1e-10
+    out["spectral_flatness"] = np.exp(np.log(pe).mean(-1)) / pe.mean(-1)
+    cols = []
+    for lo, hi in F._contrast_band_slices(SR, NFFT, 6, 200.0):
+        nb = hi - lo
+        k = max(1, int(round(0.02 * nb)))
+        srt = np.sort(p[..., lo:hi], axis=-1)
+        cols.append(10.0 * np.log10(
+            np.maximum(srt[..., nb - k:].mean(-1), 1e-20)
+            / np.maximum(srt[..., :k].mean(-1), 1e-20)))
+    out["spectral_contrast"] = np.stack(cols, axis=-1)
+    out["chroma"] = p @ F.chroma_filterbank(SR, NFFT).astype(np.float64).T
+    cqt = p @ F.cqt_filterbank(SR, NFFT, 84, 12, 32.703194).astype(
+        np.float64).T
+    out["chroma_cqt"] = cqt.reshape(cqt.shape[:-1] + (7, 12)).sum(-2)
+    fw = frames * w
+    r = np.stack([(fw[..., : NFFT - k] * fw[..., k:]).sum(-1)
+                  for k in range(LPC_ORDER + 1)], axis=-1)
+    a = np.zeros(r.shape)
+    for c in range(r.shape[0]):
+        for f in range(r.shape[1]):
+            rr = r[c, f]
+            toe = scipy.linalg.toeplitz(rr[:LPC_ORDER])
+            a[c, f] = np.concatenate(
+                [[1.0], np.linalg.solve(toe, -rr[1 : LPC_ORDER + 1])])
+    out["lpc"] = a
+    pos = frames >= 0
+    out["zero_crossing_rate"] = (pos[..., 1:] != pos[..., :-1]).mean(-1)
+    out["frame_rms"] = np.sqrt((frames ** 2).mean(-1))
+    out["envelope"] = np.abs(scipy.signal.hilbert(x64, axis=-1))
+    return out
+
+
+def _feature_calls(cfg) -> dict:
+    """Phase 31's functions of a signal tensor, by name."""
+    import crlot_tpu_torch as pt
+
+    def mel(x):
+        return pt.mel_spectrogram(x, cfg, SR)
+
+    return {
+        "mel_spectrogram": mel,
+        "mfcc": lambda x: pt.mfcc(x, cfg, SR),
+        "pcen": lambda x: pt.pcen(mel(x), SR / HOP),
+        "spectral_centroid": lambda x: pt.spectral_centroid(x, cfg, SR),
+        "spectral_bandwidth": lambda x: pt.spectral_bandwidth(x, cfg, SR),
+        "spectral_rolloff": lambda x: pt.spectral_rolloff(x, cfg, SR),
+        "spectral_flatness": lambda x: pt.spectral_flatness(x, cfg),
+        "spectral_contrast": lambda x: pt.spectral_contrast(x, cfg, SR),
+        "chroma": lambda x: pt.chroma(x, cfg, SR),
+        "chroma_cqt": lambda x: pt.chroma_cqt(x, cfg, SR),
+        "lpc": lambda x: pt.lpc(x, cfg, order=LPC_ORDER),
+        "zero_crossing_rate": lambda x: pt.zero_crossing_rate(x, cfg),
+        "frame_rms": lambda x: pt.frame_rms(x, cfg),
+        "envelope": lambda x: pt.envelope(x),
+    }
+
+
+def _feature_err(name, got, want) -> float:
+    """got (float32, numpy) against want (float64) as FEATURE_TOL measures
+    it: the fraction of the bound used (<= 1 passes)."""
+    import numpy as np
+
+    d = np.abs(got.astype(np.float64) - want)
+    if name == "spectral_rolloff":
+        return float(d.max()) / (SR / NFFT)
+    if name == "mfcc":
+        return float(d.max()) / FEATURE_TOL[name]
+    if name == "lpc":
+        return float((d / (FEATURE_TOL[name] * np.abs(want) + 5e-4)).max())
+    return float(d.max()) / (FEATURE_TOL[name] * float(np.abs(want).max()))
+
+
+def _silence_signal():
+    """Phase 33's 60 s mono signal: ten 6 s blocks of 2 s of digital
+    silence then a 4 s tone (220 + 110 k Hz, amplitude 0.5); returns it
+    and the tones' sample spans."""
+    import numpy as np
+
+    block, gap = 6 * SR, 2 * SR
+    x = np.zeros(SECONDS * SR, np.float32)
+    spans = []
+    t = np.arange(block - gap) / SR
+    for k in range(SECONDS // 6):
+        s = k * block + gap
+        x[s : s + block - gap] = 0.5 * np.sin(2 * np.pi * (220 + 110 * k) * t)
+        spans.append((s, s + block - gap))
+    return x, spans
+
+
+def _c18_scan(sos, x2, variant):
+    """`iir._cascade` on x2 [B, T] from a zero state in one of C18's scan
+    variants: "float64" (sosfilt's), "float32", or "float32_f64_combines"
+    (float32 storage, each combine computed in float64 and rounded)."""
+    import torch
+
+    from crlot_tpu_torch import iir
+
+    orig = iir._combine
+
+    def combine(m1, v1, m2, v2):
+        m, v = orig(m1.double(), v1.double(), m2.double(), v2.double())
+        return m.float(), v.float()
+
+    dtype = torch.float64 if variant == "float64" else torch.float32
+    if variant == "float32_f64_combines":
+        iir._combine = combine
+    try:
+        y, _ = iir._cascade(sos, x2, x2.new_zeros((sos.shape[0],
+                                                   x2.shape[0], 2)), dtype)
+    finally:
+        iir._combine = orig
+    return y.float()
+
+
+def analysis_path(dev, phase, check, failures, x_np) -> dict:
+    """Phases 30-33, with the B1 and B0 fp32 counters reset just before:
+    the IIR filters, the features, Griffin-Lim and the segmentation on the
+    card. The counts are those of the path's untimed calls: every timed or
+    profiled repeat puts them back as it found them. Every B0 fp32 launch
+    of those calls is held against its plain version (`ProductHold`)."""
+    import numpy as np
+    import scipy.signal
+    import torch
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch import griffinlim
+    from crlot_tpu_torch.fft import fp32_window as b0f
+    from crlot_tpu_torch.metrics import snr_db
+    from crlot_tpu_torch.ola import fused as b1
+    from crlot_tpu_torch.profile_paths import _activities, _device_events
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    cfg = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=True)
+    x = torch.from_numpy(x_np).to(dev)
+    x_cpu = torch.from_numpy(x_np)
+    out = {"results": {}}
+    b1.launches = 0
+    b0f.launches = 0
+    hold = ProductHold(check)
+
+    def held(fn):
+        """One untimed call of the path, its B0 fp32 launches held."""
+        with hold:
+            got = fn()
+            sync()
+        hold.verify()
+        return got
+
+    def uncounted(fn):
+        """A timing repeat: the launch counts are put back afterwards."""
+        counted = b1.launches, b0f.launches
+        try:
+            return fn()
+        finally:
+            b1.launches, b0f.launches = counted
+
+    def host_rate(fn, samples, reps=3):
+        def run():
+            fn()
+            sync()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                times.append(time.perf_counter() - t0)
+            return times
+
+        times = uncounted(run)
+        return samples / statistics.median(times), statistics.median(times)
+
+    def profiled(fn, calls=2):
+        """(device ms a call, top device events) over `calls` calls."""
+        def run():
+            with torch.profiler.profile(activities=_activities(dev)) as prof:
+                for _ in range(calls):
+                    fn()
+                sync()
+            return prof
+
+        rows = _device_events(uncounted(run))
+        dev_ms = sum(us for _, us in rows.values()) / 1e3 / calls
+        top = sorted(rows.items(), key=lambda r: -r[1][1])[:4]
+        return dev_ms, ", ".join(f"{k[:32]} x{c / calls:g} "
+                                 f"{us / calls / 1e3:.2f} ms"
+                                 for k, (c, us) in top)
+
+    def wide_signal():
+        g = torch.Generator(device=dev).manual_seed(ANALYSIS_SEED)
+        return torch.rand((STREAM_CH, STREAM_CHUNK), generator=g,
+                          device=dev) * 1.8 - 0.9
+
+    def wide(label, fn):
+        """One untimed call of fn at config 5's width (its B0 fp32 launches
+        held), then its samples/s, idle share and peak memory."""
+        x5 = wide_signal()
+        got = held(lambda: fn(x5))
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite at "
+              f"{STREAM_CH} x {STREAM_CHUNK}")
+        del got
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        rate, wall = host_rate(lambda: fn(x5), x5.numel())
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else 0.0
+        dev_ms, top = profiled(lambda: fn(x5))
+        idle = 1 - dev_ms / (wall * 1e3)
+        out["results"][label] = dict(rate=rate, wall_ms=wall * 1e3,
+                                     device_ms=dev_ms, idle=idle, peak=peak)
+        return (f"{label} at {STREAM_CH} x {STREAM_CHUNK}: {rate:.4e} "
+                f"samples/s ({wall * 1e3:.2f} ms host clock, median of 3), "
+                f"device {dev_ms:.2f} ms, idle share {idle:.3f}, peak "
+                f"memory {peak:.2f} GiB; device events {top}")
+
+    def p30():
+        lines = []
+        x64 = x_np.astype(np.float64)
+        sos8 = pt.butter_sos(8, 1000.0, "lowpass", fs=SR)
+        sos_a = pt.a_weighting_sos(float(SR))
+        b4, a4 = scipy.signal.butter(4, 0.25)
+        filters = {
+            "sosfilt butter_sos(8, 1 kHz)": (
+                lambda z: pt.sosfilt(sos8, z),
+                lambda: scipy.signal.sosfilt(sos8, x64, axis=-1), 70.0),
+            "sosfilt a_weighting_sos(48 kHz)": (
+                lambda z: pt.sosfilt(sos_a, z),
+                lambda: scipy.signal.sosfilt(sos_a, x64, axis=-1), 70.0),
+            "lfilter butter(4, 0.25)": (
+                lambda z: pt.lfilter(b4, a4, z),
+                lambda: scipy.signal.lfilter(b4, a4, x64, axis=-1), 70.0),
+            "sosfiltfilt butter_sos(8, 1 kHz)": (
+                lambda z: pt.sosfiltfilt(sos8, z),
+                lambda: scipy.signal.sosfiltfilt(sos8, x64, axis=-1), 70.0),
+            "deemphasis(preemphasis(x))": (
+                lambda z: pt.deemphasis(pt.preemphasis(z)),
+                lambda: x64, 100.0),
+        }
+        for name, (fn, oracle, gate) in filters.items():
+            got = fn(x)
+            sync()
+            check(tuple(got.shape) == tuple(x.shape), f"{name}: shape")
+            g = got.cpu()
+            snr = snr_db(oracle().astype(np.float32), g.numpy())
+            check(snr >= gate, f"{name}: {snr:.2f} dB vs float64 (< {gate})")
+            same = torch.equal(g, fn(x_cpu))
+            check(same, f"{name}: card != the port on the host CPU")
+            lines.append(f"{name} {snr:.2f} dB vs float64, == host CPU")
+        y1 = pt.sosfilt(sos8, x)
+        z = torch.zeros((sos8.shape[0], 2, 2), device=dev)
+        parts = []
+        for c in x.split(IIR_CHUNK, dim=-1):
+            y, z = pt.sosfilt(sos8, c, zi=z)
+            parts.append(y)
+        chunked = torch.cat(parts, dim=-1)
+        sync()
+        snr = snr_db(y1.cpu().numpy(), chunked.cpu().numpy())
+        check(snr > 90.0, f"chunked vs one-shot {snr:.2f} dB (<= 90)")
+        lines.append(f"chunks of {IIR_CHUNK} with carried zi vs one-shot "
+                     f"{snr:.2f} dB (> 90, tests/test_iir.py's gate; "
+                     f"bit-equal {torch.equal(y1, chunked)})")
+        lines.append(wide("sosfilt butter_sos(8)",
+                          lambda z: pt.sosfilt(sos8, z)))
+        # C18: what a float32 scan would lose, and what float64 costs.
+        c18 = {}
+        for dname, sos in (("A", sos_a), ("C", pt.c_weighting_sos(float(SR)))):
+            want = scipy.signal.sosfilt(sos, x64, axis=-1).astype(np.float32)
+            for v in C18_VARIANTS:
+                got = _c18_scan(sos, x, v).cpu().numpy()
+                c18[f"{dname} {v} dB"] = snr_db(want, got)
+        check(min(c18["A float64 dB"], c18["C float64 dB"]) >= 70.0,
+              f"C18: the float64 scan of the weighting filters: {c18}")
+        x5 = wide_signal()
+        for v in C18_VARIANTS:
+            c18[f"{v} ms"] = 1e3 * host_rate(
+                lambda: _c18_scan(sos_a, x5, v), x5.numel())[1]
+        del x5
+        out["results"]["c18"] = c18
+        lines.append(
+            "C18 (sosfilt's cascade in each scan variant) vs scipy float64: "
+            + ", ".join(f"{d} {v} {c18[f'{d} {v} dB']:.2f} dB"
+                        for d in "AC" for v in C18_VARIANTS)
+            + f"; a_weighting_sos ({sos_a.shape[0]} sections) at "
+            f"{STREAM_CH} x {STREAM_CHUNK}: " + ", ".join(
+                f"{v} {c18[f'{v} ms']:.2f} ms" for v in C18_VARIANTS)
+            + " (host clock, median of 3)")
+        return "; ".join(lines)
+
+    def p31():
+        lines = []
+        want = _f64_features(x_np, cfg)
+        f0 = FEATURE_FRAMES
+        worst = {}
+        for name, fn in _feature_calls(cfg).items():
+            g = held(lambda: fn(x)).cpu().numpy()
+            h = fn(x_cpu).numpy()
+            check(g.shape == h.shape and np.isfinite(g).all(),
+                  f"{name}: shape {g.shape} or non-finite")
+            ref = want[name]
+            sl = (slice(None),) if name == "envelope" else (
+                slice(None), slice(0, f0))
+            e_card = _feature_err(name, g[sl], ref)
+            e_cpu = _feature_err(name, h[sl], ref)
+            e_pair = _feature_err(name, g, h.astype(np.float64)) / 2
+            worst[name] = (e_card, e_cpu, e_pair)
+            check(max(e_card, e_cpu, e_pair) <= 1.0,
+                  f"{name}: card {e_card:.3g}, host CPU {e_cpu:.3g}, card vs "
+                  f"host CPU {e_pair:.3g} of the bound")
+        lines.append("fraction of the bound vs float64 (card / host CPU port "
+                     "/ card vs host CPU at twice it): " + ", ".join(
+                         f"{k} {a:.3g}/{b:.3g}/{c:.3g}"
+                         for k, (a, b, c) in worst.items()))
+        out["results"]["feature_worst"] = max(
+            max(v) for v in worst.values())
+        sos8 = pt.butter_sos(8, 1000.0, "lowpass", fs=SR)
+        # The envelope's FFT runs over whole channels, batched by the FFT
+        # library (the CPU's vectorizes across rows): not held here.
+        split = dict(_feature_calls(cfg), **{
+            "sosfilt": lambda z: pt.sosfilt(sos8, z),
+            "pseudo_cqt": lambda z: pt.pseudo_cqt(z, cfg, SR),
+            "tonnetz": lambda z: pt.tonnetz(z, cfg, SR),
+        })
+        del split["envelope"]
+        equal = {}
+        for name, fn in split.items():
+            whole = held(lambda: fn(x))
+            shards = torch.cat([held(lambda: fn(x[:1].clone())),
+                                held(lambda: fn(x[1:].clone()))])
+            equal[name] = torch.equal(whole, shards)
+            if not equal[name]:
+                err = float((whole - shards).abs().max())
+                equal[name] = f"max-abs {err:.3g}"
+        out["results"]["split"] = equal
+        check(all(v is True for v in equal.values()),
+              f"two 1-channel shards != the 2-channel call: {equal}")
+        lines.append("two 1-channel shards torch.equal to the 2-channel "
+                     "call: " + ", ".join(equal))
+        lines.append(wide("mel_spectrogram + pcen", lambda z: pt.pcen(
+            pt.mel_spectrogram(z, cfg, SR), SR / HOP)))
+        lines.append(hold.summary())
+        return "; ".join(lines)
+
+    def p32():
+        lines = []
+        cfg_s = dataclasses.replace(cfg, synthesis_window=True)
+        n = x_np.shape[-1]
+        t = np.arange(n) / SR
+        tones = (0.3 * np.sin(2 * np.pi * 440 * t)
+                 + 0.2 * np.sin(2 * np.pi * 1337 * t)
+                 + 0.1 * np.sin(2 * np.pi * 3000 * t))
+        dur = n / SR
+        chirp = 0.4 * np.sin(2 * np.pi * (100 * t + (8000 - 100) / (2 * dur)
+                                          * t * t))
+        xg = torch.from_numpy(np.stack([tones, chirp]).astype(np.float32))
+        mag = pt.stft_magnitude(xg.to(dev), cfg_s)
+        before = b1.launches
+        y = pt.griffin_lim(mag, cfg_s, iters=GL_ITERS, length=n)
+        sync()
+        gl_b1 = b1.launches - before
+        check(tuple(y.shape) == (2, n) and bool(torch.isfinite(y).all()),
+              "griffin_lim: shape or non-finite")
+        if cuda:
+            check(gl_b1 == GL_ITERS + 1,
+                  f"griffin_lim launched B1 {gl_b1} times, not {GL_ITERS + 1}")
+        m2 = pt.stft_magnitude(y, cfg_s)
+        sc = 20 * math.log10(float(torch.linalg.norm(m2 - mag))
+                             / float(torch.linalg.norm(mag)))
+        check(sc <= -20.0, f"spectral convergence {sc:.2f} dB (> -20)")
+        _, wall = host_rate(lambda: pt.griffin_lim(
+            mag, cfg_s, iters=GL_ITERS, length=n), 1)
+        dev_ms, top = profiled(lambda: pt.griffin_lim(
+            mag, cfg_s, iters=GL_ITERS, length=n))
+        out["results"].update(gl_sc=sc, gl_wall_ms=wall * 1e3,
+                              gl_device_ms=dev_ms, gl_b1=gl_b1)
+        lines.append(f"griffin_lim 2 x {n} (tones + chirp), {GL_ITERS} iters: "
+                     f"spectral convergence {sc:.2f} dB (<= -20), B1 "
+                     f"launches {gl_b1} (iters + 1); {wall * 1e3:.2f} ms host "
+                     f"clock (median of 3), device {dev_ms:.2f} ms, idle "
+                     f"share {1 - dev_ms / (wall * 1e3):.3f}; device events "
+                     f"{top}")
+        mag_cpu = mag.cpu()
+        ph0 = griffinlim.initial_phase(mag.shape, 0, "cpu")
+        ph0_card = griffinlim.initial_phase(mag.shape, 0, dev)
+        check(torch.equal(ph0_card.cpu(), ph0),
+              "griffin_lim's initial phase: card != host CPU")
+        lines.append(f"initial phase ({ph0.numel()} values, hashed on the "
+                     f"magnitude's device) torch.equal to the host CPU's")
+        yc = griffinlim._griffin_lim_from(mag, ph0_card, cfg_s,
+                                          GL_CHECK_ITERS, 0.99, n)
+        yh = griffinlim._griffin_lim_from(mag_cpu, ph0, cfg_s,
+                                          GL_CHECK_ITERS, 0.99, n)
+        snr = snr_db(yh.numpy(), yc.cpu().numpy())
+        check(snr >= 90.0, f"card vs host CPU at {GL_CHECK_ITERS} iters "
+              f"{snr:.2f} dB (< 90)")
+        lines.append(f"card vs host CPU from one initial phase at "
+                     f"{GL_CHECK_ITERS} iters: {snr:.2f} dB (>= 90)")
+        mel = held(lambda: pt.mel_spectrogram(xg.to(dev), cfg_s, SR,
+                                              n_mels=128))
+        with hold:
+            t0 = time.perf_counter()
+            ya = pt.mel_to_audio(mel, cfg_s, SR, n_mels=128, length=n)
+            sync()
+            wall = time.perf_counter() - t0
+        hold.verify()
+        check(tuple(ya.shape) == (2, n) and bool(torch.isfinite(ya).all()),
+              "mel_to_audio: shape or non-finite")
+        dev_ms, top = profiled(lambda: pt.mel_to_audio(
+            mel, cfg_s, SR, n_mels=128, length=n))
+        out["results"].update(m2a_wall_ms=wall * 1e3, m2a_device_ms=dev_ms)
+        lines.append(f"mel_to_audio (128 mels, 32 NNLS + 32 Griffin-Lim "
+                     f"iters) once: {wall * 1e3:.2f} ms host clock, device "
+                     f"{dev_ms:.2f} ms (two more, profiled calls); device "
+                     f"events {top}")
+        lines.append(f"phases 31-32 together: {hold.summary()}")
+        return "; ".join(lines)
+
+    def p33():
+        xs, spans = _silence_signal()
+        xd = torch.from_numpy(xs).to(dev)
+        iv = pt.split_silence(xd, cfg, top_db=40.0)
+        iv_cpu = pt.split_silence(xs, cfg, top_db=40.0, device="cpu")
+        check(iv == iv_cpu, f"split_silence: card {iv} != host CPU {iv_cpu}")
+        check(len(iv) == len(spans), f"{len(iv)} regions, not {len(spans)}")
+        for (s, e), (ts, te) in zip(iv, spans):
+            check(ts - NFFT < s <= ts and te <= e < te + NFFT,
+                  f"region ({s}, {e}) vs the tone ({ts}, {te})")
+        trimmed, se = pt.trim_silence(xd, cfg, top_db=40.0)
+        _, se_cpu = pt.trim_silence(xs, cfg, top_db=40.0, device="cpu")
+        check(se == se_cpu and se == (iv[0][0], iv[-1][1]),
+              f"trim_silence: card {se}, host CPU {se_cpu}")
+        check(torch.equal(trimmed, xd[se[0] : se[1]]), "trimmed slice")
+        return (f"{len(iv)} regions on a {SECONDS} s signal with 2 s gaps, "
+                f"equal to the host CPU's, each covering its tone within a "
+                f"frame; trim_silence {se}")
+
+    phase("30 IIR on the card (sosfilt, lfilter, sosfiltfilt, effects)", p30)
+    phase("31 features on the card", p31)
+    phase("32 Griffin-Lim on the card (B1 each iteration)", p32)
+    phase("33 trim_silence / split_silence", p33)
+    out["counts"] = {"b1": b1.launches, "b0_fp32": b0f.launches}
+    log(f"analysis path launches (its untimed calls): B1 "
+        f"{out['counts']['b1']}, B0 fp32 (the features' filterbank "
+        f"products) {out['counts']['b0_fp32']}, of which held against plain "
+        f"{hold.held}")
+    if cuda and (not all(out["counts"].values())
+                 or hold.held != out["counts"]["b0_fp32"]):
+        failures.append("launch counts (path 7)")
+        log("FAIL launch counts: a kernel of the path was not launched, or "
+            "a B0 fp32 launch was not held against plain")
     return out
 
 

@@ -1,4 +1,4 @@
-"""crlot-tpu-torch: crlot-tpu's round-trip, streaming, wire, resample and demo paths on PyTorch + CUDA.
+"""crlot-tpu-torch: crlot-tpu's round-trip, streaming, wire, resample, demo and analysis paths on PyTorch + CUDA.
 
 A port of `crlot_tpu` (JAX on a TPU, kept beside it as the reference) to
 PyTorch on an NVIDIA H100. Plain tensor code is torch; the Pallas kernels
@@ -7,7 +7,11 @@ built with nvcc at first use. Array-like input goes to the card unless the
 caller passes `device="cpu"` (`core/device.py`). Importing this package
 imports neither jax, crlot_tpu nor triton, and builds nothing. The
 streaming layer (`Framer`, `OLAAccumulator`, `checkpoint`, `FftPlan`, the
-sharded streamer) sits beside the round-trip paths.
+sharded streamer) sits beside the round-trip paths, and so does the
+analysis stack: `iir` (the log-depth scan IIR filters and their float64
+designers), `effects` (pre/de-emphasis, mu-law), `features` (mel / MFCC,
+spectral descriptors, chroma, pseudo-CQT, LPC, cepstrum, PCEN, the
+Hilbert envelope, the mel inversion), `griffinlim` and `segment`.
 """
 
 from .core.types import (
@@ -50,9 +54,68 @@ from .streaming_pipeline import (
 from .wire import I16BlockedStreamer, i16_round_trip
 from .window.windows import get_window
 
+from .features import (
+    amplitude_to_db,
+    chroma,
+    chroma_cqt,
+    chroma_filterbank,
+    cqt_filterbank,
+    db_to_amplitude,
+    db_to_power,
+    delta,
+    envelope,
+    frame_rms,
+    instantaneous_frequency,
+    lpc,
+    lpc_envelope_db,
+    magphase,
+    mel_filterbank,
+    mel_spectrogram,
+    mel_to_audio,
+    mel_to_linear,
+    mfcc,
+    mfcc_to_mel,
+    pcen,
+    power_to_db,
+    pseudo_cqt,
+    real_cepstrum,
+    spectral_bandwidth,
+    spectral_centroid,
+    spectral_contrast,
+    spectral_flatness,
+    spectral_rolloff,
+    tonnetz,
+    zero_crossing_rate,
+)
+from .segment import (
+    activity_mask,
+    frames_to_time,
+    split_silence,
+    time_to_frames,
+    trim_silence,
+)
+from .effects import (
+    deemphasis,
+    mu_compress,
+    mu_expand,
+    mu_law_decode,
+    mu_law_encode,
+    preemphasis,
+)
+from .griffinlim import griffin_lim, stft_magnitude
+from .iir import (
+    a_weighting_sos,
+    butter_sos,
+    c_weighting_sos,
+    lfilter,
+    sosfilt,
+    sosfilt_zi,
+    sosfiltfilt,
+)
+
 from . import (  # noqa: E402,F401
-    checkpoint, convert, core, distributed, fft, frame, io, metrics, ola,
-    spectral, window,
+    checkpoint, convert, core, distributed, effects, features, fft, frame,
+    griffinlim, iir, io, metrics, ola, segment, spectral, window,
 )
 
 __version__ = "0.1.0"

@@ -6,6 +6,12 @@ of the configs and the spectral fns, and a stream's carried state (the OLA
 ring and its cursors). These functions read them without importing
 `crlot_tpu`, so a test can hand both packages the same setup, and a
 stream can move between the packages mid-flight.
+
+The analysis stack needs no helper here: its filter states (the `zi` / `zf`
+of `iir.sosfilt` and `iir.lfilter`, `features.pcen`'s smoother state) have
+the reference's layout and dtype, so a reference state passes to the port
+as the numpy array it is, and back as `tensor.numpy()`; its design arrays
+are rebuilt by the port's own copies of the float64 design code.
 """
 
 from __future__ import annotations

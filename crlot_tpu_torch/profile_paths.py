@@ -30,6 +30,10 @@ rows stream `--config5-chunks` chunks of `--config5-channels` (default
 accumulator row pushes the first 5 s (at most `--seconds`) of the 48 kHz
 signal through `Framer` (10 ms interleaved pushes) and `OLAAccumulator`
 (N=1024, H=256, Hann inside, one produce a hop; its drain is K6).
+The analysis rows run `sosfilt` (an 8th-order Butterworth, the log-depth
+scan), `mel_spectrogram` + `pcen` and `griffin_lim` (32 iterations, on the
+magnitude of the 48 kHz signal) at 2 x `--seconds`, and the first two on
+the first config-5 chunk as well.
 On a CPU device the device time is "not measured".
 """
 
@@ -221,9 +225,21 @@ def main(argv=None) -> int:
         "resample_chunked 44.1 -> 48 kHz, chunk 65536": lambda: (
             pt.resample_chunked(x44, 44100, 48000, chunk=65536)),
     }
+    sos8 = pt.butter_sos(8, 1000.0, "lowpass", fs=48000)
+    cfg_gl = dataclasses.replace(cfg, synthesis_window=True)
+    mag = pt.stft_magnitude(x48, cfg_gl)
+    calls.update({
+        "sosfilt butter_sos(8, 1 kHz) (the scan)": lambda: pt.sosfilt(
+            sos8, x48),
+        "mel_spectrogram + pcen": lambda: pt.pcen(
+            pt.mel_spectrogram(x48, cfg, 48000), 48000 / 256),
+        "griffin_lim, 32 iters": lambda: pt.griffin_lim(
+            mag, cfg_gl, iters=32, length=n48),
+    })
     for name, fn in calls.items():
         print(profile_call(f"{name}, 2 x {args.seconds:g} s", fn, dev),
               flush=True)
+    del mag
 
     total = args.stream_chunks * STREAM_CHUNK
     xs = torch.from_numpy(np.random.default_rng(9).uniform(
@@ -261,7 +277,15 @@ def main(argv=None) -> int:
             f"{args.config5_channels} ch x 2^20",
             lambda fn=fn: stream(pt.ShardedStreamer(cfg_nc, mesh11, fn),
                                  chunks5), dev), flush=True)
-    del chunks5
+    wide = chunks5[0]
+    print(profile_call(
+        f"sosfilt butter_sos(8, 1 kHz), {args.config5_channels} ch x 2^20",
+        lambda: pt.sosfilt(sos8, wide), dev), flush=True)
+    print(profile_call(
+        f"mel_spectrogram + pcen, {args.config5_channels} ch x 2^20",
+        lambda: pt.pcen(pt.mel_spectrogram(wide, cfg, 48000), 48000 / 256),
+        dev), flush=True)
+    del chunks5, wide
     ola_s = min(OLA_SECONDS, args.seconds)
     print(profile_call(f"Framer + OLAAccumulator, 2 x {ola_s:g} s",
                        lambda: _ola_stream(x48, ola_s, dev), dev), flush=True)

@@ -76,6 +76,41 @@ def test_streaming_layer_names_import_no_jax(tmp_path):
     assert "BAD []" in out.stdout
 
 
+def test_analysis_stack_names_import_no_jax(tmp_path):
+    """Every top-level name the reference exports from `iir`, `effects`,
+    `features`, `griffinlim` and `segment` (`crlot_tpu/__init__.py`) comes
+    from the port, and importing the five modules imports no jax,
+    crlot_tpu or triton."""
+    src = (REPO / "crlot_tpu" / "__init__.py").read_text()
+    names = []
+    for mod in ("features", "segment", "effects", "griffinlim", "iir"):
+        block = src.split(f"from .{mod} import", 1)[1]
+        block = block.split(")", 1)[0] if block.lstrip().startswith("(") \
+            else block.split("\n", 1)[0]
+        names += [n.strip() for n in block.replace("(", "").split(",")
+                  if n.strip()]
+    assert len(names) == 51
+    code = (
+        "import sys, crlot_tpu_torch as pt\n"
+        "import crlot_tpu_torch.iir, crlot_tpu_torch.effects, "
+        "crlot_tpu_torch.features, crlot_tpu_torch.griffinlim, "
+        "crlot_tpu_torch.segment\n"
+        f"missing = [n for n in {names!r} if not hasattr(pt, n)]\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'crlot_tpu', 'triton'))\n"
+        "print('MISSING', missing)\n"
+        "print('BAD', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=tmp_path, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "MISSING []" in out.stdout
+    assert "BAD []" in out.stdout
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
