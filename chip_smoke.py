@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from `crlot_tpu_torch/csrc/` (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version on the card, then runs
-seven paths through the public entry points, each with the kernels' launch
+eight paths through the public entry points, each with the kernels' launch
 counters reset just before and read just after: on 2 channels x 60 s at
 48 kHz, N=1024 / H=256, Hann, seed 0, the round-trip path (`round_trip`,
 `stft`, `istft`; centered) and the fused-frames and sharded path
@@ -211,6 +211,51 @@ B0 fp32 launch of those calls is held torch.equal to the fmaf chain
  33. `split_silence` / `trim_silence` (top_db 40) of 60 s of tones with 2 s
      of digital silence between them: the same intervals as the port on
      the host CPU, each covering its tone within a frame.
+Then the last analysis path, with the B1, B4 and B0 fp32 counters reset
+just before, on the main path's 2 ch x 60 s unless a phase says otherwise;
+its counts are those of its untimed calls, every B0 fp32 launch is held
+torch.equal to the fmaf chain (`ProductHold`), and in phases 36 and 38
+every B1 launch torch.equal to its plain version and every B4 launch within
+1e-5 of `resample_bank_plain` on its own operands (`LaunchHold`):
+ 34. The FFT backends on MATMUL (C20): `dispatch.rfft` / `irfft` and the
+     complex transforms of 64 rows at N = 8192 and 16384 (Cooley-Tukey
+     products), 1023 (the dense basis) and 6000 (`torch.fft`), against
+     float64 numpy within `tests/test_fft_ct.py`'s gates (rfft and fft
+     max-abs / N < 2e-6, round-trip RMSE < 1e-5, inverse back within
+     1e-3); `round_trip` at N = 8192, H = 2048, MATMUL above 80 dB, with
+     its wall and device time; two 1-channel shards of that STFT
+     torch.equal to the 2-channel call.
+ 35. `welch_psd` (density, spectrum) and `coherence` of noise plus tones
+     against `scipy.signal` in float64 (relative RMSE < 1e-4,
+     `tests/test_psd.py`'s gate), card vs host CPU within 1e-5 of the
+     largest value, two 1-channel shards torch.equal.
+ 36. `hpss` (kernels 31) of tones plus a click train: harmonic +
+     percussive vs `istft(stft(x))` above 60 dB, exactly 2 B1 launches,
+     the masks on the card vs the host CPU's from one power within 2^-21,
+     two shards torch.equal; wall and device time, peak device memory.
+ 37. `yin_f0` of 110 / 440 and 220 / 880 Hz tones (30 s each) within 1 %
+     (`tests/test_pitch.py`'s gate); `detect_onsets` (uncentered) of noise
+     bursts every 97 hops in digital silence: each found within a frame,
+     none extra; `tempo` of 120 and 90 BPM click tracks within 5 % and
+     `tempogram` peaking within 2 lags of the period
+     (`tests/test_rhythm.py`'s gates); each card vs host CPU within 1e-5 of
+     the largest value (onset masks equal); two shards torch.equal for
+     each.
+ 38. `time_stretch` at rate 1 on 30 s of 440 Hz, interior above 60 dB
+     (`tests/test_vocoder.py`'s slow gate); at rates 0.8, 1.1, 1.5 on 440
+     / 880 Hz: the length (F - 1) * Hs + N within 2 % of rate * T and the
+     dominant frequencies within 3 Hz; `pitch_shift` by -12, -1, +3, +7,
+     +12 semitones: the length kept and the dominant frequency within 5 Hz
+     of 440 * 2^(s/12); 8 B1 launches (the synthesis hops 205, 282, 384,
+     128, 242, 304, 384, 512) and 5 B4 launches (L/M 2/1, 53/50, 37/44,
+     2/3, 1/2) held against plain; wall and device times.
+ 39. `dtw` of the chroma (N = 4096, H = 1024) of 60 s of notes against a
+     time-warped copy of it (2 813 x 2 813 frames): the accumulated matrix
+     on the card torch.equal to the host CPU's accumulation of the card's
+     cost matrix, the
+     total within (N + M) 2^-24 of it of a float64 DP on the same costs,
+     the path equal to the host CPU's; `dtw`'s host-clock time and device
+     launches a row.
 Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
 busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
@@ -374,6 +419,7 @@ def e2e_seconds(fn) -> float:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
@@ -852,6 +898,7 @@ def main() -> int:
     path5 = int8_tier_path(dev, phase, check, failures, x, x_np)
     path6 = stream_path(dev, phase, check, failures, x_np)
     path7 = analysis_path(dev, phase, check, failures, x_np)
+    path8 = last_analysis_path(dev, phase, check, failures, x_np)
 
     # Timings.
     def e2e_rate(fn, samples=2 * n):
@@ -998,7 +1045,8 @@ def main() -> int:
         {"name": "ola_normalized (B1)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/ola_fused.cu",
          "replaces": "crlot_tpu/ola/fused.py:39",
-         "launches": counts["b1"] + path7["counts"]["b1"],
+         "launches": (counts["b1"] + path7["counts"]["b1"]
+                      + path8["counts"]["b1"]),
          "max_abs_err": results["b1_err"], "ms": timing["b1"],
          "plain_ms": timing["b1_plain"],
          **bound(nbytes(frames, norm) + 2 * full * 4, frames.numel()),
@@ -1023,7 +1071,7 @@ def main() -> int:
         {"name": "resample (B4)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/resample.cu",
          "replaces": "crlot_tpu/resample/pallas_kernel.py:32",
-         "launches": path3["counts"]["b4"],
+         "launches": path3["counts"]["b4"] + path8["counts"]["b4"],
          "max_abs_err": max(path3["results"]["b4_err"],
                             path_b6["results"]["b4_300_err"]),
          "ms": timing["b4_44.1->48"], "plain_ms": timing["b4_44.1->48_bank"],
@@ -1054,7 +1102,8 @@ def main() -> int:
         "replaces": "crlot_tpu/fft/matmul_backend.py:633",
         "launches": (counts2["b0_fp32"] + path4["counts"]["b0_fp32"]
                      + path6["counts"]["b0_fp32"]
-                     + path7["counts"]["b0_fp32"]),
+                     + path7["counts"]["b0_fp32"]
+                     + path8["counts"]["b0_fp32"]),
         "max_abs_err": path_b0["fp32_err"], "ms": timing["b0_fp32"],
         "plain_ms": timing["b0_fp32_plain"],
         **bound(nbytes(x_ext, kern0) + x_ext.shape[0] * rows0 * gh0 * 4,
@@ -1100,6 +1149,8 @@ def main() -> int:
     log(f"K11 at the probe shape {probe_ms('pl_i8_fusedq'):.4f} ms (row "
         f"scale pass, then TMA + wgmma with the limbs made in registers); "
         f"the former design {OLD_MS['K11 probe']} in PERF.md")
+    log(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
+        f"(kernel build included)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3308,6 +3359,558 @@ def analysis_path(dev, phase, check, failures, x_np) -> dict:
     if cuda and (not all(out["counts"].values())
                  or hold.held != out["counts"]["b0_fp32"]):
         failures.append("launch counts (path 7)")
+        log("FAIL launch counts: a kernel of the path was not launched, or "
+            "a B0 fp32 launch was not held against plain")
+    return out
+
+
+CT_NFFTS = (8192, 16384, 1023, 6000)  # phase 34: CT, CT, dense, torch.fft
+CT_ROWS = 64
+HPSS_KERNEL = 31
+YIN_TONES = ((110.0, 440.0), (220.0, 880.0))  # per channel, 30 s each
+STRETCH_RATES = (0.8, 1.1, 1.5)
+SHIFT_SEMITONES = (-12.0, -1.0, 3.0, 7.0, 12.0)
+DTW_NFFT, DTW_HOP = 4096, 1024
+PITCH_TOL = 1e-5  # card vs host CPU, of the largest |value|
+
+
+class LaunchHold:
+    """Every launch of a kernel wrapper while the context is open, held at
+    once against its plain version on the same operands: B1
+    (`ola_normalized_cuda`) torch.equal to `ola_normalized_plain`, as phase
+    1 holds it; B4 (`resample_cuda`, as `resample` calls it) within max-abs
+    1e-5 of `resample_bank_plain`, as phase 11 holds it. Records each
+    launch's geometry and error."""
+
+    def __init__(self, check):
+        from crlot_tpu_torch.ola import fused as b1
+        from crlot_tpu_torch.resample import kernel as b4
+        from crlot_tpu_torch.resample import polyphase
+
+        self.mods, self.check = (b1, b4, polyphase), check
+        self.seen = {"b1": [], "b4": []}
+
+    def __enter__(self):
+        import torch
+
+        b1, b4, polyphase = self.mods
+        self.orig = b1.ola_normalized_cuda, polyphase.resample_cuda
+        ola, res = self.orig
+
+        def ola_spy(frames, norm, hop, out_len, eps=1e-8):
+            out = ola(frames, norm, hop, out_len, eps)
+            want = b1.ola_normalized_plain(frames, norm, hop, out_len, eps)
+            err = float((out - want).abs().max())
+            self.check(torch.equal(out, want), f"B1 at hop {hop}, "
+                       f"{tuple(frames.shape)}: not bit-exact, {err:.3g}")
+            self.seen["b1"].append((hop, tuple(frames.shape), err))
+            return out
+
+        def res_spy(x, l, m, n_out, taps_per_phase=None, atten_db=120.0,
+                    plan=None):
+            out = res(x, l, m, n_out, taps_per_phase, atten_db, plan)
+            want = b4.resample_bank_plain(x, l, m, n_out, taps_per_phase,
+                                          atten_db)
+            err = float((out - want).abs().max())
+            self.check(err <= 1e-5, f"B4 at L/M {l}/{m}: max-abs {err:.3g}")
+            self.seen["b4"].append((f"{l}/{m}", tuple(x.shape), err))
+            return out
+
+        b1.ola_normalized_cuda, polyphase.resample_cuda = ola_spy, res_spy
+        return self
+
+    def __exit__(self, *exc):
+        b1, _, polyphase = self.mods
+        b1.ola_normalized_cuda, polyphase.resample_cuda = self.orig
+
+
+def _dtw_f64(c) -> "np.ndarray":
+    """The accumulated-cost matrix of c in float64, by anti-diagonals (each
+    depends only on the two before it)."""
+    import numpy as np
+
+    n, m = c.shape
+    d = np.full((n, m), np.inf)
+    d[0] = np.cumsum(c[0])
+    d[:, 0] = np.cumsum(c[:, 0])
+    for s in range(2, n + m - 1):
+        i = np.arange(max(1, s - m + 1), min(n, s))
+        j = s - i
+        d[i, j] = c[i, j] + np.minimum(np.minimum(d[i - 1, j], d[i, j - 1]),
+                                       d[i - 1, j - 1])
+    return d
+
+
+def _note_sequence(seed, seconds, warp):
+    """A mono sequence of 0.25-1 s notes (a fundamental and two partials,
+    frequencies from `seed`) filling `seconds`; `warp` scales each note's
+    length by its own factor in [0.75, 1.33] and rescales the whole to the
+    same span, so two calls differ by a monotone time warp."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    durs = rng.uniform(0.25, 1.0, 400)
+    freqs = 110.0 * 2.0 ** (rng.integers(0, 36, 400) / 12.0)
+    scale = rng.uniform(0.75, 1.33, 400)
+    k = int(np.searchsorted(np.cumsum(durs), seconds))
+    durs = durs[:k] * (scale[:k] if warp else 1.0)
+    durs = durs * (seconds / durs.sum())
+    out = []
+    for d, f in zip(durs, freqs[:k]):
+        t = np.arange(int(d * SR)) / SR
+        env = np.minimum(1.0, np.minimum(t, d - t) / 0.01)
+        out.append(env * (0.5 * np.sin(2 * np.pi * f * t)
+                          + 0.2 * np.sin(4 * np.pi * f * t)
+                          + 0.1 * np.sin(6 * np.pi * f * t)))
+    x = np.concatenate(out)[: SR * seconds]
+    return np.pad(x, (0, SR * seconds - x.size)).astype(np.float32)
+
+
+def last_analysis_path(dev, phase, check, failures, x_np) -> dict:
+    """Phases 34-39, with the B1, B4 and B0 fp32 counters reset just
+    before: the FFT backends (C20), psd, hpss, pitch, the vocoder and DTW
+    on the card. Counts are those of the untimed calls; every B0 fp32
+    launch is held against its plain version (`ProductHold`), and in
+    phases 36 and 38 every B1 and B4 launch too (`LaunchHold`)."""
+    import numpy as np
+    import scipy.signal
+    import torch
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch import align
+    from crlot_tpu_torch.fft import dispatch
+    from crlot_tpu_torch.fft import fp32_window as b0f
+    from crlot_tpu_torch.hpss import hpss_masks
+    from crlot_tpu_torch.ola import fused as b1
+    from crlot_tpu_torch.profile_paths import _activities, _device_events
+    from crlot_tpu_torch.resample import kernel as b4
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    cfg = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=True)
+    n = x_np.shape[-1]
+    x = torch.from_numpy(x_np).to(dev)
+    out = {"results": {}}
+    b1.launches = b4.launches = b0f.launches = 0
+    hold = ProductHold(check)
+    mm = pt.FftBackend.MATMUL
+
+    def held(fn):
+        with hold:
+            got = fn()
+            sync()
+        hold.verify()
+        return got
+
+    def uncounted(fn):
+        counted = b1.launches, b4.launches, b0f.launches
+        try:
+            return fn()
+        finally:
+            b1.launches, b4.launches, b0f.launches = counted
+
+    def timed_call(fn, reps=3):
+        """(median host-clock s, device ms a call, top device events) of
+        fn, its launches not counted."""
+        def run():
+            fn()
+            sync()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                sync()
+                times.append(time.perf_counter() - t0)
+            with torch.profiler.profile(activities=_activities(dev)) as prof:
+                fn()
+                sync()
+            return statistics.median(times), _device_events(prof)
+
+        wall, rows = uncounted(run)
+        dev_ms = sum(us for _, us in rows.values()) / 1e3
+        top = sorted(rows.items(), key=lambda r: -r[1][1])[:4]
+        return wall, dev_ms, ", ".join(f"{k[:32]} x{c:g} {us / 1e3:.2f} ms"
+                                       for k, (c, us) in top)
+
+    def halves(fn, z):
+        """fn of two 1-channel shards, concatenated on the channel axis."""
+        return torch.cat([fn(z[:1].clone()), fn(z[1:].clone())])
+
+    def rel(a, b):
+        a, b = a.double().cpu(), b.double().cpu()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    def p34():
+        lines = []
+        g = np.random.default_rng(SEED)
+        for nfft in CT_NFFTS:
+            xr = g.uniform(-1, 1, (CT_ROWS, nfft)).astype(np.float32)
+            xc = (g.standard_normal((CT_ROWS, nfft))
+                  + 1j * g.standard_normal((CT_ROWS, nfft))).astype(
+                      np.complex64)
+            tr, tc = torch.from_numpy(xr).to(dev), torch.from_numpy(xc).to(dev)
+            spec = dispatch.rfft(tr, nfft, mm)
+            back = dispatch.irfft(spec, nfft, mm)
+            cs = dispatch.fft_complex(tc, nfft, mm)
+            cb = dispatch.ifft_complex(cs, nfft, mm)
+            sync()
+            want = np.fft.rfft(xr.astype(np.float64), axis=-1)
+            wc = np.fft.fft(xc.astype(np.complex128), axis=-1)
+            e_r = np.max(np.abs(spec.cpu().numpy() - want)) / nfft
+            rmse = float(np.sqrt(np.mean((back.cpu().numpy() - xr) ** 2)))
+            e_c = np.max(np.abs(cs.cpu().numpy() - wc)) / nfft
+            e_cb = float(np.max(np.abs(cb.cpu().numpy() - xc)))
+            check(e_r < 2e-6 and rmse < 1e-5 and e_c < 2e-6 and e_cb < 1e-3,
+                  f"nfft {nfft}: rfft {e_r:.3g}/N, round trip rmse "
+                  f"{rmse:.3g}, fft {e_c:.3g}/N, ifft {e_cb:.3g}")
+            lines.append(f"N {nfft}: rfft {e_r:.2e}/N (< 2e-6), rmse "
+                         f"{rmse:.2e} (< 1e-5), fft {e_c:.2e}/N, ifft back "
+                         f"{e_cb:.2e} (< 1e-3)")
+        c8 = pt.StftConfig(frame_size=8192, hop_size=2048, center=True,
+                           fft_backend=mm)
+        y = pt.round_trip(x, c8)
+        snr = pt.snr_db(x_np, y.cpu().numpy())
+        check(snr > 80.0, f"round_trip at N 8192 (CT) {snr:.2f} dB")
+        whole = pt.stft(x, c8)
+        split = halves(lambda z: pt.stft(z, c8), x)
+        eq = torch.equal(whole, split)
+        out["results"]["ct_split"] = eq
+        check(eq, f"STFT at N 8192: shards != the 2-channel call, max-abs "
+              f"{float((whole - split).abs().max()):.3g}")
+        wall, dev_ms, top = timed_call(lambda: pt.round_trip(x, c8))
+        out["results"]["rt8192"] = (wall * 1e3, dev_ms)
+        lines.append(f"round_trip N 8192 H 2048 MATMUL (CT) {snr:.2f} dB "
+                     f"(> 80), {wall * 1e3:.2f} ms host clock, device "
+                     f"{dev_ms:.2f} ms ({top}); two 1-channel shards of its "
+                     f"STFT torch.equal to the 2-channel call")
+        return "; ".join(lines)
+
+    def p35():
+        t = np.arange(n) / SR
+        g = np.random.default_rng(SEED + 1)
+        xp = (0.3 * g.standard_normal((2, n))
+              + 0.5 * np.sin(2 * np.pi * np.array([[1000.0], [3000.0]]) * t)
+              ).astype(np.float32)
+        yp = (0.6 * xp + 0.3 * g.standard_normal((2, n))).astype(np.float32)
+        xd, yd = torch.from_numpy(xp).to(dev), torch.from_numpy(yp).to(dev)
+        lines = []
+        calls = {
+            "welch density": (lambda a, b: pt.welch_psd(a, cfg, SR),
+                              lambda: scipy.signal.welch(
+                                  xp.astype(np.float64), fs=SR, window="hann",
+                                  nperseg=NFFT, noverlap=NFFT - HOP,
+                                  detrend=False, scaling="density")[1]),
+            "welch spectrum": (lambda a, b: pt.welch_psd(
+                a, cfg, SR, "spectrum"), lambda: scipy.signal.welch(
+                    xp.astype(np.float64), fs=SR, window="hann", nperseg=NFFT,
+                    noverlap=NFFT - HOP, detrend=False,
+                    scaling="spectrum")[1]),
+            "coherence": (lambda a, b: pt.coherence(a, b, cfg),
+                          lambda: scipy.signal.coherence(
+                              xp.astype(np.float64), yp.astype(np.float64),
+                              window="hann", nperseg=NFFT,
+                              noverlap=NFFT - HOP, detrend=False)[1]),
+        }
+        for name, (fn, oracle) in calls.items():
+            got = fn(xd, yd)
+            want = oracle()
+            g_np = got.cpu().numpy()
+            err = float(np.sqrt(np.mean((g_np - want) ** 2))
+                        / np.sqrt(np.mean(want ** 2)))
+            host = fn(torch.from_numpy(xp), torch.from_numpy(yp))
+            e_host = rel(got, host)
+            split = torch.cat([fn(xd[:1].clone(), yd[:1].clone()),
+                               fn(xd[1:].clone(), yd[1:].clone())])
+            eq = torch.equal(split, got)
+            check(err < 1e-4 and e_host <= PITCH_TOL and eq,
+                  f"{name}: rel rmse vs scipy {err:.3g}, vs host CPU "
+                  f"{e_host:.3g}, shards equal {eq}")
+            lines.append(f"{name} rel rmse vs scipy float64 {err:.2e} "
+                         f"(< 1e-4), vs host CPU {e_host:.2e} of the largest "
+                         f"(<= {PITCH_TOL}), shards torch.equal")
+        wall, dev_ms, top = timed_call(lambda: pt.welch_psd(xd, cfg, SR))
+        out["results"]["welch"] = (wall * 1e3, dev_ms)
+        lines.append(f"welch_psd {wall * 1e3:.2f} ms host clock, device "
+                     f"{dev_ms:.2f} ms ({top})")
+        return "; ".join(lines)
+
+    def p36():
+        t = np.arange(n) / SR
+        tones = 0.4 * np.sin(2 * np.pi * np.array([[440.0], [660.0]]) * t)
+        clicks = np.zeros((2, n))
+        for p in range(2400, n - 16, 9600):
+            clicks[:, p : p + 8] = 1.0
+        xh_np = (tones + 0.5 * clicks).astype(np.float32)
+        xh = torch.from_numpy(xh_np).to(dev)
+        before = b1.launches
+        with LaunchHold(check) as lh:
+            h, p = pt.hpss(xh, cfg, HPSS_KERNEL, HPSS_KERNEL)
+            sync()
+        n_b1 = b1.launches - before
+        check(n_b1 == 2, f"hpss launched B1 {n_b1} times, not 2")
+        rt = pt.istft(pt.stft(xh, cfg), cfg, length=n)
+        snr = pt.snr_db(rt.cpu().numpy(), (h + p).cpu().numpy())
+        check(snr > 60.0, f"harmonic + percussive vs istft(stft) {snr:.2f} dB")
+        e_h = (float(torch.sum(h.double() ** 2)), float(torch.sum(
+            p.double() ** 2)))
+        spec = pt.stft(xh, cfg)
+        power = torch.abs(spec) ** 2
+        mh, mp = hpss_masks(power, HPSS_KERNEL, HPSS_KERNEL)
+        hh, hp = hpss_masks(power.cpu(), HPSS_KERNEL, HPSS_KERNEL)
+        e_mask = max(float((mh.cpu() - hh).abs().max()),
+                     float((mp.cpu() - hp).abs().max()))
+        same = torch.equal(mh.cpu(), hh) and torch.equal(mp.cpu(), hp)
+        check(e_mask <= 2.0 ** -21, f"masks card vs host CPU {e_mask:.3g}")
+        fn = lambda z: torch.stack(pt.hpss(z, cfg), dim=1)  # noqa: E731
+        whole = fn(xh)
+        eq = torch.equal(halves(fn, xh), whole)
+        out["results"]["hpss_split"] = eq
+        check(eq, "hpss: two 1-channel shards != the 2-channel call")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev) / 2**30
+        wall, dev_ms, top = timed_call(lambda: pt.hpss(xh, cfg))
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        out["results"]["hpss"] = dict(wall_ms=wall * 1e3, device_ms=dev_ms,
+                                      peak_gib=peak, base_gib=base)
+        return (f"kernels {HPSS_KERNEL}: harmonic + percussive vs "
+                f"istft(stft(x)) {snr:.2f} dB (> 60), energies h {e_h[0]:.4g} "
+                f"p {e_h[1]:.4g}; B1 launched {n_b1} times, each torch.equal "
+                f"to plain ({lh.seen['b1']}); masks card vs host CPU from one "
+                f"power: max-abs {e_mask:.3g} (<= 2^-21, torch.equal {same}); "
+                f"two 1-channel shards torch.equal; {wall * 1e3:.2f} ms host "
+                f"clock, device {dev_ms:.2f} ms, idle share "
+                f"{1 - dev_ms / (wall * 1e3):.3f}, peak device memory "
+                f"{peak:.3f} GiB ({base:.3f} GiB held before the call); "
+                f"device events {top}")
+
+    def p37():
+        lines = []
+        t = np.arange(n) / SR
+        half = n // 2
+        xy = np.zeros((2, n))
+        for c, (f1, f2) in enumerate(YIN_TONES):
+            xy[c, :half] = 0.8 * np.sin(2 * np.pi * f1 * t[:half])
+            xy[c, half:] = 0.8 * np.sin(2 * np.pi * f2 * t[half:])
+        xy = xy.astype(np.float32)
+        xyd = torch.from_numpy(xy).to(dev)
+        f0, ap = pt.yin_f0(xyd, cfg, float(SR))
+        f0h, aph = pt.yin_f0(torch.from_numpy(xy), cfg, float(SR))
+        fr = f0.cpu().numpy()
+        starts = np.arange(fr.shape[-1]) * HOP - NFFT // 2
+        worst = 0.0
+        for c, (f1, f2) in enumerate(YIN_TONES):
+            for lo, hi, f in ((NFFT, half - 2 * NFFT, f1),
+                              (half + NFFT, n - 2 * NFFT, f2)):
+                sel = (starts >= lo) & (starts < hi)
+                e = float(np.max(np.abs(fr[c, sel] - f)) / f)
+                worst = max(worst, e)
+        check(worst < 0.01, f"yin_f0: worst relative error {worst:.3g}")
+        e_yin = max(rel(f0, f0h), rel(ap, aph))
+        check(e_yin <= PITCH_TOL, f"yin_f0 card vs host CPU {e_yin:.3g}")
+        lines.append(f"yin_f0 at {[f for p in YIN_TONES for f in p]} Hz: "
+                     f"worst {worst:.2e} (< 1 %), card vs host CPU "
+                     f"{e_yin:.2e} of the largest")
+        cfg_u = dataclasses.replace(cfg, center=False)
+        g = np.random.default_rng(SEED + 2)
+        clicks = np.arange(20, n // HOP - 20, 97) * HOP
+        xo = np.zeros((2, n))
+        for p in clicks:
+            xo[:, p : p + 64] += g.standard_normal(64)
+        xo = xo.astype(np.float32)
+        xod = torch.from_numpy(xo).to(dev)
+        mask, env = held(lambda: pt.detect_onsets(xod, cfg_u, float(SR)))
+        mh, envh = pt.detect_onsets(torch.from_numpy(xo), cfg_u, float(SR))
+        entry = NFFT // HOP - 1
+        for c in range(2):
+            idx = np.nonzero(mask[c].cpu().numpy())[0]
+            want = clicks // HOP - entry
+            found = all(np.any(np.abs(idx - w) <= 1) for w in want)
+            check(found and len(idx) == len(want),
+                  f"detect_onsets ch {c}: {len(idx)} onsets for "
+                  f"{len(want)} clicks, all found {found}")
+        e_env = rel(env, envh)
+        same_mask = torch.equal(mask.cpu(), mh)
+        check(e_env <= PITCH_TOL and same_mask,
+              f"onsets card vs host CPU: envelope {e_env:.3g}, masks equal "
+              f"{same_mask}")
+        lines.append(f"detect_onsets: {len(clicks)} clicks a channel found "
+                     f"within a frame, no extra; envelope card vs host CPU "
+                     f"{e_env:.2e}, masks equal")
+        period = int(round(60.0 / 120.0 * SR))
+        xt = np.zeros((2, n))
+        for p in range(0, n - 32, period):
+            xt[0, p : p + 32] += 1.0
+        for p in range(0, n - 32, int(round(60.0 / 90.0 * SR))):
+            xt[1, p : p + 32] += 1.0
+        xt = xt.astype(np.float32)
+        xtd = torch.from_numpy(xt).to(dev)
+        bpm = held(lambda: pt.tempo(xtd, cfg, SR)).cpu().numpy()
+        bpmh = pt.tempo(torch.from_numpy(xt), cfg, SR).numpy()
+        check(abs(bpm[0] - 120.0) / 120.0 < 0.05
+              and abs(bpm[1] - 90.0) / 90.0 < 0.05, f"tempo {bpm}")
+        e_bpm = float(np.max(np.abs(bpm - bpmh) / bpmh))
+        check(e_bpm <= PITCH_TOL, f"tempo card vs host CPU {e_bpm:.3g}")
+        tg = held(lambda: pt.tempogram(xtd, cfg, SR))
+        tgh = pt.tempogram(torch.from_numpy(xt), cfg, SR)
+        mid = tg[0, tg.shape[1] // 2].cpu().numpy()
+        peak = 20 + int(np.argmax(mid[20:]))
+        lag = 60.0 / 120.0 * SR / HOP
+        e_tg = rel(tg, tgh)
+        check(abs(peak - lag) <= 2.0 and e_tg <= PITCH_TOL,
+              f"tempogram: peak lag {peak} vs {lag}, card vs host CPU "
+              f"{e_tg:.3g}")
+        lines.append(f"tempo {bpm[0]:.3f} / {bpm[1]:.3f} BPM for 120 / 90 "
+                     f"(< 5 %), card vs host CPU {e_bpm:.2e}; tempogram "
+                     f"{tuple(tg.shape)}, peak lag {peak} for {lag:.2f}, card "
+                     f"vs host CPU {e_tg:.2e}")
+        split = {
+            "yin_f0": (lambda z: torch.stack(pt.yin_f0(z, cfg, float(SR)),
+                                             dim=1), xyd),
+            "detect_onsets": (lambda z: torch.stack(
+                [v.float() for v in pt.detect_onsets(z, cfg_u, float(SR))],
+                dim=1), xod),
+            "tempogram": (lambda z: pt.tempogram(z, cfg, SR), xtd),
+            "tempo": (lambda z: pt.tempo(z, cfg, SR), xtd),
+        }
+        equal = {}
+        for name, (fn, z) in split.items():
+            whole = held(lambda: fn(z))
+            parts = held(lambda: halves(fn, z))
+            equal[name] = torch.equal(whole, parts)
+        out["results"]["pitch_split"] = equal
+        check(all(equal.values()), f"two 1-channel shards: {equal}")
+        wall, dev_ms, top = timed_call(lambda: pt.yin_f0(xyd, cfg, float(SR)))
+        out["results"]["yin"] = (wall * 1e3, dev_ms)
+        lines.append(f"two 1-channel shards torch.equal to the 2-channel "
+                     f"call: {', '.join(equal)}; yin_f0 {wall * 1e3:.2f} ms "
+                     f"host clock, device {dev_ms:.2f} ms ({top})")
+        return "; ".join(lines)
+
+    def dominant_hz(y):
+        y = np.asarray(y, np.float64)
+        spec = np.abs(np.fft.rfft(y * np.hanning(y.size)))
+        return np.argmax(spec) * SR / y.size
+
+    def p38():
+        lines = []
+        t30 = np.arange(30 * SR) / SR
+        x30 = (0.5 * np.sin(2 * np.pi * 440.0 * t30)).astype(np.float32)
+        y = pt.time_stretch(torch.from_numpy(x30).to(dev), cfg, 1.0)
+        yc = y.cpu().numpy()
+        k = min(yc.size, x30.size)
+        a, b = x30[2048 : k - 2048], yc[2048 : k - 2048]
+        snr = 10 * np.log10(np.sum(a.astype(np.float64) ** 2)
+                            / np.sum((a - b).astype(np.float64) ** 2))
+        check(snr > 60.0, f"time_stretch rate 1 on 30 s: {snr:.2f} dB")
+        lines.append(f"time_stretch rate 1, 30 s of 440 Hz: interior "
+                     f"{snr:.2f} dB (> 60, tests/test_vocoder.py's slow gate)")
+        t = np.arange(n) / SR
+        xv = (0.5 * np.sin(2 * np.pi * np.array([[440.0], [880.0]]) * t)
+              ).astype(np.float32)
+        xvd = torch.from_numpy(xv).to(dev)
+        with LaunchHold(check) as lh:
+            for rate in STRETCH_RATES:
+                y = pt.time_stretch(xvd, cfg, rate)
+                sync()
+                hs = max(1, int(round(rate * HOP)))
+                frames = (n - NFFT) // HOP + 1
+                check(y.shape[-1] == (frames - 1) * hs + NFFT
+                      and abs(y.shape[-1] / n - rate) < 0.02 * rate,
+                      f"rate {rate}: length {y.shape[-1]}")
+                got = [dominant_hz(y[c].cpu().numpy()) for c in range(2)]
+                check(abs(got[0] - 440.0) <= 3.0 and abs(got[1] - 880.0)
+                      <= 3.0, f"rate {rate}: dominant {got} Hz")
+                lines.append(f"rate {rate} (Hs {hs}): {y.shape[-1]} samples, "
+                             f"dominant {got[0]:.3f} / {got[1]:.3f} Hz")
+            for semi in SHIFT_SEMITONES:
+                y = pt.pitch_shift(xvd[:1], cfg, semi)
+                sync()
+                want = 440.0 * 2.0 ** (semi / 12.0)
+                got = dominant_hz(y[0].cpu().numpy())
+                check(y.shape[-1] == n and abs(got - want) <= 5.0,
+                      f"pitch_shift {semi}: {y.shape[-1]} samples, {got} Hz "
+                      f"for {want}")
+                lines.append(f"shift {semi:+g}: {got:.3f} Hz for {want:.3f}")
+        out["results"]["vocoder_held"] = dict(lh.seen)
+        n_b1 = len(lh.seen["b1"])
+        n_b4 = len(lh.seen["b4"])
+        want_b1 = len(STRETCH_RATES) + len(SHIFT_SEMITONES)
+        check(n_b1 == want_b1 and n_b4 == len(SHIFT_SEMITONES),
+              f"B1 {n_b1} (want {want_b1}), B4 {n_b4} launches held")
+        lines.append(f"B1 launches held torch.equal to plain at hops "
+                     f"{sorted({h for h, _, _ in lh.seen['b1']})}; B4 "
+                     f"launches within 1e-5 of plain at L/M "
+                     f"{[r for r, _, _ in lh.seen['b4']]} (max-abs "
+                     f"{max((e for _, _, e in lh.seen['b4']), default=0):.2e})")
+        for key, fn in (("time_stretch", lambda: pt.time_stretch(
+                xvd, cfg, 1.1)), ("pitch_shift", lambda: pt.pitch_shift(
+                    xvd, cfg, 3.0))):
+            wall, dev_ms, top = timed_call(fn)
+            out["results"][key] = (wall * 1e3, dev_ms)
+            lines.append(f"{key} 2 x {SECONDS} s {wall * 1e3:.2f} ms host "
+                         f"clock, device {dev_ms:.2f} ms ({top})")
+        return "; ".join(lines)
+
+    def p39():
+        cfg_d = pt.StftConfig(frame_size=DTW_NFFT, hop_size=DTW_HOP,
+                              center=True)
+        xs = np.stack([_note_sequence(SEED, SECONDS, False),
+                       _note_sequence(SEED, SECONDS, True)])
+        chroma = held(lambda: pt.chroma(torch.from_numpy(xs).to(dev), cfg_d,
+                                        SR))
+        fx, fy = chroma[0].contiguous(), chroma[1].contiguous()
+        t0 = time.perf_counter()
+        cost, acc = pt.dtw(fx, fy)
+        sync()
+        wall = time.perf_counter() - t0
+        c = pt.dtw_cost(fx, fy)
+        acc_h = align._accumulate(c.cpu())
+        same = torch.equal(acc.cpu(), acc_h)
+        check(same, f"acc card vs host CPU from one cost matrix: max-abs "
+              f"{float((acc.cpu() - acc_h).abs().max()):.3g}")
+        c64 = c.cpu().double().numpy()
+        want = _dtw_f64(c64)
+        rows, cols = c.shape
+        total = float(cost)
+        bound = (rows + cols) * 2.0 ** -24 * want[-1, -1]
+        err = abs(total - want[-1, -1])
+        check(err <= bound, f"total {total} vs float64 {want[-1, -1]}: "
+              f"{err:.3g} > {bound:.3g}")
+        path = pt.dtw_path(acc)
+        same_path = path == pt.dtw_path(acc_h)
+        check(same_path, "path card != host CPU")
+        with torch.profiler.profile(activities=_activities(dev)) as prof:
+            align._accumulate(c[:64])
+            sync()
+        per_row = sum(cnt for cnt, _ in _device_events(prof).values()) / 64
+        out["results"]["dtw"] = dict(rows=rows, cols=cols, wall_s=wall,
+                                     launches_per_row=per_row)
+        return (f"chroma of {SECONDS} s of notes vs a time-warped copy (N "
+                f"{DTW_NFFT}, H {DTW_HOP}): {rows} x {cols} frames; dtw "
+                f"{wall:.3f} s host clock "
+                f"({wall / rows * 1e3:.3f} ms a row, {per_row:.1f} device "
+                f"launches a row); acc torch.equal to the host CPU's "
+                f"accumulation of the same costs; total {total:.4f} vs float64 DP "
+                f"{want[-1, -1]:.4f} (|err| {err:.3g} <= (N + M) 2^-24 total "
+                f"= {bound:.3g}); path of {len(path)} steps equal to the "
+                f"host CPU's")
+
+    phase("34 FFT backends on the card (C20: CT, dense, torch.fft)", p34)
+    phase("35 welch_psd / coherence", p35)
+    phase("36 hpss (B1 twice)", p36)
+    phase("37 yin_f0, onsets, tempo, tempogram", p37)
+    phase("38 time_stretch / pitch_shift (B1 at the synthesis hops, B4)", p38)
+    phase("39 dtw on chroma", p39)
+    out["counts"] = {"b1": b1.launches, "b4": b4.launches,
+                     "b0_fp32": b0f.launches}
+    log(f"last analysis path launches (its untimed calls): B1 "
+        f"{out['counts']['b1']}, B4 {out['counts']['b4']}, B0 fp32 (the mel "
+        f"and chroma products) {out['counts']['b0_fp32']}, of which held "
+        f"against plain {hold.held}")
+    if not all(out["counts"].values()) or hold.held != out["counts"]["b0_fp32"]:
+        failures.append("launch counts (path 8)")
         log("FAIL launch counts: a kernel of the path was not launched, or "
             "a B0 fp32 launch was not held against plain")
     return out

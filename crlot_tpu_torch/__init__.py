@@ -11,7 +11,9 @@ sharded streamer) sits beside the round-trip paths, and so does the
 analysis stack: `iir` (the log-depth scan IIR filters and their float64
 designers), `effects` (pre/de-emphasis, mu-law), `features` (mel / MFCC,
 spectral descriptors, chroma, pseudo-CQT, LPC, cepstrum, PCEN, the
-Hilbert envelope, the mel inversion), `griffinlim` and `segment`.
+Hilbert envelope, the mel inversion), `griffinlim`, `segment`, `psd`
+(Welch PSD, coherence), `hpss`, `pitch` (YIN, onsets, tempo), `vocoder`
+(time stretch, pitch shift) and `align` (DTW).
 """
 
 from .core.types import (
@@ -113,9 +115,16 @@ from .iir import (
     sosfiltfilt,
 )
 
+from .psd import coherence, welch_freqs, welch_psd
+from .hpss import harmonic, hpss, hpss_masks, percussive
+from .pitch import detect_onsets, onset_strength, tempo, tempogram, yin_f0
+from .vocoder import pitch_shift, time_stretch
+from .align import dtw, dtw_cost, dtw_path
+
 from . import (  # noqa: E402,F401
-    checkpoint, convert, core, distributed, effects, features, fft, frame,
-    griffinlim, iir, io, metrics, ola, segment, spectral, window,
+    align, checkpoint, convert, core, distributed, effects, features, fft,
+    frame, griffinlim, iir, io, metrics, ola, pitch, psd, segment, spectral,
+    vocoder, window,
 )
 
 __version__ = "0.1.0"

@@ -12,6 +12,10 @@ of `iir.sosfilt` and `iir.lfilter`, `features.pcen`'s smoother state) have
 the reference's layout and dtype, so a reference state passes to the port
 as the numpy array it is, and back as `tensor.numpy()`; its design arrays
 are rebuilt by the port's own copies of the float64 design code.
+`psd`, `hpss`, `pitch`, `vocoder`, `align` and the Cooley-Tukey backend
+carry no state across from the reference; their design arrays (the CT
+bases and twiddles, the dense DFT bases) are byte-identical to the
+reference's and held so in tests.
 """
 
 from __future__ import annotations

@@ -1,0 +1,12 @@
+from .types import (  # noqa: F401
+    BoundaryMode,
+    FftBackend,
+    FftDomain,
+    FftPlanDesc,
+    FrameSpec,
+    NormalizationType,
+    OLAConfig,
+    PadMode,
+    StftConfig,
+    WindowType,
+)

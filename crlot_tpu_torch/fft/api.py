@@ -1,13 +1,14 @@
 """Plan-based FFT API: `FftPlan` and `make_fft_plan`.
 
 Counterpart of `crlot_tpu/fft/api.py`. A plan is a thin object over
-`fft.dispatch` specialized on (nfft, scrub, backend): AUTO runs the matmul
-DFT for a REAL plan on a CUDA tensor and `torch.fft` otherwise, MATMUL above
-`MAX_MATMUL_NFFT` raises. The contract is the reference's: a REAL domain
-needs an even nfft, in-place raises, strides are >= 1, the batch is not
-capped (`max_batch_size`), the inverse includes 1/nfft, and with `scrub`
-NaN/Inf and |x| < 1e-30 become 0 on the forward's input and the inverse's
-output.
+`fft.dispatch` specialized on (nfft, scrub, backend), with its routes: on a
+CUDA tensor AUTO runs the matmul DFT for a REAL plan (Cooley-Tukey products
+for a power of two above 4096) and the Cooley-Tukey products for a
+power-of-two COMPLEX plan, on a CPU tensor `torch.fft`. The contract is
+the reference's: a REAL domain needs an even nfft, in-place raises, strides
+are >= 1, the batch is not capped (`max_batch_size`), the inverse includes
+1/nfft, and with `scrub` NaN/Inf and |x| < 1e-30 become 0 on the forward's
+input and the inverse's output.
 
 Shapes: natural inputs are [..., nfft] (real or complex); the `*_strided`
 methods take the reference's flat strided layout (flat element

@@ -2,6 +2,8 @@
 
 Counterpart of the slice's part of `crlot_tpu/fft/matmul_backend.py`:
 
+* the dense [N, N+2] / [N+2, N] DFT bases (odd N: `fft/dispatch.py`'s
+  MATMUL route for an odd nfft <= 4096), a window folded in or not;
 * the folded (half-size) forward and inverse DFT bases and the packed
   forward / inverse that use them;
 * the composed round-trip basis: for a FIXED per-bin response, frame ->
@@ -127,6 +129,70 @@ def irfft_folded_parts(re: torch.Tensor, im: torch.Tensor,
             dim=-1,
         )
     return a  # nfft == 2: output is [x0, x1] = [A0, A1]
+
+
+@lru_cache(maxsize=None)
+def _forward_basis(nfft: int) -> np.ndarray:
+    """[N, 2K] with columns [cos | -sin]: x @ B -> [Re(X) | Im(X)]."""
+    k = np.arange(nfft // 2 + 1, dtype=np.float64)
+    n = np.arange(nfft, dtype=np.float64)
+    ang = 2.0 * np.pi * np.outer(n, k) / nfft
+    return np.concatenate([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _inverse_basis(nfft: int) -> np.ndarray:
+    """[2K, N]: [Re(X) | Im(X)] @ B -> x, with hermitian weights and 1/N."""
+    kk = nfft // 2 + 1
+    k = np.arange(kk, dtype=np.float64)
+    n = np.arange(nfft, dtype=np.float64)
+    ang = 2.0 * np.pi * np.outer(k, n) / nfft
+    w = np.full(kk, 2.0)
+    w[0] = 1.0
+    if nfft % 2 == 0:
+        w[-1] = 1.0
+    cos_part = (w[:, None] * np.cos(ang)) / nfft
+    sin_part = -(w[:, None] * np.sin(ang)) / nfft
+    return np.concatenate([cos_part, sin_part], axis=0).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _windowed_forward_basis(nfft: int, window_bytes: bytes) -> np.ndarray:
+    """The forward basis with the analysis window folded in:
+    (x * w) @ B == x @ (diag(w) @ B)."""
+    w = np.frombuffer(window_bytes, dtype=np.float64)
+    assert len(w) == nfft
+    return (w[:, None] * _forward_basis(nfft).astype(np.float64)).astype(
+        np.float32
+    )
+
+
+@lru_cache(maxsize=8)
+def _dense_basis_on(nfft: int, window_bytes, inverse: bool,
+                    device: torch.device) -> torch.Tensor:
+    if inverse:
+        b = _inverse_basis(nfft)
+    elif window_bytes is None:
+        b = _forward_basis(nfft)
+    else:
+        b = _windowed_forward_basis(nfft, window_bytes)
+    return torch.from_numpy(b).to(device)
+
+
+def rfft_matmul(x: torch.Tensor, nfft: int, window_f64=None) -> torch.Tensor:
+    """rfft(x [* window]) as one product: real [..., nfft] -> complex64
+    [..., nfft//2+1]. IEEE fp32 (`torch.matmul`, TF32 off)."""
+    wb = None if window_f64 is None else _bytes(window_f64, np.float64)
+    flat = torch.matmul(x.float(), _dense_basis_on(nfft, wb, False, x.device))
+    kk = nfft // 2 + 1
+    return torch.complex(flat[..., :kk], flat[..., kk:])
+
+
+def irfft_matmul(spec: torch.Tensor, nfft: int) -> torch.Tensor:
+    """Complex [..., nfft//2+1] -> real [..., nfft] (1/N included) as one
+    product."""
+    ri = torch.cat([spec.real, spec.imag], dim=-1).float()
+    return torch.matmul(ri, _dense_basis_on(nfft, None, True, spec.device))
 
 
 @lru_cache(maxsize=None)

@@ -33,7 +33,12 @@ signal through `Framer` (10 ms interleaved pushes) and `OLAAccumulator`
 The analysis rows run `sosfilt` (an 8th-order Butterworth, the log-depth
 scan), `mel_spectrogram` + `pcen` and `griffin_lim` (32 iterations, on the
 magnitude of the 48 kHz signal) at 2 x `--seconds`, and the first two on
-the first config-5 chunk as well.
+the first config-5 chunk as well; `hpss` (kernels 31, two B1 launches),
+`yin_f0`, `time_stretch` (rate 1.1) and `pitch_shift` (+3 semitones, B1
+then B4) at 2 x `--seconds`; and `dtw` of two sequences of random 12-bin
+features, one frame a 1024-sample hop of `--seconds` (2 813 frames each at
+60 s: a chroma alignment at N = 4096, H = 1024), timed once after one
+warm-up, its rows a Python loop of elementwise launches.
 On a CPU device the device time is "not measured".
 """
 
@@ -93,22 +98,23 @@ def _report(name: str, e2e_s: float, rows: dict, runs: int, dev) -> str:
     return "\n".join(lines)
 
 
-def profile_call(name: str, fn, dev: torch.device) -> str:
-    for _ in range(WARMUPS):
+def profile_call(name: str, fn, dev: torch.device, calls: int = CALLS,
+                 warmups: int = WARMUPS) -> str:
+    for _ in range(warmups):
         fn()
     _sync(dev)
     times = []
-    for _ in range(CALLS):
+    for _ in range(calls):
         t0 = time.perf_counter()
         fn()
         _sync(dev)
         times.append(time.perf_counter() - t0)
     with torch.profiler.profile(activities=_activities(dev)) as prof:
-        for _ in range(CALLS):
+        for _ in range(calls):
             fn()
         _sync(dev)
     return _report(name, statistics.median(times), _device_events(prof),
-                   CALLS, dev)
+                   calls, dev)
 
 
 def profile_demo(label: str, wav: str, out_dir: str, dev) -> str:
@@ -235,11 +241,22 @@ def main(argv=None) -> int:
             pt.mel_spectrogram(x48, cfg, 48000), 48000 / 256),
         "griffin_lim, 32 iters": lambda: pt.griffin_lim(
             mag, cfg_gl, iters=32, length=n48),
+        "hpss, kernels 31": lambda: pt.hpss(x48, cfg),
+        "yin_f0": lambda: pt.yin_f0(x48, cfg, 48000.0),
+        "time_stretch, rate 1.1": lambda: pt.time_stretch(x48, cfg, 1.1),
+        "pitch_shift, +3 semitones": lambda: pt.pitch_shift(x48, cfg, 3.0),
     })
     for name, fn in calls.items():
         print(profile_call(f"{name}, 2 x {args.seconds:g} s", fn, dev),
               flush=True)
     del mag
+    frames = int(48000 * args.seconds) // 1024 + 1  # N 4096, H 1024
+    feats = torch.rand((2, frames, 12), generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)
+    print(profile_call(f"dtw, {frames} x {frames} frames of 12 features",
+                       lambda: pt.dtw(feats[0], feats[1]), dev, calls=1,
+                       warmups=1), flush=True)
+    del feats
 
     total = args.stream_chunks * STREAM_CHUNK
     xs = torch.from_numpy(np.random.default_rng(9).uniform(

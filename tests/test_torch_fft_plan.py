@@ -1,5 +1,6 @@
 """The port's plan-based FFT API (`FftPlan`, `make_fft_plan`) and dispatch's
-complex transforms.
+complex transforms (on MATMUL the Cooley-Tukey products for a power of
+two).
 
 Mirrors the thirteen tests of `tests/test_fft.py` with their gates (real
 round-trip RMSE < 1e-6; complex round-trip max-abs < 1e-4; DC, tone and
@@ -234,14 +235,22 @@ def test_plan_matches_reference(nfft, backend):
 
 
 def test_matmul_above_4096_raises_not_falls_back():
-    """MATMUL beyond the matmul bases raises (queue A9); it does not
-    quietly run the library FFT."""
-    x = np.zeros(8192, np.float32)
-    with pytest.raises(NotImplementedError):
-        _plan(8192, backend=FftBackend.MATMUL).forward(x, device=CPU)
-    with pytest.raises(NotImplementedError):
-        _plan(8192, domain=FftDomain.COMPLEX,
-              backend=FftBackend.MATMUL).forward_complex(x, device=CPU)
+    """MATMUL beyond the matmul bases takes the reference's route (C20,
+    repaired: it raised before): the Cooley-Tukey products for a power of
+    two, not the library FFT; `torch.fft` for any other nfft, as the
+    reference falls back to `jnp.fft`."""
+    from crlot_tpu_torch.fft import ct_backend
+
+    x = np.random.default_rng(8).uniform(-1, 1, 8192).astype(np.float32)
+    got = _plan(8192, backend=FftBackend.MATMUL).forward(x, device=CPU)
+    assert torch.equal(got, ct_backend.rfft_ct(torch.from_numpy(x), 8192))
+    xc = x.astype(np.complex64)
+    got = _plan(8192, domain=FftDomain.COMPLEX,
+                backend=FftBackend.MATMUL).forward_complex(xc, device=CPU)
+    assert torch.equal(got, ct_backend.fft_ct(torch.from_numpy(xc), 8192))
+    spec = _plan(6000, backend=FftBackend.MATMUL).forward(x[:6000],
+                                                         device=CPU)
+    assert torch.equal(spec, torch.fft.rfft(torch.from_numpy(x[:6000])))
     spec = _plan(8192).forward(x, device=CPU)  # AUTO on the CPU: torch.fft
     assert tuple(spec.shape) == (4097,)
 

@@ -111,6 +111,49 @@ def test_analysis_stack_names_import_no_jax(tmp_path):
     assert "BAD []" in out.stdout
 
 
+def test_last_analysis_names_and_core_types_import_no_jax(tmp_path):
+    """The 17 top-level names the reference exports from `psd`, `hpss`,
+    `pitch`, `vocoder` and `align` (`crlot_tpu/__init__.py`) come from the
+    port, the ten types the reference's `core` re-exports come from
+    `crlot_tpu_torch.core` (C21), and importing the five modules and the
+    Cooley-Tukey backend imports no jax, crlot_tpu or triton."""
+    src = (REPO / "crlot_tpu" / "__init__.py").read_text()
+    names = []
+    for mod in ("psd", "hpss", "pitch", "vocoder", "align"):
+        line = src.split(f"from .{mod} import", 1)[1].split("\n", 1)[0]
+        names += [n.strip() for n in line.split(",") if n.strip()]
+    assert len(names) == 17
+    core_src = (REPO / "crlot_tpu" / "core" / "__init__.py").read_text()
+    block = core_src.split("import (", 1)[1].split(")", 1)[0]
+    types = [n.strip() for n in block.split("\n")[1:] if n.strip()]
+    types = [t.rstrip(",") for t in types]
+    assert len(types) == 10
+    code = (
+        "import sys\n"
+        f"from crlot_tpu_torch.core import {', '.join(types)}\n"
+        "import crlot_tpu_torch as pt, crlot_tpu_torch.core as core\n"
+        "import crlot_tpu_torch.psd, crlot_tpu_torch.pitch, "
+        "crlot_tpu_torch.vocoder, crlot_tpu_torch.align, "
+        "crlot_tpu_torch.fft.ct_backend\n"
+        "import importlib; importlib.import_module('crlot_tpu_torch.hpss')\n"
+        f"missing = [n for n in {names!r} if not hasattr(pt, n)]\n"
+        f"missing += [t for t in {types!r} if getattr(core, t) is not "
+        "getattr(pt, t)]\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'crlot_tpu', 'triton'))\n"
+        "print('MISSING', missing)\n"
+        "print('BAD', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=tmp_path, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "MISSING []" in out.stdout
+    assert "BAD []" in out.stdout
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

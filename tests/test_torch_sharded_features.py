@@ -4,12 +4,12 @@ Mirrors `tests/test_sharded_features.py` on a CPU mesh (`make_mesh(8, 1,
 devices=["cpu"] * 8)`): the channel axis split over the mesh's channel
 shards, each shard computed on its device, the results gathered, and held
 `torch.equal` to the one-device call — for `mel_spectrogram`, `mfcc`,
-`spectral_centroid`, `sosfilt`, `pseudo_cqt` and `pcen`. The reference
-holds `pcen` only to rtol 2e-5 (XLA fuses its pow and scan differently
-per shard); the port holds it bit for bit (its powers round once from
-float64, `features._pow`). The reference's hpss case waits for the port of
-`hpss.py` (ROADMAP A7.8). On the card, `chip_smoke.py` phase 31 holds the
-same property with two shards on one card.
+`spectral_centroid`, `sosfilt`, `hpss` (both parts), `pseudo_cqt` and
+`pcen`. The reference holds `pcen` only to rtol 2e-5 (XLA fuses its pow
+and scan differently per shard); the port holds it bit for bit (its
+powers round once from float64, `features._pow`). On the card,
+`chip_smoke.py` phases 31 and 36 hold the same property with two shards on
+one card.
 """
 
 import numpy as np
@@ -78,6 +78,16 @@ def test_sharded_sosfilt_bit_identical():
     x = _sig(8, SR // 2, seed=3)
     f = lambda z: sosfilt(sos, z)  # noqa: E731
     assert torch.equal(_sharded(f, x), f(x))
+
+
+def test_sharded_hpss_bit_identical():
+    from crlot_tpu_torch.hpss import hpss
+
+    x = _sig(8, SR // 4, seed=4)
+    f = lambda z: torch.stack(hpss(z, CFG, kernel_harm=9,  # noqa: E731
+                                   kernel_perc=9))
+    assert torch.equal(_sharded(lambda z: f(z).transpose(0, 1), x),
+                       f(x).transpose(0, 1))
 
 
 def test_sharded_pseudo_cqt_bit_identical():
