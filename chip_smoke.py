@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from `crlot_tpu_torch/csrc/` (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version on the card, then runs
-eight paths through the public entry points, each with the kernels' launch
+nine paths through the public entry points, each with the kernels' launch
 counters reset just before and read just after: on 2 channels x 60 s at
 48 kHz, N=1024 / H=256, Hann, seed 0, the round-trip path (`round_trip`,
 `stft`, `istft`; centered) and the fused-frames and sharded path
@@ -16,7 +16,10 @@ and demo path (`resample`, `resample_chunked`, `resampled_stft`,
 `process_wav_file`, `python -m crlot_tpu_torch.int8_probe`'s `run`); the
 INT8X2 path (`round_trip` at N=1024 / H=480, the tiled int8 route); and
 the streaming layer (`ShardedStreamer`, `sharded_stream`, `Framer`,
-`OLAAccumulator`, `checkpoint`, `FftPlan`) at BASELINE config 5's width.
+`OLAAccumulator`, `checkpoint`, `FftPlan`) at BASELINE config 5's width;
+and the multi-process path (`dryrun`, two ranks through `initialize`,
+`global_mesh` and `process_allgather`, the halo accounting, the quad,
+conv and packed formulations).
 
 Phases (each prints one line; the script exits 1 if any fails):
   1. B1 (fused OLA + normalize) vs plain on [2, 11251, 1024] frames, and
@@ -53,11 +56,12 @@ Phases (each prints one line; the script exits 1 if any fails):
      shard, torch.equal to the (1, 1) mesh, and within max-abs 1e-5 of the
      one-shot round_trip (B2) over [N, T-N) (prints whether bit-identical).
  10. sharded identity (blocked route) on the same mesh and signal: blocked
-     engaged, one B0 launch a shard and one for each channel group's head
-     and tail patch, interior SNR vs input >= 60 dB, torch.equal to the (1,
-     1) mesh, and the in-mesh metrics' SNR within 0.01 dB of the host's SNR
-     of the gathered output; then at HIGHEST: the same launches of B0's
-     fp32 kernel, (2, 2) torch.equal to (1, 1).
+     engaged, two B0 launches a shard (its interior rows, then its head
+     and tail rows together once the halos are in) and one for each
+     channel group's head and tail patch, interior SNR vs input >= 60 dB, torch.equal to
+     the (1, 1) mesh, and the in-mesh metrics' SNR within 0.01 dB of the
+     host's SNR of the gathered output; then at HIGHEST: the same launches
+     of B0's fp32 kernel, (2, 2) torch.equal to (1, 1).
 The resample and demo path runs on 2 channels x 60 s at 44.1 kHz (uniform
 noise from seed 0 for the kernel checks, a 997 Hz / 1 kHz sine pair for
 fidelity), BASELINE config 3's long streams, fp32 with TF32 off:
@@ -256,6 +260,47 @@ every B1 launch torch.equal to its plain version and every B4 launch within
      total within (N + M) 2^-24 of it of a float64 DP on the same costs,
      the path equal to the host CPU's; `dtw`'s host-clock time and device
      launches a row.
+Then the multi-process path, with the B0 and B3 counters reset just
+before; its counts are those of its untimed calls, here and in the two
+ranks of phase 41, and every B0 and B3 launch of those calls is held
+against its plain version at once (`KernelHold`: B0 within 2^-18 of
+sum|x||k|, B3 within 1e-5 outside ambiguous gate frames); the timed runs
+of the depth-3 prefetch are neither held nor counted:
+ 40. The port's `dryrun(4)` on a (2, 2) mesh whose shards all sit on
+     cuda:0: Part A (the blocked and masked chunked streamers bit-exact
+     against their one-shots, a checkpoint through npz resumed bit-exact,
+     interior SNR >= 60 dB, 2 halo ops of (N - H) * 4 * 2 bytes a shard,
+     the NVLink weak-scaling gate >= 0.8 at config 5's 2^20-sample block
+     with the 1 s figure beside it, the independent MAC fraction >= 0.75 at
+     a 1 s block), Part B at config 5's shape (128 channels x 2 887 680
+     samples in 20 chunks, bit-exact against the one-shot, the state's
+     bytes constant) and Part C (depth 1 vs depth 3 under an injected delay
+     a chunk, at 128 channels in config 5's 2^20-sample chunks: >= 0.8 of
+     the device's hidable time recovered); its JSON line.
+ 41. Two ranks sharing the card (`python3 chip_smoke.py --multihost-child
+     <rank> 2 <port>`, each running `crlot_tpu_torch.distributed.
+     multihost_child --device cuda` under `KernelHold`; gloo, halos staged
+     through pinned host memory) on a (channel=2, time=2) global mesh,
+     every halo crossing the process boundary: the identity (blocked, B0)
+     and noise_gate(-30) (masked, B3) on phase 9's 2 x 2 879 488 samples
+     and one 128 x 2^20 chunk of config 5, gathered torch.equal to a
+     one-process (1, 1) mesh with equal mesh metrics; the blocked streamer
+     torch.equal to one process and resumed from a one-process state; the
+     depth-3 prefetch across the boundary at 128 x 2^20 (the reference
+     child's gate: depth 3 recovers >= 20 % of the hidable time); the bytes
+     each exchange moved and the host-staging and receive-wait time.
+ 42. The accounting on phase 10's (2, 2) mesh: `collective_bytes_per_step`
+     2 ops of (N - H) * 4 * C_local bytes, `overlap_dot_fraction` >= 0.75
+     at a 49 152-sample block a shard, `weak_scaling_model` with the card's
+     name at 1 s and 2^20, the main path's roofline (`profiling`).
+ 43. A9's formulations on the card, each against float64 numpy: the quad
+     parts and round-trip at N = 512, 1024, 2048, 4096 on 64 rows
+     (`tests/test_fft_quad.py`'s gates: forward and inverse RMSE < 1e-6,
+     round-trip < 1e-5), the packed round-trip and the composed conv (the
+     3-band EQ; at HIGH on B0, at HIGHEST `conv1d` with cuDNN's TF32 off)
+     on the main path's [2, 11251, 1024] frames (RMSE < 1e-5 hard, the
+     1e-6 target reported over the first second's frames), each with its
+     CUDA-event ms.
 Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
 busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
@@ -268,7 +313,7 @@ and at the tiled route's 2 x 6001 frames x 512;
 B4 at both rates against its former design, the blocks tile, in the
 same run and as PERF.md gives it, against `resample_bank_plain` and
 against `resample_grouped_plain`, the JAX default's math; B5 at n =
-5 760 000), and
+5 760 000; B0's rate in samples/s beside the main path's roofline), and
 end-to-end samples/s of phases 3, 6, 8, 9 (phase 9 on both meshes; the
 (2, 2) mesh runs its four shards one after another on one card, so it is no
 scaling figure), 13, 14 and 15, and the demo's wall time; the library
@@ -836,8 +881,10 @@ def main() -> int:
         check(held["HIGH"] == 4, f"{held['HIGH']} edge patches held on the "
               f"(2, 2) mesh, 4 expected")
         check(len(calls) == 2, f"blocked route engaged {len(calls)} times")
-        check(launched == 8, f"{launched} B0 launches for 4 shards and "
-              f"2 x 2 edge patches")
+        # Each shard: its interior rows, then its head and tail rows once
+        # the halos are in; and each channel group's two edge patches.
+        check(launched == 12, f"{launched} B0 launches for 4 shards x 2 "
+              f"and 2 x 2 edge patches")
         finite(y, (2, T_SHARDED))
         one = pt.sharded_round_trip(x9, cfg_nc, mesh11)
         held = hold.verify()
@@ -860,8 +907,8 @@ def main() -> int:
         before = b0f.launches
         y_h = pt.sharded_round_trip(x9, cfg_hst, mesh22)
         launched_h = b0f.launches - before
-        check(launched_h == 8, f"{launched_h} fp32 B0 launches for 4 shards "
-              f"and 2 x 2 edge patches")
+        check(launched_h == 12, f"{launched_h} fp32 B0 launches for 4 "
+              f"shards x 2 and 2 x 2 edge patches")
         one_h = pt.sharded_round_trip(x9, cfg_hst, mesh11)
         held = hold.verify()
         check(held["HIGHEST"] == 6, f"{held['HIGHEST']} fp32 edge patches "
@@ -899,6 +946,7 @@ def main() -> int:
     path6 = stream_path(dev, phase, check, failures, x_np)
     path7 = analysis_path(dev, phase, check, failures, x_np)
     path8 = last_analysis_path(dev, phase, check, failures, x_np)
+    path9 = multiprocess_path(dev, phase, check, failures, x_np)
 
     # Timings.
     def e2e_rate(fn, samples=2 * n):
@@ -961,6 +1009,15 @@ def main() -> int:
             f"{rows0} windows x {gh0}, K {kern0.shape[0]}), plain emulation "
             f"{ms(timing, 'b0_plain')}, the former cuBLAS fp32 loop "
             f"{ms(timing, 'b0_library')} in this run; {OLD_MS['B0']}")
+        roof = path9["results"].get("roofline")
+        if roof is not None:
+            b0_rate = x_ext.shape[0] * rows0 * gh0 / (timing["b0"] / 1e3)
+            log(f"B0 at {b0_rate:.4e} output samples/s (the main path's "
+                f"windows over its CUDA-event time) against the blocked "
+                f"round-trip's roofline {roof['roofline_samples_per_sec']:.4e}"
+                f" samples/s ({roof['flops_per_sample']:.0f} FLOP a sample "
+                f"at TF32 / 3; `profiling.roofline_samples_per_sec`): "
+                f"{b0_rate / roof['roofline_samples_per_sec']:.3f} of it")
         log(f"e2e round_trip identity {timing['rt_identity']:.4e} samples/s; "
             f"noise_gate {timing['rt_gate']:.4e} samples/s; fused_roundtrip "
             f"{timing['rt_frames']:.4e} samples/s (host clock, "
@@ -1035,7 +1092,8 @@ def main() -> int:
         {"name": "hopblock_apply (B0)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/b6_sm90.cu",
          "replaces": "crlot_tpu/fft/matmul_backend.py:633",
-         "launches": counts["b0"] + path6["counts"]["b0"],
+         "launches": (counts["b0"] + path6["counts"]["b0"]
+                      + path9["counts"]["b0"]),
          "max_abs_err": path_b0["err"],
          "ms": timing["b0"], "plain_ms": timing["b0_plain"],
          **bound(nbytes(x_ext, *bt0) + x_ext.shape[0] * rows0 * gh0 * 4,
@@ -1062,7 +1120,8 @@ def main() -> int:
         {"name": "rt_frames (B3)", "route": "cuda",
          "source": "crlot_tpu_torch/csrc/fused_rt.cu",
          "replaces": "crlot_tpu/fft/pallas_rt.py:277",
-         "launches": counts2["b3"] + path6["counts"]["b3"],
+         "launches": (counts2["b3"] + path6["counts"]["b3"]
+                      + path9["counts"]["b3"]),
          "max_abs_err": results["b3_err"],
          "ms": timing["b3"], "plain_ms": timing["b3_plain"],
          **bound(nbytes(padded, w32, *tf32_bases) + 2 * n_frames * NFFT * 4,
@@ -2022,6 +2081,108 @@ class ProductHold:
                 f"{len(self.shapes)} shapes")
 
 
+class KernelHold:
+    """Every launch of B0 (3xTF32, `tf32x3.gemm_cuda`) and B3
+    (`fused_rt.roundtrip_frames_cuda`) while the context is open, held at
+    once against its plain version on its own operands: B0 within
+    tf32x3.REL_TOL of sum |x||k| per output (`gemm_plain`, as
+    `EdgePatchHold` holds it), B3 within max-abs 1e-5 of
+    `roundtrip_frames_plain` outside the frames whose gate decision is
+    ambiguous (C12, as phase 7 holds it; `summary` fails when those pass
+    0.1 % of the frames of every B3 launch held).
+    The timed runs of the depth-3 prefetch
+    (`sharded_pipeline.prefetch_walls`) run unheld, and put the launch
+    counters back as they found them: a timed repeat is not counted."""
+
+    def __init__(self, check):
+        from crlot_tpu_torch.distributed import sharded_pipeline
+        from crlot_tpu_torch.fft import fused_rt, tf32x3
+
+        self.b0, self.b3, self.spl, self.check = (tf32x3, fused_rt,
+                                                  sharded_pipeline, check)
+        self.paused = False
+        self.held = {"b0": 0, "b3": 0}
+        self.worst = {"b0": 0.0, "b3": 0.0}
+        self.left_out = self.frames = 0
+
+    def __enter__(self):
+        import torch
+
+        from crlot_tpu_torch.int8_gemm import _as_signal, windows
+
+        b0, b3, spl = self.b0, self.b3, self.spl
+        self.orig = gemm, frames, prefetch = (b0.gemm_cuda,
+                                              b3.roundtrip_frames_cuda,
+                                              spl.prefetch_walls)
+
+        def b0_spy(a, bt_hi, bt_lo, rows=None, lda=None):
+            out = gemm(a, bt_hi, bt_lo, rows=rows, lda=lda)
+            if self.paused:
+                return out
+            want = b0.gemm_plain(a, bt_hi, bt_lo, rows=rows, lda=lda)
+            x, r, ld = _as_signal(a, rows, lda)
+            scale = torch.matmul(windows(x, r, ld, bt_hi.shape[1]).abs(),
+                                 (bt_hi + bt_lo).T.abs())
+            rel = float(((out - want).abs() / scale.clamp_min(1e-30)).max())
+            self.worst["b0"] = max(self.worst["b0"], rel)
+            self.check(rel <= b0.REL_TOL,
+                       f"B0 [{list(x.shape)}, {r} rows at lda {ld}] x "
+                       f"{list(bt_hi.shape)}: {rel:.3e} of sum|x||k| from "
+                       f"plain (bound {b0.REL_TOL:.3e})")
+            self.held["b0"] += 1
+            return out
+
+        def b3_spy(padded, nfft, hop, n_frames, window_f32,
+                   spectral_packed=None):
+            out = frames(padded, nfft, hop, n_frames, window_f32,
+                         spectral_packed)
+            if self.paused:
+                return out
+            want = b3.roundtrip_frames_plain(padded, nfft, hop, n_frames,
+                                             window_f32, spectral_packed)
+            mask = b3.ambiguous_frames(padded, nfft, hop, n_frames,
+                                       window_f32, spectral_packed)
+            err = float(torch.where(~mask[..., None], (out - want).abs(),
+                                    0.0).max())
+            left = int(mask.sum())
+            self.worst["b3"] = max(self.worst["b3"], err)
+            self.left_out += left
+            self.frames += mask.numel()
+            self.check(err <= 1e-5, f"B3 {list(padded.shape)}, {n_frames} "
+                       f"frames: max-abs {err:.3e} from plain outside "
+                       f"{left} ambiguous frames")
+            self.held["b3"] += 1
+            return out
+
+        def prefetch_spy(*a, **k):
+            counted = b0.launches, b3.frames_launches
+            self.paused = True
+            try:
+                return prefetch(*a, **k)
+            finally:
+                self.paused = False
+                b0.launches, b3.frames_launches = counted
+
+        b0.gemm_cuda, b3.roundtrip_frames_cuda = b0_spy, b3_spy
+        spl.prefetch_walls = prefetch_spy
+        return self
+
+    def __exit__(self, *exc):
+        (self.b0.gemm_cuda, self.b3.roundtrip_frames_cuda,
+         self.spl.prefetch_walls) = self.orig
+
+    def summary(self) -> str:
+        """The launches held so far; fails if the frames left out as
+        ambiguous, over every B3 launch held, pass 0.1 %."""
+        self.check(self.left_out <= 1e-3 * self.frames,
+                   f"B3: {self.left_out} of {self.frames} frames ambiguous")
+        return (f"held against plain: B0 x{self.held['b0']} (worst "
+                f"{self.worst['b0']:.3e} of sum|x||k|, bound "
+                f"{self.b0.REL_TOL:.3e}), B3 x{self.held['b3']} (worst "
+                f"max-abs {self.worst['b3']:.3e} outside "
+                f"{self.left_out} ambiguous frames of {self.frames})")
+
+
 EDGE_BOUND = 2.0 ** -14  # K * 2^-24 at K = N = 1024
 
 
@@ -2520,10 +2681,12 @@ def stream_path(dev, phase, check, failures, x_np) -> dict:
                 launched = counters[key]() - before
                 groups = mesh.shape["channel"]
                 shards = groups * mesh.shape["time"]
-                # A blocked chunk program patches its in-mesh head and tail
-                # on each channel group (in the discarded context); the
-                # stream's own head and tail patches come on top.
-                want = (4 * (shards + 2 * groups) + 2 * groups if blocked
+                # A blocked chunk program runs two products a shard (the
+                # interior rows, then the head and tail rows) and patches
+                # its in-mesh head and tail on each channel group (in the
+                # discarded context); the stream's own head and tail
+                # patches come on top.
+                want = (4 * (2 * shards + 2 * groups) + 2 * groups if blocked
                         else 4 * shards)
                 check(st.blocked == blocked,
                       f"{name} {mname}: blocked {st.blocked}")
@@ -2632,9 +2795,10 @@ def stream_path(dev, phase, check, failures, x_np) -> dict:
         worst = min(per_chunk)
         rate = STREAM_CH * n_chunks * STREAM_CHUNK / wall
         check(worst > 60.0, f"hour: worst chunk snr {worst:.2f} dB")
-        check(hour_b0 == 3 * n_chunks + 2, f"hour: {hour_b0} B0 launches "
-              f"for {n_chunks} chunks (a chunk's hop blocks and its two "
-              f"in-mesh patches, the stream's two patches)")
+        check(hour_b0 == 4 * n_chunks + 2, f"hour: {hour_b0} B0 launches "
+              f"for {n_chunks} chunks (a chunk's interior rows, its head "
+              f"and tail rows, its two in-mesh patches; the stream's two "
+              f"patches)")
         # The card's idle share over a few profiled chunks.
         make = chunk_source(STREAM_SEED + 2)
         st = pt.ShardedStreamer(cfg, meshes["(1, 1)"])
@@ -3987,6 +4151,304 @@ def wire_timings(dev, path4, path_b6) -> dict:
     return timing
 
 
+MH_TIMEOUT = 300  # s: the deadline of the two ranks of phase 41
+QUAD_NFFTS = (512, 1024, 2048, 4096)  # phase 43: every N quad_supported takes
+QUAD_ROWS = 64
+A9_FRAMES = SR // HOP  # frames of the 2 x 60 s held against float64: 1 s
+
+
+def multihost_child(argv) -> int:
+    """`python3 chip_smoke.py --multihost-child <rank> <nproc> <port>`: one
+    rank of phase 41, `python -m crlot_tpu_torch.distributed.multihost_child
+    <rank> <nproc> <port> --device cuda` with every B0 and B3 launch held
+    against its plain version (`KernelHold`); prints its launch counts on a
+    line "HOLD {...}"."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from crlot_tpu_torch.distributed import multihost_child as child
+    from crlot_tpu_torch.fft import fused_rt as b2
+    from crlot_tpu_torch.fft import tf32x3 as b0
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def check(cond, what):
+        if not cond:
+            raise AssertionError(what)
+
+    b0.launches = b2.frames_launches = 0
+    with KernelHold(check) as hold:
+        rc = child.main(list(argv) + ["--device", "cuda"])
+    print("HOLD " + json.dumps({"rank": int(argv[0]), "b0": b0.launches,
+                                "b3": b2.frames_launches,
+                                "held": hold.held,
+                                "summary": hold.summary()}), flush=True)
+    return rc
+
+
+def run_multihost(nproc: int) -> tuple:
+    """`nproc` ranks of `--multihost-child` at once (`run_ranks`, killed at
+    MH_TIMEOUT or when one fails): (rank 0's report, every rank's HOLD
+    line, the wall in s). Raises unless every rank exits 0 with its
+    launches all held and rank 0 reports OK."""
+    import socket
+
+    from crlot_tpu_torch.distributed.multihost_child import run_ranks
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    ranks = run_ranks(
+        [[sys.executable, str(ROOT / "chip_smoke.py"), "--multihost-child",
+          str(rank), str(nproc), str(port)] for rank in range(nproc)],
+        MH_TIMEOUT, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    for rank, (rc, text) in enumerate(ranks):
+        if rc != 0:
+            raise AssertionError(
+                f"rank {rank} exited {rc} (killed if < 0, at {MH_TIMEOUT} s "
+                f"or when another failed):\n{text[-4000:]}")
+    logs = [text for _, text in ranks]
+    if "MULTIHOST_OK" not in logs[0]:
+        raise AssertionError("rank 0 did not report OK")
+    report = json.loads(next(line for line in logs[0].splitlines()
+                             if line.startswith("{")))
+    holds = [json.loads(line[5:]) for text in logs
+             for line in text.splitlines() if line.startswith("HOLD ")]
+    if len(holds) != nproc or any(
+            h["held"] != {"b0": h["b0"], "b3": h["b3"]} for h in holds):
+        raise AssertionError(f"launches not all held: {holds}")
+    return report, holds, wall
+
+
+def multiprocess_path(dev, phase, check, failures, x_np) -> dict:
+    """Phases 40-43, with the B0 and B3 counters reset just before: the
+    port's `dryrun(4)`, two ranks sharing the card, the halo accounting and
+    the weak-scaling model, and A9's formulations. Every B0 and B3 launch
+    of the untimed calls, here and in the two ranks, is held against its
+    plain version (`KernelHold`); timed repeats are not counted."""
+    import numpy as np
+    import torch
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch import profiling
+    from crlot_tpu_torch.core.padding import pad_signal
+    from crlot_tpu_torch.distributed import sharded_pipeline as spl
+    from crlot_tpu_torch.fft import fused_rt as b2
+    from crlot_tpu_torch.fft import matmul_backend as mb
+    from crlot_tpu_torch.fft import tf32x3 as b0
+    from crlot_tpu_torch.pipeline import _window_f64
+    from crlot_tpu_torch.timing import cuda_ms
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    out = {"results": {}}
+    b0.launches = b2.frames_launches = 0
+    children = {"b0": 0, "b3": 0}
+    hold = KernelHold(check)
+
+    def held(fn):
+        with hold:
+            got = fn()
+            sync()
+        return got
+
+    def event_ms(fn):
+        """fn's device ms (CUDA events, queued, median of REPS), its
+        launches not counted."""
+        counted = b0.launches, b2.frames_launches
+        try:
+            queued, per_call = cuda_ms(fn, REPS)
+        finally:
+            b0.launches, b2.frames_launches = counted
+        return per_call if queued is None else queued
+
+    def p40():
+        s = held(lambda: pt.dryrun(4, devices=[dev]))
+        out["results"]["dryrun"] = s
+        a, c = s["config5_scale"], s["dcn_prefetch_measured"]
+        g = s["weak_scaling_gate_nvlink_overlap"]
+        return (f"Part A bit-exact (blocked, masked, checkpoint), interior "
+                f"{s['interior_snr_db']} dB, halo ops "
+                f"{s['collectives']['per_op_bytes']} B; Part B "
+                f"{a['channels']} ch x {a['samples_per_channel']} samples in "
+                f"{a['chunks']} chunks bit-exact, state "
+                f"{a['state_bytes_constant']} B constant, {a['wall_s']} s "
+                f"({a['sustained_msamples_per_s_all_channels']} Msamples/s, "
+                f"host clock, numpy in and out), checkpoint "
+                f"{a['checkpoint_save_restore_ms']} ms; Part C at "
+                f"{c['channels']} ch x {c['chunk_samples']}: c_dev "
+                f"{c['device_hidable_ms']} ms, "
+                f"h_host {c['host_dispatch_side_ms']} ms, injected "
+                f"{c['injected_transport_ms']} ms, wall1 "
+                f"{c['depth1_wall_per_chunk_ms']} ms, wall3 "
+                f"{c['depth3_wall_per_chunk_ms']} ms (its wait "
+                f"{c['depth3_wait_per_chunk_ms']} ms), recovered "
+                f"{c['measured_overlap_efficiency_of_hidable']} of the "
+                f"hidable (gate 0.8); NVLink overlap {g['efficiency']} at a "
+                f"{g['block_samples']}-sample block (1 s block: "
+                f"{g['efficiency_1s_block']}; 0.8 from "
+                f"{g['min_block_for_80pct_overlap']} samples); "
+                f"{hold.summary()}")
+
+    def p41():
+        torch.cuda.empty_cache()
+        report, holds, wall = run_multihost(2)
+        for h in holds:
+            children["b0"] += h["b0"]
+            children["b3"] += h["b3"]
+        check(children["b0"] > 0 and children["b3"] > 0,
+              f"the ranks launched B0 {children['b0']}, B3 "
+              f"{children['b3']} times")
+        log(f"two-rank report (rank 0): {json.dumps(report)}")
+        out["results"]["two_ranks"] = report
+        legs = []
+        for name in ("identity", "noise_gate", "config 5 chunk (128 x 2^20)"):
+            r = report[name]
+            each = r["cross_rank_bytes"] // max(1, r["cross_rank_ops"])
+            legs.append(f"{name}: == one process, {r['cross_rank_ops']} "
+                        f"halos of {each} B from rank 1, staging "
+                        f"{r['staging_ms']} ms, receive wait "
+                        f"{r['receive_wait_ms']} ms, wall {r['wall_ms']} ms "
+                        f"(launches held)")
+        pf = report["prefetch"]
+        return (f"gloo on one card, (2, 2) global mesh "
+                f"{report['mesh_ranks']}; "
+                + "; ".join(legs)
+                + f"; streamer == one process and resumed from a one-process "
+                f"state; prefetch at {pf['channels']} ch x 2^20: chunk "
+                f"{pf['per_chunk_ms']} ms, injected {pf['injected_ms']} ms, "
+                f"depth 1 {pf['depth1_ms']} ms, depth 3 {pf['depth3_ms']} ms, "
+                f"recovered {pf['recovered_of_hidable']} of the hidable "
+                f"(gate 0.2); launches B0 {children['b0']}, B3 "
+                f"{children['b3']}, " + "; ".join(h["summary"] for h in holds)
+                + f"; {wall:.1f} s for both ranks")
+
+    def p42():
+        cfg = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=False)
+        mesh22 = pt.make_mesh(channel=2, time=2, devices=[dev] * 4)
+        acct = held(lambda: spl.collective_bytes_per_step(
+            cfg, mesh22, 2, T_SHARDED))
+        halo_b = (NFFT - HOP) * 4
+        check(acct["per_op_bytes"] == [halo_b, halo_b], f"halo ops {acct}")
+        t_1s = 49152
+        ov = held(lambda: spl.overlap_dot_fraction(cfg, mesh22, 4, 2 * t_1s))
+        check(ov["ppermute_ops"] == 2 and ov["independent_fraction"] >= 0.75,
+              f"overlap {ov}")
+        kind = torch.cuda.get_device_name(0)
+        models = {blk: spl.weak_scaling_model(cfg, 2, blk, device_kind=kind)
+                  for blk in (48000, spl.CONFIG5_BLOCK)}
+        for blk, m in models.items():
+            log(f"weak-scaling model ({kind}, 2 local channels, block "
+                f"{blk}): {json.dumps(m)}")
+        check(models[spl.CONFIG5_BLOCK]["nvlink"]["efficiency_overlap"]
+              >= 0.8, "NVLink overlap under 0.8 at config 5's block")
+        roof = profiling.roofline_samples_per_sec(NFFT, HOP,
+                                                  formulation="blocked")
+        out["results"]["roofline"] = roof
+        return (f"halo ops {acct['per_op_bytes']} B a shard (2 x (N - H) x 4 "
+                f"x 1 channel), {acct['moved_bytes']} B moved a step; "
+                f"independent MAC fraction {ov['independent_fraction']} at a "
+                f"{t_1s}-sample block; NVLink overlap "
+                f"{models[48000]['nvlink']['efficiency_overlap']} at 1 s, "
+                f"{models[spl.CONFIG5_BLOCK]['nvlink']['efficiency_overlap']}"
+                f" at 2^20; roofline of the main path (blocked, 3xTF32) "
+                f"{roof['roofline_samples_per_sec']:.4e} samples/s "
+                f"({roof['flops_per_sample']:.0f} FLOP, "
+                f"{roof['bytes_per_sample']:.0f} B a sample)")
+
+    def p43():
+        lines = []
+        rng = np.random.default_rng(43)
+
+        def rmse(a, b):
+            return float(np.sqrt(np.mean((np.asarray(a, np.float64) - b)
+                                         ** 2)))
+
+        for nfft in QUAD_NFFTS:
+            xq = rng.uniform(-1, 1, (QUAD_ROWS, nfft)).astype(np.float32)
+            xt = torch.from_numpy(xq).to(dev)
+            h = nfft // 2
+            spec = np.fft.rfft(xq.astype(np.float64), axis=-1)
+            want = (spec.real[:, 0:h:2], spec.real[:, 1:h:2],
+                    spec.real[:, h : h + 1], spec.imag[:, 2:h:2],
+                    spec.imag[:, 1:h:2])
+            parts = held(lambda: mb.rfft_folded_quad_parts(xt, nfft))
+            fwd = max(rmse(p.cpu(), w) for p, w in zip(parts, want))
+            fwd /= math.sqrt(nfft)
+            inv_in = [torch.from_numpy(np.ascontiguousarray(w, np.float32))
+                      .to(dev) for w in want]
+            inv = rmse(held(lambda: mb.irfft_folded_quad_parts(
+                *inv_in, nfft)).cpu(), np.fft.irfft(spec, n=nfft))
+            ones = np.ones(nfft)
+            rt = rmse(held(lambda: mb.roundtrip_folded_quad(
+                xt, nfft, ones)).cpu(), xq)
+            t = event_ms(lambda: mb.roundtrip_folded_quad(xt, nfft, ones))
+            lines.append(f"quad N {nfft}: forward {fwd:.2e}, inverse "
+                         f"{inv:.2e}, round-trip {rt:.2e} ({QUAD_ROWS} rows, "
+                         f"{t:.4f} ms)")
+            check(fwd < 1e-6 and inv < 1e-6 and rt < 1e-5, lines[-1])
+        cfg = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=True)
+        spec_ = cfg.frame_spec
+        n = x_np.shape[-1]
+        nf = spec_.num_frames(n)
+        x = torch.from_numpy(x_np).to(dev)
+        padded = pad_signal(x, spec_.pad_amount, spec_.pad_amount,
+                            spec_.pad_mode).contiguous()
+        frames = padded.unfold(-1, NFFT, HOP)[:, :nf]
+        w64 = _window_f64(cfg)
+        band = pt.spectral.band_gain([500.0, 4000.0], [0.5, 1.0, 0.25], SR,
+                                     NFFT)
+        gains = pt.spectral.resolve_per_bin_response(band, NFFT)
+        pad_np = padded[:, : (A9_FRAMES - 1) * HOP + NFFT].cpu().double()
+        fr64 = pad_np.unfold(-1, NFFT, HOP).numpy()
+        oracle = {
+            "packed": np.fft.irfft(np.fft.rfft(fr64 * w64, axis=-1),
+                                   n=NFFT, axis=-1),
+            "conv": np.fft.irfft(np.fft.rfft(fr64 * w64, axis=-1)
+                                 * gains, n=NFFT, axis=-1),
+        }
+        calls = {
+            "packed": lambda: mb.roundtrip_packed_matmul(frames, NFFT, w64),
+            "conv": lambda: mb.roundtrip_composed_conv(
+                padded, NFFT, HOP, nf, w64, gains),
+            "conv HIGHEST (conv1d)": lambda: mb.roundtrip_composed_conv(
+                padded, NFFT, HOP, nf, w64, gains,
+                precision=pt.FftPrecision.HIGHEST),
+        }
+        for name, fn in calls.items():
+            got = held(fn)
+            check(tuple(got.shape) == (2, nf, NFFT), f"{name} shape")
+            err = rmse(got[:, :A9_FRAMES].cpu(),
+                       oracle[name.split()[0]])
+            t = event_ms(fn)
+            target = ("target 1e-6 met" if err < 1e-6
+                      else "above the 1e-6 target")
+            lines.append(f"{name} on [2, {nf}, {NFFT}] frames: RMSE {err:.2e}"
+                         f" vs float64 over the first {A9_FRAMES} frames "
+                         f"({target}), {t:.4f} ms")
+            check(err < 1e-5, lines[-1])
+        check(not torch.backends.cudnn.allow_tf32, "cuDNN TF32 turned on")
+        return "; ".join(lines) + f"; {hold.summary()}"
+
+    phase("40 dryrun(4) on a (2, 2) mesh of the card", p40)
+    phase("41 two ranks sharing the card (gloo, host-staged halos)", p41)
+    phase("42 halo accounting, overlap, weak-scaling model", p42)
+    phase("43 quad, conv and packed formulations", p43)
+    out["counts"] = {"b0": b0.launches + children["b0"],
+                     "b3": b2.frames_launches + children["b3"]}
+    log(f"multi-process path launches: B0 {out['counts']['b0']} (the two "
+        f"ranks: {children['b0']}), B3 {out['counts']['b3']} (the two "
+        f"ranks: {children['b3']})")
+    if not (out["counts"]["b0"] and out["counts"]["b3"]):
+        failures.append("launch counts (multi-process path)")
+        log("FAIL launch counts: a kernel of the path was not launched")
+    return out
+
+
 def _oracle(x_np, gains_f64, cfg):
     """float64 numpy STFT * g * iSTFT of the first second of each channel.
     Frames touching t < 1 s lie inside the first 1 s + N samples, so the
@@ -4014,5 +4476,33 @@ def _oracle(x_np, gains_f64, cfg):
     return np.stack(outs)
 
 
+def multihost(nproc: int) -> int:
+    """`python3 chip_smoke.py --multihost <nproc>`: phase 41's ranks alone,
+    rank r on card r % the card count (NCCL where each has its own, as on
+    a four-card machine; gloo where they share one); prints rank 0's
+    report and each rank's held launches."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    log(f"nvidia-smi: {smi()}; {torch.cuda.device_count()} cards")
+    from crlot_tpu_torch import cuda_build
+
+    cuda_build.load_library()  # once, before the ranks load it
+    report, holds, wall = run_multihost(nproc)
+    log(json.dumps(report))
+    for h in holds:
+        log(f"rank {h['rank']}: B0 {h['b0']}, B3 {h['b3']}; {h['summary']}")
+    log(f"{nproc} ranks: {wall:.1f} s")
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-child"]:
+        sys.exit(multihost_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--multihost"]:
+        sys.exit(multihost(int(sys.argv[2])))
     sys.exit(main())

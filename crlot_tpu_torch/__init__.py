@@ -13,7 +13,9 @@ designers), `effects` (pre/de-emphasis, mu-law), `features` (mel / MFCC,
 spectral descriptors, chroma, pseudo-CQT, LPC, cepstrum, PCEN, the
 Hilbert envelope, the mel inversion), `griffinlim`, `segment`, `psd`
 (Welch PSD, coherence), `hpss`, `pitch` (YIN, onsets, tempo), `vocoder`
-(time stretch, pitch shift) and `align` (DTW).
+(time stretch, pitch shift) and `align` (DTW). Meshes can span processes
+(`initialize`, `global_mesh`, `process_info`; the north-star `dryrun`), and
+`profiling` holds the roofline, the trace scope and the NaN-debug mode.
 """
 
 from .core.types import (
@@ -32,7 +34,11 @@ from .core.types import (
 from .distributed import (
     ShardedStreamer,
     auto_mesh,
+    dryrun,
+    global_mesh,
+    initialize,
     make_mesh,
+    process_info,
     metrics_report,
     sharded_round_trip,
     sharded_stream,
@@ -123,8 +129,8 @@ from .align import dtw, dtw_cost, dtw_path
 
 from . import (  # noqa: E402,F401
     align, checkpoint, convert, core, distributed, effects, features, fft,
-    frame, griffinlim, iir, io, metrics, ola, pitch, psd, segment, spectral,
-    vocoder, window,
+    frame, griffinlim, iir, io, metrics, ola, pitch, profiling, psd, segment,
+    spectral, vocoder, window,
 )
 
 __version__ = "0.1.0"

@@ -10,7 +10,17 @@ process drives every device through `shard_map`); so is the port: one
 process holds one tensor per shard on the mesh's devices. A `Mesh` is a
 `[channel][time]` grid of `torch.device`s, and a device may appear more
 than once, which is how one card (or the CPU) hosts a mesh of several
-shards. Multi-process meshes (`torch.distributed`) are later work.
+shards.
+
+A mesh can also span processes (`multihost.global_mesh`, over
+`torch.distributed`): each entry then names the rank that holds it beside
+its device, every rank runs the same program, and each computes only the
+shards it holds (`Mesh.local`). A mesh without ranks is a one-process mesh
+and behaves as before.
+
+The reference's `io_sharding` returns a JAX `NamedSharding`, the placement
+`jax.device_put` takes; torch has no counterpart (a shard here is a tensor
+the code places itself), so it is not ported.
 """
 
 from __future__ import annotations
@@ -26,9 +36,13 @@ TIME_AXIS = "time"
 
 @dataclass(frozen=True)
 class Mesh:
-    """`devices[c][t]` holds shard (c, t)."""
+    """`devices[c][t]` holds shard (c, t). On a process-spanning mesh
+    `ranks[c][t]` is the rank that holds it and `rank` is this process's;
+    `ranks=None` is a one-process mesh."""
 
     devices: tuple
+    ranks: Optional[tuple] = None
+    rank: int = 0
 
     @property
     def shape(self) -> dict:
@@ -37,6 +51,27 @@ class Mesh:
 
     def device(self, channel: int, time: int) -> torch.device:
         return self.devices[channel][time]
+
+    def owner(self, channel: int, time: int) -> int:
+        """The rank that holds shard (channel, time)."""
+        return self.rank if self.ranks is None else self.ranks[channel][time]
+
+    def local(self, channel: int, time: int) -> bool:
+        """Whether this process holds shard (channel, time)."""
+        return self.owner(channel, time) == self.rank
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.ranks is not None and any(
+            r != self.rank for row in self.ranks for r in row)
+
+    def local_device(self) -> torch.device:
+        """This process's first device on the mesh."""
+        for c, row in enumerate(self.devices):
+            for t, dev in enumerate(row):
+                if self.local(c, t):
+                    return dev
+        raise ValueError(f"rank {self.rank} holds no shard of the mesh")
 
 
 def visible_devices() -> list:

@@ -21,9 +21,19 @@ stays O(chunk).
   shards, so they are the same bits. Otherwise the masked formulation.
 
 Chunks go to the device once (numpy to `device`, default "cuda";
-`core/device.py`) and the context is concatenated there. The streamer's
-state (`state` / `load_state`) is the reference's dict of numpy arrays, so
-a checkpoint written by either package resumes in the other.
+`core/device.py`; to a card through pinned host memory, so that the copy
+does not wait for the chunks in flight) and the context is concatenated
+there. The streamer's state (`state` / `load_state`) is the reference's
+dict of numpy arrays, so a checkpoint written by either package resumes in
+the other.
+
+On a mesh that spans processes (`multihost.global_mesh`) every rank feeds
+the same whole chunks, as every process of the reference passes the whole
+host array, and computes the shards it holds; `feed(force=False)` returns
+the chunk's `GlobalArray` without a sync, and `force=True` gathers it
+(`process_allgather`) on every rank. Every rank holds the whole input
+chunks, so `state()` is the same on every rank and needs no collective, and
+a state saved on one process (or by the reference) loads on every rank.
 """
 
 from __future__ import annotations
@@ -39,7 +49,12 @@ from ..fft.matmul_backend import blocked_edge_patch, blocked_patch_span
 from ..pipeline import _norm_np, _window_f64
 from ..streaming_pipeline import _resolve_blocked_per_bin
 from .mesh import CHANNEL_AXIS, TIME_AXIS, Mesh, auto_mesh
-from .sharded_pipeline import blocked_per_bin, sharded_round_trip
+from .sharded_pipeline import (
+    GlobalArray,
+    blocked_per_bin,
+    process_allgather,
+    sharded_round_trip,
+)
 
 
 def _ctx_len(cfg: StftConfig, n_time: int) -> int:
@@ -47,6 +62,19 @@ def _ctx_len(cfg: StftConfig, n_time: int) -> int:
     multiple of n_time * hop (every shard stays hop-aligned)."""
     unit = n_time * cfg.hop_size
     return -(-cfg.frame_size // unit) * unit
+
+
+def _pinned_place(a: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device` (default "cuda"): to a card through a
+    pinned host copy and a copy that does not block the host, so it queues
+    behind the chunks in flight without waiting for them (the host's pinned
+    allocator keeps the buffer until the copy is done)."""
+    dev = _device.resolve(device)
+    if dev.type != "cuda":
+        return torch.as_tensor(a, device=dev)
+    host = torch.empty(a.shape, dtype=torch.float32, pin_memory=True)
+    host.numpy()[...] = a
+    return host.to(dev, non_blocking=True)
 
 
 def _blocked_stream_mode(cfg: StftConfig, mesh: Mesh, spectral_fn,
@@ -130,6 +158,7 @@ def sharded_stream(
             valid_start=max(0, -ext_start),  # first chunk: the stream head
             allow_blocked=False,  # one formulation for every chunk
         )
+        y = process_allgather(y)
         if out is None:
             out = torch.zeros((channels, total), dtype=torch.float32,
                               device=y.device)
@@ -185,7 +214,7 @@ class ShardedStreamer:
         if isinstance(chunk, torch.Tensor):
             t = chunk.float()
         else:
-            t = _device.place(np.asarray(chunk, np.float32), self._device)
+            t = _pinned_place(np.asarray(chunk, np.float32), self._device)
         if self._prev is not None and t.device != self._prev.device:
             raise ValueError(f"chunk on {t.device}, the stream on "
                              f"{self._prev.device}")
@@ -194,21 +223,31 @@ class ShardedStreamer:
     def _patch(self, y, ext, rows, c: int, side: str) -> None:
         """Overwrite channel group c's head (or tail) edge samples of the
         chunk output `y` with the one-shot's patch, made on the device of
-        the one-shot's edge shard at its shapes."""
+        the one-shot's edge shard at its shapes (across processes, on a
+        device of the rank that holds them: the mesh's devices are of one
+        kind)."""
         mode, cfg = self._mode, self.cfg
         n, hop = cfg.frame_size, cfg.hop_size
         edge, span_p = n - hop, blocked_patch_span(n, hop)
         l_ctx, s = self._l_ctx, ext.shape[1] - 2 * self._l_ctx
-        t = 0 if side == "head" else self._n_time - 1
-        dev = self.mesh.device(c, t)
+        b = l_ctx if side == "head" else l_ctx + s - edge
+        if isinstance(y, GlobalArray):
+            if not y.holds(c, b, b + edge):
+                return
+            dev = self.mesh.local_device()
+        else:
+            dev = self.mesh.device(c, 0 if side == "head"
+                                   else self._n_time - 1)
         a = l_ctx if side == "head" else l_ctx + s - span_p
         p = blocked_edge_patch(ext[rows, a : a + span_p].to(dev), n, hop,
                                mode["wb"], mode["sb"], mode["rb"], side,
                                cfg.fft_precision, fixed_order=True)
         norm = torch.from_numpy(mode[side + "_norm"]).to(dev)
         p = p / torch.clamp_min(norm, cfg.eps)
-        b = l_ctx if side == "head" else l_ctx + s - edge
-        y[rows, b : b + edge] = p.to(y.device)
+        if isinstance(y, GlobalArray):
+            y.write(c, b, p)
+        else:
+            y[rows, b : b + edge] = p.to(y.device)
 
     def _process(self, left, mid, right, valid_from_mid, is_tail=False):
         l_ctx = self._l_ctx
@@ -239,17 +278,20 @@ class ShardedStreamer:
                 allow_blocked=False,
             )
         self._first = False
+        if isinstance(y, GlobalArray):
+            return y.window(l_ctx, l_ctx + s)
         return y[:, l_ctx : l_ctx + s]
 
     @staticmethod
-    def _out(out: torch.Tensor, force: bool):
-        return out.cpu().numpy() if force else out
+    def _out(out, force: bool):
+        return process_allgather(out).cpu().numpy() if force else out
 
     def feed(self, chunk, force: bool = True):
         """Feed one [C, S] chunk; returns the reconstructed PREDECESSOR
         chunk, or None on the first call: numpy with `force=True`, else the
-        tensor on the mesh's first device, without a sync (the caller
-        overlaps its own work with the chunk's)."""
+        tensor on the mesh's first device (a `GlobalArray` on a mesh that
+        spans processes), without a sync (the caller overlaps its own work
+        with the chunk's)."""
         if self._finished:
             raise RuntimeError(
                 "feed() after finish(): the stream has ended; create a new "

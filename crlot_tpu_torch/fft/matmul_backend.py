@@ -30,6 +30,17 @@ lane-aligned layout of the folded bases: an [h, h] core a product and the
 (h+1)-th row and column as exact alternating-sign rank-1 borders. Its
 products are IEEE fp32 `torch.matmul`s at every tier; `fft/int8_backend.py`
 runs the same layout on K11's int8 limb products.
+
+The reference's opt-in formulations, which no pipeline calls: the composed
+round-trip as one strided product on the raw signal
+(`roundtrip_composed_conv`), the quarter-size bases in their parity-split
+layout (`quad_supported`, `rfft_folded_quad_parts`,
+`irfft_folded_quad_parts`, `roundtrip_folded_quad`) and the two-product
+packed round-trip (`roundtrip_packed_matmul`). They are products the
+reference leaves to XLA, not Pallas kernels: at HIGHEST, and on the CPU,
+IEEE fp32 (`torch.matmul`, `conv1d` with cuDNN's TF32 off); at HIGH on a
+CUDA tensor, B0 (3xTF32) where its tiles take the shape, IEEE fp32
+otherwise.
 """
 
 from __future__ import annotations
@@ -712,3 +723,325 @@ def roundtrip_folded_tiled(frames: torch.Tensor, nfft: int,
         out = out * const_on(np.asarray(synthesis_window_f64, np.float32),
                              out.device)
     return out
+
+
+# --- the opt-in formulations: conv, quad, packed -----------------------------
+
+
+def _product(x: torch.Tensor, b: torch.Tensor, bt, precision) -> torch.Tensor:
+    """x [..., M, K] @ b [K, N] at `precision`: on a CUDA tensor at HIGH,
+    B0 (3xTF32) with `bt` = b's transposed TF32 halves where its tiles take
+    the shape; otherwise IEEE fp32 (`torch.matmul`, TF32 off)."""
+    k, n = b.shape
+    if (x.device.type != "cpu" and x.ndim >= 2
+            and float_tier(precision) == FftPrecision.HIGH
+            and tf32x3.supported(n, k, k)):
+        return tf32x3.gemm_cuda(x.float(), *bt)
+    return torch.matmul(x, b)
+
+
+def roundtrip_composed_conv(
+    signal: torch.Tensor,  # [..., T] padded signal (frames fully inside)
+    nfft: int,
+    hop: int,
+    num_frames: int,
+    analysis_window_f64: np.ndarray,
+    per_bin_response: np.ndarray,
+    synthesis_window_f64=None,
+    precision=FftPrecision.HIGH,
+) -> torch.Tensor:
+    """The composed response round-trip as ONE strided product on the raw
+    signal: out_frames[f, j] = sum_i signal[f*hop + i] * M[i, j], a 1-D
+    convolution with kernel M and stride hop, so the [F, N] frame matrix
+    is never made. The same function as frame_signal +
+    `roundtrip_composed_matmul`; the reference keeps it as a documented
+    formulation that no pipeline calls, and so does the port.
+
+    On a CUDA tensor at HIGH, B0 reads the overlapping windows in place
+    (3xTF32) where its tiles take the stride; otherwise `conv1d` in IEEE
+    fp32, with cuDNN's TF32 off around the call."""
+    keys = (
+        nfft,
+        _bytes(analysis_window_f64, np.float64),
+        None if synthesis_window_f64 is None
+        else _bytes(synthesis_window_f64, np.float64),
+        _bytes(per_bin_response, np.complex128),
+    )
+    x = signal.float()
+    lead = x.shape[:-1]
+    xb = x.reshape((-1, x.shape[-1])).contiguous()
+    if (x.device.type != "cpu"
+            and float_tier(precision) == FftPrecision.HIGH
+            and tf32x3.supported(nfft, nfft, hop)
+            and (xb.shape[0] == 1 or xb.shape[-1] % 4 == 0)):
+        out = tf32x3.gemm_cuda(xb, *_composed_bt_on(*keys, x.device),
+                               rows=num_frames, lda=hop)
+        return out.reshape(lead + out.shape[-2:])
+    m = _composed_basis_on(*keys, x.device)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = torch.nn.functional.conv1d(
+            xb[:, None, :], m.T.contiguous()[:, None, :], stride=hop)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    out = out[:, :, :num_frames].transpose(1, 2)  # [B, F, N]
+    return out.reshape(lead + out.shape[1:])
+
+
+def quad_supported(nfft: int) -> bool:
+    """The reference's gate for the quarter bases (q = N/4 a multiple of
+    128 lanes)."""
+    return nfft % 512 == 0 and nfft <= MAX_MATMUL_NFFT
+
+
+def _quad_inverse_f64(nfft: int, g: "np.ndarray | None"):
+    """f64 inverse quarter-bases with an optional per-bin gain g[K] folded
+    into the constants (rows k scaled by g[k])."""
+    h = nfft // 2
+    q = h // 2
+    m = np.arange(q, dtype=np.float64)
+    k_e = 2.0 * m  # even bins k = 2m, m = 0..q-1
+    k_o = 2.0 * m + 1.0  # odd bins k = 2m+1
+    n_c = np.arange(q, dtype=np.float64)  # output positions n = 0..q-1
+    n_m = np.arange(1, q, dtype=np.float64)  # interior n = 1..q-1
+    tw = 2.0 * np.pi / nfft
+    w_e = np.full(q, 2.0)
+    w_e[0] = 1.0  # hermitian weight w_0 = 1
+    w_o = np.full(q, 2.0)
+    g_e = np.ones(q) if g is None else g[0::2][:q]
+    g_o = np.ones(q) if g is None else g[1::2][:q]
+    g_nyq = 1.0 if g is None else float(g[h])
+    we = w_e * g_e
+    wo = w_o * g_o
+    altq = np.where(np.arange(q) % 2 == 0, 1.0, -1.0)
+    pe = (we[:, None] * np.cos(tw * np.outer(k_e, n_c))) / nfft  # [q, q]
+    po = (wo[:, None] * np.cos(tw * np.outer(k_o, n_c))) / nfft  # [q, q]
+    qe = -(we[1:, None] * np.sin(tw * np.outer(k_e[1:], n_m))) / nfft
+    qo = -(wo[:, None] * np.sin(tw * np.outer(k_o, n_m))) / nfft  # [q, q-1]
+    pe_q = we * altq / nfft  # n = q column of the even-cos inverse
+    qo_q = -(wo * altq) / nfft  # n = q column of the odd-sin inverse
+    cve = we / nfft  # a_nyq row: w_k (-1)^k g_k / N at k = 2m
+    cvo = -wo / nfft  # ... and at k = 2m+1
+    return pe, po, qe, qo, pe_q, qo_q, cve, cvo, g_nyq
+
+
+@lru_cache(maxsize=None)
+def _quad_consts(nfft: int):
+    """Quarter-size DFT bases: one more exact symmetry fold than the
+    folded bases. cos(2 pi k (h-n)/N) = (-1)^k cos(2 pi k n/N) (h = N/2),
+    so folding the even/odd frame halves once more about N/4 splits each
+    half-size product into two quarter-size products, one per bin parity,
+    combined by signs alone. The spectrum stays in its parity-split layout
+    between forward and inverse; the fixed points of the fold (n = 0, N/4;
+    k = Nyquist) are exact rank-1 borders, as in the tiled layout. The
+    inverse includes 1/N; the constants are designed in f64."""
+    assert nfft % 4 == 0 and nfft >= 4
+    h = nfft // 2
+    q = h // 2
+    m = np.arange(q, dtype=np.float64)
+    k_e = 2.0 * m
+    k_o = 2.0 * m + 1.0
+    n_c = np.arange(q, dtype=np.float64)
+    n_m = np.arange(1, q, dtype=np.float64)
+    tw = 2.0 * np.pi / nfft
+    ce = np.cos(tw * np.outer(n_c, k_e))  # [q, q] rows n = 0..q-1
+    co = np.cos(tw * np.outer(n_c, k_o))  # [q, q]
+    se = -np.sin(tw * np.outer(n_m, k_e[1:]))  # [q-1, q-1] m = 1..q-1
+    so = -np.sin(tw * np.outer(n_m, k_o))  # [q-1, q]
+    inv = _quad_inverse_f64(nfft, None)[:-1]
+    altq = np.where(np.arange(q) % 2 == 0, 1.0, -1.0)
+    sign_q = 1.0 if q % 2 == 0 else -1.0
+
+    def f32(a):
+        return np.ascontiguousarray(a, np.float32)
+
+    return (
+        f32(ce), f32(co), f32(se), f32(so),
+        tuple(f32(a) for a in inv),
+        f32(altq), sign_q,
+    )
+
+
+@lru_cache(maxsize=None)
+def _quad_inverse_gained(nfft: int, gains_bytes: bytes):
+    g = np.frombuffer(gains_bytes, dtype=np.float64)
+    assert len(g) == nfft // 2 + 1
+    out = _quad_inverse_f64(nfft, g)
+    return (
+        tuple(np.ascontiguousarray(a, np.float32) for a in out[:-1]),
+        out[-1],
+    )
+
+
+@lru_cache(maxsize=16)
+def _quad_on(nfft: int, gains_bytes, device: torch.device) -> dict:
+    """The quad constants on `device`: each product's basis as (f32 tensor,
+    its transposed TF32 halves for B0), the border vectors as tensors, and
+    the scalars sign_q and g_nyq."""
+    ce, co, se, so, inv, altq, sign_q = _quad_consts(nfft)
+    g_nyq = 1.0
+    if gains_bytes is not None:
+        inv, g_nyq = _quad_inverse_gained(nfft, gains_bytes)
+    pe_b, po_b, qe_b, qo_b, pe_q, qo_q, cve, cvo = inv
+
+    def on(a):
+        return torch.from_numpy(a).to(device)
+
+    bases = {name: (on(a), tuple(on(t) for t in tf32x3.split_t(a)))
+             for name, a in (("ce", ce), ("co", co), ("se", se), ("so", so),
+                             ("pe", pe_b), ("po", po_b), ("qe", qe_b),
+                             ("qo", qo_b))}
+    vecs = {name: on(a) for name, a in (("altq", altq), ("pe_q", pe_q),
+                                        ("qo_q", qo_q), ("cve", cve),
+                                        ("cvo", cvo))}
+    return {**bases, **vecs, "sign_q": sign_q, "g_nyq": g_nyq}
+
+
+def rfft_folded_quad_parts(x: torch.Tensor, nfft: int, window_f32=None,
+                           precision=FftPrecision.HIGH):
+    """rfft(x [* w]) -> the parity-split packed spectrum by four
+    quarter-size products:
+
+      re_e [..., q]   = Re X[2m],   m = 0..q-1      (q = nfft//4)
+      re_o [..., q]   = Re X[2m+1]
+      re_nyq [..., 1] = Re X[h]                      (h = nfft//2)
+      im_e [..., q-1] = Im X[2m],   m = 1..q-1       (Im X[0] = 0 exactly)
+      im_o [..., q]   = Im X[2m+1]
+
+    Products at `precision` (`_product`)."""
+    c = _quad_on(nfft, None, x.device)
+    h = nfft // 2
+    q = h // 2
+    y = x.float()
+    if window_f32 is not None:
+        y = y * const_on(window_f32, y.device)
+    # First fold (about N/2): even/odd parts of the frame.
+    head = y[..., 1:h]
+    tail = y[..., h + 1 :].flip(-1)
+    e = torch.cat([y[..., :1], head + tail], dim=-1)  # n = 0..h-1
+    e_n = y[..., h : h + 1]
+    o = head - tail  # n = 1..h-1
+    # Second fold (about N/4), pairing n <-> h-n.
+    e_head = e[..., 1:q]
+    e_tail = e[..., q + 1 :].flip(-1)  # e[h-n], n = 1..q-1
+    u = torch.cat([e[..., :1], e_head + e_tail], dim=-1)  # [..., q]
+    v = torch.cat([e[..., :1], e_head - e_tail], dim=-1)  # [..., q]
+    eq = e[..., q : q + 1]
+    o_head = o[..., : q - 1]  # o[n],   n = 1..q-1
+    o_tail = o[..., q:].flip(-1)  # o[h-n], n = 1..q-1
+    od = o_head - o_tail
+    os_ = o_head + o_tail
+    oq = o[..., q - 1 : q]
+    altq = c["altq"]
+    # Borders: e[q] enters even bins as (-1)^m (odd bins: cos(pi*k/2) = 0);
+    # y[h] enters every Re bin as (-1)^k -> +1 on even bins, -1 on odd.
+    re_e = _product(u, *c["ce"], precision) + eq * altq + e_n
+    re_o = _product(v, *c["co"], precision) - e_n
+    re_nyq = (u * altq).sum(-1, keepdim=True) + eq * c["sign_q"] + e_n
+    im_e = _product(od, *c["se"], precision)
+    im_o = _product(os_, *c["so"], precision) - oq * altq
+    return re_e, re_o, re_nyq, im_e, im_o
+
+
+def irfft_folded_quad_parts(re_e, re_o, re_nyq, im_e, im_o, nfft: int,
+                            precision=FftPrecision.HIGH,
+                            per_bin_gains_f64=None) -> torch.Tensor:
+    """Parity-split packed spectrum -> real [..., nfft] (1/N included) by
+    four quarter-size products; a REAL per-bin gain folds into the inverse
+    constants."""
+    gb = None if per_bin_gains_f64 is None else _gains_bytes(per_bin_gains_f64)
+    c = _quad_on(nfft, gb, re_e.device)
+    g_nyq, sign_q, altq = c["g_nyq"], c["sign_q"], c["altq"]
+    pe = _product(re_e, *c["pe"], precision)  # [..., q]
+    po = _product(re_o, *c["po"], precision)  # [..., q]
+    # Nyquist-bin contribution (-1)^n g/N is n-even under the fold (h even).
+    p = pe + re_nyq * (g_nyq / nfft) * altq
+    a_q = ((re_e * c["pe_q"]).sum(-1, keepdim=True)
+           + re_nyq * (g_nyq * sign_q / nfft))
+    qe = _product(im_e, *c["qe"], precision)  # [..., q-1]
+    qo = _product(im_o, *c["qo"], precision)  # [..., q-1]
+    b_q = (im_o * c["qo_q"]).sum(-1, keepdim=True)
+    a_nyq = ((re_e * c["cve"]).sum(-1, keepdim=True)
+             + (re_o * c["cvo"]).sum(-1, keepdim=True)
+             + re_nyq * (g_nyq / nfft))  # (-1)^h = +1 (h even)
+    # Unfold both symmetry levels in one assembly:
+    #   x[n]     = P[n] + po[n] + qe[n] + qo[n]        n = 1..q-1
+    #   x[h-n]   = P[n] - po[n] - qe[n] + qo[n]
+    #   x[h+n]   = P[n] - po[n] + qe[n] - qo[n]
+    #   x[N-n]   = P[n] + po[n] - qe[n] - qo[n]
+    pm = p[..., 1:]
+    pom = po[..., 1:]
+    return torch.cat(
+        [
+            p[..., :1] + po[..., :1],
+            pm + pom + qe + qo,
+            a_q + b_q,
+            (pm - pom - qe + qo).flip(-1),
+            a_nyq,
+            pm - pom + qe - qo,
+            a_q - b_q,
+            (pm + pom - qe - qo).flip(-1),
+        ],
+        dim=-1,
+    )
+
+
+def roundtrip_folded_quad(frames: torch.Tensor, nfft: int,
+                          analysis_window_f64: np.ndarray,
+                          synthesis_window_f64=None,
+                          precision=FftPrecision.HIGH,
+                          per_bin_gains_f64=None) -> torch.Tensor:
+    """irfft(rfft(frames * w) [* g]) [* w_s] by quarter-size DFT bases
+    (eight products with [N/4, N/4] cores), the spectrum held in its
+    parity-split layout between the directions."""
+    w = np.asarray(analysis_window_f64, np.float32)
+    parts = rfft_folded_quad_parts(frames, nfft, w, precision)
+    out = irfft_folded_quad_parts(*parts, nfft, precision, per_bin_gains_f64)
+    if synthesis_window_f64 is not None:
+        out = out * const_on(np.asarray(synthesis_window_f64, np.float32),
+                             out.device)
+    return out
+
+
+@lru_cache(maxsize=None)
+def _windowed_inverse_basis(nfft: int, window_bytes: bytes) -> np.ndarray:
+    """The inverse basis with a synthesis window folded in (columns
+    scaled)."""
+    w = np.frombuffer(window_bytes, dtype=np.float64)
+    assert len(w) == nfft
+    base = _inverse_basis(nfft).astype(np.float64)
+    return (base * w[None, :]).astype(np.float32)
+
+
+@lru_cache(maxsize=8)
+def _packed_bases_on(nfft: int, awin_bytes: bytes, swin_bytes,
+                     device: torch.device) -> tuple:
+    """The packed round-trip's two bases on `device`, each as (f32 tensor,
+    its transposed TF32 halves)."""
+    fwd = _windowed_forward_basis(nfft, awin_bytes)
+    inv = (_inverse_basis(nfft) if swin_bytes is None
+           else _windowed_inverse_basis(nfft, swin_bytes))
+
+    def on(a):
+        return torch.from_numpy(a).to(device)
+
+    return tuple((on(a), tuple(on(t) for t in tf32x3.split_t(a)))
+                 for a in (fwd, inv))
+
+
+def roundtrip_packed_matmul(frames: torch.Tensor, nfft: int,
+                            analysis_window_f64: np.ndarray,
+                            synthesis_window_f64=None,
+                            precision=FftPrecision.HIGH) -> torch.Tensor:
+    """irfft(rfft(frames * w)) [* w_s] as two products with no complex
+    dtype: the forward basis emits [Re | Im] packed reals, the layout the
+    inverse basis takes. Products at `precision` (`_product`: B0 only where
+    its tiles take N + 2 columns, so IEEE fp32 at the usual N)."""
+    fwd, inv = _packed_bases_on(
+        nfft, _bytes(analysis_window_f64, np.float64),
+        None if synthesis_window_f64 is None
+        else _bytes(synthesis_window_f64, np.float64),
+        frames.device)
+    packed = _product(frames.float(), *fwd, precision)
+    return _product(packed, *inv, precision)

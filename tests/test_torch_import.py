@@ -154,6 +154,52 @@ def test_last_analysis_names_and_core_types_import_no_jax(tmp_path):
     assert "BAD []" in out.stdout
 
 
+def test_multiprocess_profiling_and_formulation_names_import_no_jax(
+        tmp_path):
+    """The reference's `distributed` names (`initialize`, `global_mesh`,
+    `process_info`, `dryrun`, the accounting), `profiling`'s six and the
+    quad, conv and packed formulations come from the port, and importing
+    `profiling`, `distributed.multihost` and the two-rank child imports no
+    jax, crlot_tpu or triton (and does not start a process group)."""
+    dist_names = ["initialize", "global_mesh", "process_info", "dryrun",
+                  "collective_bytes_per_step", "overlap_dot_fraction",
+                  "weak_scaling_model", "permute_bytes_from_hlo",
+                  "process_allgather"]
+    prof_names = ["device_specs", "PipelineTraffic", "roundtrip_traffic",
+                  "roofline_samples_per_sec", "trace", "nan_debug",
+                  "environment_info"]
+    fft_names = ["roundtrip_composed_conv", "quad_supported",
+                 "rfft_folded_quad_parts", "irfft_folded_quad_parts",
+                 "roundtrip_folded_quad", "roundtrip_packed_matmul"]
+    code = (
+        "import sys\n"
+        "import crlot_tpu_torch as pt, crlot_tpu_torch.profiling as prof, "
+        "crlot_tpu_torch.distributed.multihost, "
+        "crlot_tpu_torch.distributed.multihost_child, "
+        "crlot_tpu_torch.fft.matmul_backend as mb, torch\n"
+        f"missing = [n for n in {dist_names!r} "
+        "if not hasattr(pt.distributed, n)]\n"
+        "missing += [n for n in ('initialize', 'global_mesh', "
+        "'process_info', 'dryrun') if not hasattr(pt, n)]\n"
+        f"missing += [n for n in {prof_names!r} if not hasattr(prof, n)]\n"
+        f"missing += [n for n in {fft_names!r} if not hasattr(mb, n)]\n"
+        "assert pt.profiling is prof\n"
+        "assert not torch.distributed.is_initialized()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'crlot_tpu', 'triton'))\n"
+        "print('MISSING', missing)\n"
+        "print('BAD', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        cwd=tmp_path, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "MISSING []" in out.stdout
+    assert "BAD []" in out.stdout
+
+
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
