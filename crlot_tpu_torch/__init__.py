@@ -16,6 +16,11 @@ Hilbert envelope, the mel inversion), `griffinlim`, `segment`, `psd`
 (time stretch, pitch shift) and `align` (DTW). Meshes can span processes
 (`initialize`, `global_mesh`, `process_info`; the north-star `dryrun`), and
 `profiling` holds the roofline, the trace scope and the NaN-debug mode.
+Beside them, imported on demand: `io.native` (the C++ host runtime: WAV
+codec, ring buffer, streaming framer; built with g++ at first use),
+`bench` (the suite, stages, regression guard and duty probes) and
+`examples` (the reference's eight, `python -m
+crlot_tpu_torch.examples.<name>`).
 """
 
 from .core.types import (

@@ -273,3 +273,36 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
             meta, 1024, 256, 29, torch.ones(1024).numpy(),
             torch.empty(8192, device="meta"),
         )
+
+
+def test_native_bench_and_example_modules_import_no_jax(tmp_path):
+    """The native runtime, the bench tooling and the eight examples import
+    no jax, crlot_tpu or triton, build nothing (neither the native library
+    nor the CUDA kernels) and run no benchmark at import; `chip_smoke.py`
+    imports neither jax nor crlot_tpu either."""
+    examples = ["analyze", "denoise", "extract_features", "fir_filter",
+                "loudness", "sharded_eq", "streaming_checkpoint",
+                "time_stretch"]
+    code = (
+        "import sys, importlib\n"
+        "import crlot_tpu_torch.io.native as nat, crlot_tpu_torch.cuda_build as b\n"
+        "import crlot_tpu_torch.bench.suite, crlot_tpu_torch.bench.stages, "
+        "crlot_tpu_torch.bench.regression, crlot_tpu_torch.bench.probes, "
+        "crlot_tpu_torch.bench.launches\n"
+        f"for e in {examples!r}:\n"
+        "    importlib.import_module('crlot_tpu_torch.examples.' + e)\n"
+        "import runpy; runpy.run_path(sys.argv[1], run_name='chip_smoke')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'crlot_tpu', 'triton'))\n"
+        "print('BAD', bad)\n"
+        "print('LIB', b._LIB, nat._lib)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code, str(REPO / "chip_smoke.py")],
+        capture_output=True, text=True, cwd=tmp_path, env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout
+    assert "LIB None None" in out.stdout
+    assert not list(tmp_path.iterdir())  # nothing written where it ran
