@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from `crlot_tpu_torch/csrc/` (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version on the card, then runs
-ten paths through the public entry points, each with the kernels' launch
+eleven paths through the public entry points, each with the kernels' launch
 counters reset just before and read just after: on 2 channels x 60 s at
 48 kHz, N=1024 / H=256, Hann, seed 0, the round-trip path (`round_trip`,
 `stft`, `istft`; centered) and the fused-frames and sharded path
@@ -22,7 +22,9 @@ the multi-process path (`dryrun`, two ranks through `initialize`,
 conv and packed formulations); and the tooling path (the native host
 runtime `io/native.py`, `python -m crlot_tpu_torch.bench.suite`,
 `bench.stages`, `bench.regression` with `bench.probes`, and the eight
-`python -m crlot_tpu_torch.examples.<name>`).
+`python -m crlot_tpu_torch.examples.<name>`); and the frames-level routes
+(`round_trip`'s "folded" and "composed", and the packed products the
+reference keeps for an odd N).
 
 Phases (each prints one line; the script exits 1 if any fails):
   1. B1 (fused OLA + normalize) vs plain on [2, 11251, 1024] frames, and
@@ -351,6 +353,24 @@ unless every one of them was:
      phase accumulation dropped must read above it; features within
      1e-4 of their largest value with onsets and tempo equal, levels
      within 0.1 dB, the streaming output within 1e-5.
+Then the frames-level routes, with the B0 and B1 counters reset just
+before, on the main path's 2 ch x 60 s at 48 kHz; every B1 launch held
+torch.equal to plain (`LaunchHold`), every B0 launch within 2^-18 of
+sum|x||k| of plain (`KernelHold`):
+ 49. (a) the identity at N = 960, H = 240 (20 ms / 5 ms: no blocked group,
+     N % 256 != 0): route "folded", > 60 dB against the input; (b) the
+     3-band band_gain there: route "composed" (B0), the first 1 s >= 80 dB
+     against the float64 oracle; (c) N = 1323, H = 441 (30 ms / 10 ms at
+     44.1 kHz's sizes): `StftConfig` refuses an odd N, so the reference's
+     packed branch is driven as its round_trip composes it (frames,
+     `roundtrip_packed_matmul`, B1 with the edge norm at an odd hop), > 60
+     dB; (d) the band_gain on 128 clips of 1 200 samples at N = 1024, H =
+     256 (5 frames, under the blocked gate's 6): route "composed" (B0),
+     every clip >= 80 dB against the float64 oracle. Exactly 4 B1 and 2 B0
+     launches; whether B0 reads the frame rows in place or copies them.
+     Then each case's CUDA-event time (median of 10, queued) beside the
+     `stft_istft` route it replaces (at N = 1323: frames, `torch.fft`, B1),
+     in turns, outside the counts.
 Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
 busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
@@ -998,6 +1018,7 @@ def main() -> int:
     path8 = last_analysis_path(dev, phase, check, failures, x_np)
     path9 = multiprocess_path(dev, phase, check, failures, x_np)
     path10 = tooling_path(dev, phase, check, failures, x_np, path6)
+    path11 = routes_path(dev, phase, check, failures, x, x_np)
 
     # Timings.
     def e2e_rate(fn, samples=2 * n):
@@ -1144,7 +1165,8 @@ def main() -> int:
          "source": "crlot_tpu_torch/csrc/b6_sm90.cu",
          "replaces": "crlot_tpu/fft/matmul_backend.py:633",
          "launches": (counts["b0"] + path6["counts"]["b0"]
-                      + path9["counts"]["b0"] + path10["counts"]["B0"]),
+                      + path9["counts"]["b0"] + path10["counts"]["B0"]
+                      + path11["counts"]["b0"]),
          "max_abs_err": path_b0["err"],
          "ms": timing["b0"], "plain_ms": timing["b0_plain"],
          **bound(nbytes(x_ext, *bt0) + x_ext.shape[0] * rows0 * gh0 * 4,
@@ -1155,7 +1177,8 @@ def main() -> int:
          "source": "crlot_tpu_torch/csrc/ola_fused.cu",
          "replaces": "crlot_tpu/ola/fused.py:39",
          "launches": (counts["b1"] + path7["counts"]["b1"]
-                      + path8["counts"]["b1"] + path10["counts"]["B1"]),
+                      + path8["counts"]["b1"] + path10["counts"]["B1"]
+                      + path11["counts"]["b1"]),
          "max_abs_err": results["b1_err"], "ms": timing["b1"],
          "plain_ms": timing["b1_plain"],
          **bound(nbytes(frames, norm) + 2 * full * 4, frames.numel()),
@@ -5205,30 +5228,205 @@ def _compare_example(check, name, dirs, stdout, wav) -> str:
     return "; ".join(notes)
 
 
-def _oracle(x_np, gains_f64, cfg):
-    """float64 numpy STFT * g * iSTFT of the first second of each channel.
-    Frames touching t < 1 s lie inside the first 1 s + N samples, so the
-    prefix gives the full-signal values there exactly."""
+# The frames-level routes (phase 49): 20 ms frames with a 5 ms hop at 48
+# kHz, the 30 ms / 10 ms geometry at 44.1 kHz's sizes, and the clips too
+# short for the blocked kernel.
+N_FOLD, H_FOLD = 960, 240
+N_ODD, H_ODD = 1323, 441
+CLIPS, CLIP_LEN = 128, 1200
+
+
+def routes_path(dev, phase, check, failures, x, x_np) -> dict:
+    """Phase 49, with the B0 and B1 counters reset just before: the
+    frames-level routes of `round_trip` on the main path's 2 ch x 60 s, each
+    B1 launch held torch.equal to plain (`LaunchHold`) and each B0 launch
+    within its bound of plain (`KernelHold`); then each route's CUDA-event
+    time beside the `stft_istft` route it replaces, in turns, outside the
+    counts."""
+    import numpy as np
+    import torch
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch import spectral
+    from crlot_tpu_torch.bench.launches import uncounted
+    from crlot_tpu_torch.core.types import FftBackend, FrameSpec, PadMode
+    from crlot_tpu_torch.fft import dispatch
+    from crlot_tpu_torch.fft import tf32x3 as b0
+    from crlot_tpu_torch.fft.matmul_backend import roundtrip_packed_matmul
+    from crlot_tpu_torch.frame.framing import frame_signal
+    from crlot_tpu_torch.ola import fused as b1
+    from crlot_tpu_torch.ola.norm import edge_norm
+    from crlot_tpu_torch.timing import cuda_ms
+    from crlot_tpu_torch.window.windows import get_window
+
+    n = x.shape[-1]
+    out = {"results": {}, "timings": {}}
+    b0.launches = b1.launches = 0
+    c960 = pt.StftConfig(frame_size=N_FOLD, hop_size=H_FOLD, center=True)
+    c1024 = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=True)
+    band960 = spectral.band_gain([500.0, 4000.0], [0.5, 1.0, 0.25], SR,
+                                 N_FOLD)
+    band1024 = spectral.band_gain([500.0, 4000.0], [0.5, 1.0, 0.25], SR, NFFT)
+    clips_np = np.ascontiguousarray(
+        x_np[0, : CLIPS * CLIP_LEN].reshape(CLIPS, CLIP_LEN))
+    clips = torch.from_numpy(clips_np).to(dev)
+    # (c): no StftConfig takes an odd N, so the reference's packed branch
+    # is driven as its round_trip would compose it: frames, the packed
+    # products, B1 with the edge norm.
+    spec_odd = FrameSpec(N_ODD, H_ODD, True, PadMode.REFLECT)
+    w_odd = get_window(pt.WindowType.HANN, N_ODD, True, dtype=np.float64)
+    f_odd = spec_odd.num_frames(n)
+    full_odd = (f_odd - 1) * H_ODD + N_ODD
+    norm_odd = torch.from_numpy(
+        edge_norm(w_odd, H_ODD, f_odd, full_odd)).to(dev)
+    pad_odd = spec_odd.pad_amount
+
+    def packed_odd(sig):
+        frames = roundtrip_packed_matmul(frame_signal(sig, spec_odd), N_ODD,
+                                         w_odd)
+        y = b1.ola_normalized_auto(frames, norm_odd, H_ODD, full_odd, 1e-8)
+        return y[..., pad_odd : pad_odd + n]
+
+    def fft_odd(sig):  # what stft -> istft would run at N = 1323
+        fr = frame_signal(sig, spec_odd)
+        spec = dispatch.rfft_windowed(fr, N_ODD, w_odd, FftBackend.XLA)
+        frames = dispatch.irfft(spec, N_ODD, FftBackend.XLA)
+        y = b1.ola_normalized_auto(frames, norm_odd, H_ODD, full_odd, 1e-8)
+        return y[..., pad_odd : pad_odd + n]
+
+    def stft_istft(sig, cfg, fn=None):
+        spec = pt.stft(sig, cfg)
+        return pt.istft(spec if fn is None else fn(spec), cfg,
+                        length=sig.shape[-1])
+
+    cases = [  # name, route, call, the call it replaces
+        ("(a) identity N 960 H 240", "folded",
+         lambda: pt.round_trip(x, c960), lambda: stft_istft(x, c960)),
+        ("(b) band_gain N 960 H 240", "composed",
+         lambda: pt.round_trip(x, c960, band960),
+         lambda: stft_istft(x, c960, band960)),
+        ("(c) identity N 1323 H 441", "packed (direct)",
+         lambda: packed_odd(x), lambda: fft_odd(x)),
+        (f"(d) band_gain on {CLIPS} clips of {CLIP_LEN}", "composed",
+         lambda: pt.round_trip(clips, c1024, band1024),
+         lambda: stft_istft(clips, c1024, band1024)),
+    ]
+    launch = LaunchHold(check)
+    products = KernelHold(check)
+
+    def held(fn):
+        with launch, products:
+            got = fn()
+            torch.cuda.synchronize(dev)
+        return got
+
+    def p49():
+        lines = []
+        check(pt.formulation_for(c960, None, n) == "folded", "(a) route")
+        check(pt.formulation_for(c960, band960, n) == "composed",
+              "(b) route")
+        check(pt.formulation_for(c1024, band1024, CLIP_LEN) == "composed",
+              "(d) route")
+        check(c1024.frame_spec.num_frames(CLIP_LEN) == 5, "(d) frames")
+        try:
+            pt.StftConfig(frame_size=N_ODD, hop_size=H_ODD)
+            check(False, "(c) an odd StftConfig was taken")
+        except ValueError:
+            pass
+        y = held(cases[0][2])
+        snr = pt.snr_db(x_np, y)
+        check(y.shape == x.shape and snr > 60.0, f"(a) snr {snr:.2f} dB")
+        lines.append(f"(a) folded: {snr:.2f} dB vs input")
+        y = held(cases[1][2])
+        want = _oracle(x_np, band960.per_bin_gains(N_FOLD), c960)
+        snr = min(pt.snr_db(want[c], y[c, :SR]) for c in range(2))
+        check(snr >= 80.0, f"(b) snr vs f64 oracle {snr:.2f} dB")
+        lines.append(f"(b) composed: first 1 s vs f64 oracle {snr:.2f} dB")
+        y = held(cases[2][2])
+        snr = pt.snr_db(x_np, y)
+        check(y.shape == x.shape and snr > 60.0, f"(c) snr {snr:.2f} dB")
+        lines.append(f"(c) packed products + B1 at [2, {f_odd}, {N_ODD}] "
+                     f"H {H_ODD}: {snr:.2f} dB vs input")
+        y = held(cases[3][2])
+        want = _oracle(clips_np, band1024.per_bin_gains(NFFT), c1024,
+                       CLIP_LEN)
+        snr = min(pt.snr_db(want[c], y[c]) for c in range(CLIPS))
+        check(snr >= 80.0, f"(d) worst clip vs f64 oracle {snr:.2f} dB")
+        lines.append(f"(d) composed: worst clip vs f64 oracle {snr:.2f} dB")
+        rows = {}
+        for name, frames in (("N 960 H 240", frame_signal(x, c960.frame_spec)),
+                             ("clips", frame_signal(clips,
+                                                    c1024.frame_spec))):
+            _, _, lda = b0.frame_rows(frames)
+            rows[name] = ("in place" if lda < frames.shape[-1]
+                          else "copied (lda = N)")
+        out["results"]["frame_rows"] = rows
+        seen = launch.seen["b1"]
+        check(len(seen) == 4 and b1.launches == 4,
+              f"B1 launches {b1.launches}, held {len(seen)}")
+        check(products.held["b0"] == 2 and b0.launches == 2,
+              f"B0 launches {b0.launches}, held {products.held['b0']}")
+        hops = sorted({h for h, _, _ in seen})
+        lines.append(f"B1 x{len(seen)} torch.equal to plain at hops {hops} "
+                     f"({', '.join(str(list(s)) for _, s, _ in seen)})")
+        lines.append(products.summary())
+        lines.append("B0 frame rows: " + ", ".join(
+            f"{k} {v}" for k, v in rows.items()))
+        return "; ".join(lines)
+
+    phase("49 frames-level routes (composed, folded, packed)", p49)
+    out["counts"] = {"b0": b0.launches, "b1": b1.launches}
+    log(f"frames-level routes path launches: B0 {b0.launches}, B1 "
+        f"{b1.launches}")
+    if not (b0.launches and b1.launches):
+        failures.append("launch counts (routes path)")
+        log("FAIL launch counts: a kernel of the path was not launched")
+    try:
+        with uncounted():
+            for name, route, call, former in cases:
+                t = out["timings"][name] = {"route": [], "stft_istft": []}
+                for key, fn in (("route", call), ("stft_istft", former),
+                                ("stft_istft", former), ("route", call)):
+                    queued, per_call = cuda_ms(fn, REPS)
+                    t[key].append(per_call if queued is None else queued)
+                log(f"time {name}: {route} "
+                    f"{' / '.join(f'{v:.4f}' for v in t['route'])} ms, the "
+                    f"stft_istft route it replaces "
+                    f"{' / '.join(f'{v:.4f}' for v in t['stft_istft'])} ms "
+                    f"(CUDA events, median of {REPS}, queued; in turns "
+                    f"route, stft_istft, stft_istft, route)")
+    except Exception as e:
+        failures.append("timings (routes path)")
+        log(f"FAIL timings (routes path): {type(e).__name__}: {e}")
+    return out
+
+
+def _oracle(x_np, gains_f64, cfg, span=SR):
+    """float64 numpy STFT * g * iSTFT (center, reflect padding) of the first
+    `span` samples of each row of x_np. Frames touching t < span lie inside
+    the first span + N samples, so the prefix gives the full-signal values
+    there exactly."""
     import numpy as np
 
     from crlot_tpu_torch.pipeline import _window_f64
 
+    n, hop = cfg.frame_size, cfg.hop_size
     w = _window_f64(cfg)
-    pad = NFFT // 2
+    pad = n // 2
     outs = []
     for c in range(x_np.shape[0]):
-        xp = np.pad(x_np[c, : SR + 2 * NFFT].astype(np.float64), (pad, pad),
+        xp = np.pad(x_np[c, : span + 2 * n].astype(np.float64), (pad, pad),
                     mode="reflect")  # numpy's reflect is reflect101
-        f = (xp.size - NFFT) // HOP + 1
-        idx = np.arange(f)[:, None] * HOP + np.arange(NFFT)[None, :]
+        f = (xp.size - n) // hop + 1
+        idx = np.arange(f)[:, None] * hop + np.arange(n)[None, :]
         y_frames = np.fft.irfft(np.fft.rfft(xp[idx] * w, axis=-1) * gains_f64,
-                                n=NFFT, axis=-1)
+                                n=n, axis=-1)
         acc = np.zeros(xp.size)
         nrm = np.zeros(xp.size)
         for i in range(f):
-            acc[i * HOP : i * HOP + NFFT] += y_frames[i]
-            nrm[i * HOP : i * HOP + NFFT] += w
-        outs.append((acc / np.maximum(nrm, cfg.eps))[pad : pad + SR])
+            acc[i * hop : i * hop + n] += y_frames[i]
+            nrm[i * hop : i * hop + n] += w
+        outs.append((acc / np.maximum(nrm, cfg.eps))[pad : pad + span])
     return np.stack(outs)
 
 

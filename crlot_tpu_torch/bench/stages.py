@@ -134,6 +134,7 @@ def main_pipeline(seconds=60, n=1024, hop=256, only=None,
         hopblock_apply,
         irfft_folded_parts,
         rfft_folded_packed,
+        roundtrip_folded_matmul,
     )
     from ..frame.framing import frame_signal
     from ..ola.fused import ola_normalized_auto
@@ -188,8 +189,7 @@ def main_pipeline(seconds=60, n=1024, hop=256, only=None,
                                             dim=-1), frames),
         "inv_folded": (lambda p: irfft_folded_parts(p[..., :k], p[..., k:],
                                                     n), re_im),
-        "rt_folded": (lambda fr: irfft_folded_parts(
-            *rfft_folded_packed(fr, n, w32), n), frames),
+        "rt_folded": (lambda fr: roundtrip_folded_matmul(fr, n, w64), frames),
         "ola_fused": (lambda fr: ola_normalized_auto(fr, norm, hop, full,
                                                      1e-8), frames),
         "blocked_pad": (lambda s: pad_signal(

@@ -23,6 +23,11 @@ def reflect101_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(m >= n, period - m, m)
 
 
+def edge_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Clamp indices to [0, n-1] (EDGE / replicate padding)."""
+    return torch.clamp(idx, 0, max(n - 1, 0))
+
+
 def pad_signal(
     x: torch.Tensor,
     pad_left: int,

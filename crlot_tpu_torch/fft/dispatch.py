@@ -4,8 +4,10 @@ Counterpart of `crlot_tpu/fft/dispatch.py`, route for route:
 
   - XLA:    `torch.fft` (any N);
   - MATMUL: the DFT as matrix products (IEEE fp32): for nfft <= 4096 the
-            folded half-size products (even N) or the dense [N, N+2] basis
-            (odd N); above 4096 the two-stage Cooley-Tukey products for a
+            folded half-size products (even N; where N % 256 == 0 the
+            reference takes their tiled cores, `rfft_folded`, made for the
+            TPU's 128 lanes, and the port keeps the untiled products) or
+            the dense [N, N+2] basis (odd N); above 4096 the two-stage Cooley-Tukey products for a
             power of two (`ct_backend.py`), `torch.fft` otherwise. The
             complex transforms run Cooley-Tukey for a power of two and
             `torch.fft` otherwise;

@@ -4,8 +4,11 @@ Counterpart of the slice's part of `crlot_tpu/fft/matmul_backend.py`:
 
 * the dense [N, N+2] / [N+2, N] DFT bases (odd N: `fft/dispatch.py`'s
   MATMUL route for an odd nfft <= 4096), a window folded in or not;
-* the folded (half-size) forward and inverse DFT bases and the packed
-  forward / inverse that use them;
+* the folded (half-size) forward and inverse DFT bases, the packed
+  forward / inverse that use them, the complex transforms on them
+  (`rfft_folded`, `irfft_folded`, `rfft_windowed_folded`: the tiled cores
+  where N % 256 == 0, as the reference's) and the frames-level identity
+  `roundtrip_folded_matmul`;
 * the composed round-trip basis: for a FIXED per-bin response, frame ->
   spectrum -> response -> frame is one [N, N] matrix;
 * the blocked formulation: that map plus the overlap-add folded into a
@@ -25,7 +28,8 @@ product runs on B0's IEEE fp32 kernel, also in a fixed order
 the CPU both are IEEE fp32 `torch.matmul`s (TF32 stays off).
 
 The tiled round-trip (`rfft_folded_tiled_parts`,
-`irfft_folded_tiled_parts`, `roundtrip_folded_tiled`) is the reference's
+`irfft_folded_tiled_parts`, `roundtrip_folded_tiled`; `rfft_tiled`,
+`irfft_tiled` and the packed-plane converters) is the reference's
 lane-aligned layout of the folded bases: an [h, h] core a product and the
 (h+1)-th row and column as exact alternating-sign rank-1 borders. Its
 products are IEEE fp32 `torch.matmul`s at every tier; `fft/int8_backend.py`
@@ -197,6 +201,13 @@ def rfft_matmul(x: torch.Tensor, nfft: int, window_f64=None) -> torch.Tensor:
     flat = torch.matmul(x.float(), _dense_basis_on(nfft, wb, False, x.device))
     kk = nfft // 2 + 1
     return torch.complex(flat[..., :kk], flat[..., kk:])
+
+
+def rfft_windowed_matmul(x: torch.Tensor, nfft: int,
+                         window_f64: np.ndarray) -> torch.Tensor:
+    """rfft(x * window) as one product on unwindowed frames, the window
+    folded into the dense basis."""
+    return rfft_matmul(x, nfft, window_f64)
 
 
 def irfft_matmul(spec: torch.Tensor, nfft: int) -> torch.Tensor:
@@ -719,6 +730,75 @@ def roundtrip_folded_tiled(frames: torch.Tensor, nfft: int,
     w = np.asarray(analysis_window_f64, np.float32)
     out = irfft_folded_tiled_parts(
         *rfft_folded_tiled_parts(frames, nfft, w), nfft, per_bin_gains_f64)
+    if synthesis_window_f64 is not None:
+        out = out * const_on(np.asarray(synthesis_window_f64, np.float32),
+                             out.device)
+    return out
+
+
+def tiled_parts_to_packed(re512, re_nyq, im_eff):
+    """Tiled-layout spectrum -> full packed planes (Re [..., K], Im [..., K])
+    with the structurally zero Im[0] and Im[Nyquist] filled in."""
+    re = torch.cat([re512, re_nyq], dim=-1)
+    zero = torch.zeros_like(re_nyq)
+    return re, torch.cat([zero, im_eff, zero], dim=-1)
+
+
+def packed_to_tiled_parts(re, im, nfft: int):
+    """Inverse of `tiled_parts_to_packed`: drops Im[0] and Im[Nyquist], which
+    the tiled inverse ignores (the projection irfft applies)."""
+    h = nfft // 2
+    return re[..., :h], re[..., h : h + 1], im[..., 1:h]
+
+
+def rfft_tiled(x: torch.Tensor, nfft: int, window_f64=None) -> torch.Tensor:
+    """Real [..., nfft] -> complex64 [..., K] through the tiled cores
+    (requires `tiled_supported(nfft)`); the window optional (f64 design)."""
+    w = None if window_f64 is None else np.asarray(window_f64, np.float32)
+    return torch.complex(*tiled_parts_to_packed(
+        *rfft_folded_tiled_parts(x, nfft, w)))
+
+
+def irfft_tiled(spec: torch.Tensor, nfft: int) -> torch.Tensor:
+    """Complex [..., K] -> real [..., nfft] through the tiled cores;
+    Im[0] and Im[Nyquist] are ignored."""
+    return irfft_folded_tiled_parts(
+        *packed_to_tiled_parts(spec.real, spec.imag, nfft), nfft)
+
+
+def rfft_folded(x: torch.Tensor, nfft: int) -> torch.Tensor:
+    """Real [..., nfft] -> complex64 [..., K] through the folded half-size
+    bases (their tiled cores where `tiled_supported(nfft)`)."""
+    return rfft_windowed_folded(x, nfft, None)
+
+
+def irfft_folded(spec: torch.Tensor, nfft: int) -> torch.Tensor:
+    """Complex [..., K] -> real [..., nfft] through the folded half-size
+    bases (their tiled cores where `tiled_supported(nfft)`)."""
+    if tiled_supported(nfft):
+        return irfft_tiled(spec, nfft)
+    return irfft_folded_parts(spec.real, spec.imag, nfft)
+
+
+def rfft_windowed_folded(x: torch.Tensor, nfft: int,
+                         window_f64) -> torch.Tensor:
+    """rfft(x [* window]) -> complex64 through the folded half-size bases
+    (their tiled cores where `tiled_supported(nfft)`)."""
+    if tiled_supported(nfft):
+        return rfft_tiled(x, nfft, window_f64)
+    w = None if window_f64 is None else np.asarray(window_f64, np.float32)
+    return torch.complex(*rfft_folded_packed(x, nfft, w))
+
+
+def roundtrip_folded_matmul(frames: torch.Tensor, nfft: int,
+                            analysis_window_f64: np.ndarray,
+                            synthesis_window_f64=None) -> torch.Tensor:
+    """irfft(rfft(frames * w)) [* w_s] by the four half-size products, Re
+    and Im kept as separate planes between the directions: the frames-level
+    identity of `pipeline.round_trip` ("folded") at an even N that is
+    neither blocked nor tiled. IEEE fp32 at every tier."""
+    w = np.asarray(analysis_window_f64, np.float32)
+    out = irfft_folded_parts(*rfft_folded_packed(frames, nfft, w), nfft)
     if synthesis_window_f64 is not None:
         out = out * const_on(np.asarray(synthesis_window_f64, np.float32),
                              out.device)

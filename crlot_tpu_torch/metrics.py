@@ -6,8 +6,12 @@ the card syncs) and computes in float64, as the reference does."""
 
 from __future__ import annotations
 
+from typing import Union
+
 import numpy as np
 import torch
+
+ArrayLike = Union[np.ndarray, torch.Tensor]
 
 
 def _f64(x) -> np.ndarray:
@@ -16,7 +20,7 @@ def _f64(x) -> np.ndarray:
     return np.asarray(x, dtype=np.float64).reshape(-1)
 
 
-def snr_db(reference, test) -> float:
+def snr_db(reference: ArrayLike, test: ArrayLike) -> float:
     """10*log10(sum(ref^2) / sum((ref-test)^2)) in float64; +inf for an
     exact match, -inf for a silent reference."""
     ref, tst = _f64(reference), _f64(test)
@@ -31,7 +35,7 @@ def snr_db(reference, test) -> float:
     return float(10.0 * np.log10(sig / noise))
 
 
-def rms_db(x) -> float:
+def rms_db(x: ArrayLike) -> float:
     """20*log10(rms(x)) in float64; -inf for silence or no samples."""
     x64 = _f64(x)
     if x64.size == 0:
@@ -40,7 +44,7 @@ def rms_db(x) -> float:
     return float(20.0 * np.log10(rms)) if rms > 0 else float("-inf")
 
 
-def xcorr_delay_samples(reference, test) -> int:
+def xcorr_delay_samples(reference: ArrayLike, test: ArrayLike) -> int:
     """Lag (samples) maximizing the cross-correlation of test against
     reference; positive when test lags."""
     ref, tst = _f64(reference), _f64(test)
@@ -53,7 +57,8 @@ def xcorr_delay_samples(reference, test) -> int:
     return int(np.argmax(corr)) - (n - 1)
 
 
-def xcorr_delay_ms(reference, test, sample_rate: int) -> float:
+def xcorr_delay_ms(reference: ArrayLike, test: ArrayLike,
+                   sample_rate: int) -> float:
     return xcorr_delay_samples(reference, test) * 1000.0 / sample_rate
 
 
@@ -63,7 +68,7 @@ class PeakMeter:
     def __init__(self) -> None:
         self._peak = 0.0
 
-    def update(self, x) -> float:
+    def update(self, x: ArrayLike) -> float:
         block = _f64(x)
         if block.size:
             self._peak = max(self._peak, float(np.max(np.abs(block))))

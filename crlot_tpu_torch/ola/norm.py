@@ -1,9 +1,9 @@
 """COLA normalization builders (numpy, float64 design).
 
 Copies of `crlot_tpu/ola/norm.py`: `edge_norm` (actual coverage, offline
-reconstruction) and `build_norm_linear` (full, steady-state coverage: the
-streaming round-trip's norm). The tests hold both byte-identical to the
-reference's.
+reconstruction), `build_norm_linear` (full, steady-state coverage: the
+streaming round-trip's norm) and its O(K*N) oracle `brute_force_norm`. The
+tests hold all three byte-identical to the reference's.
 """
 
 from __future__ import annotations
@@ -50,3 +50,24 @@ def build_norm_linear(
     wp[:frame_size] = w
     period = wp.reshape(-1, hop).sum(axis=0)
     return np.tile(period, ring_len // hop).astype(np.float32)
+
+
+def brute_force_norm(
+    window: np.ndarray, ring_len: int, frame_size: int, hop: int
+) -> np.ndarray:
+    """O(K*N) test oracle of `build_norm_linear` over explicit placements
+    k*hop (negative k included, so position 0 gets full coverage).
+    Requires a hop-aligned ring."""
+    w64 = np.asarray(window, dtype=np.float64)
+    n = frame_size
+    if ring_len % hop != 0:
+        raise ValueError("ring_len must be a multiple of hop")
+    norm = np.zeros(ring_len, dtype=np.float64)
+    k_min = -(-(n - 1) // hop)
+    k_max = ring_len // hop
+    for k in range(-k_min, k_max):
+        for i in range(n):
+            pos = k * hop + i
+            if 0 <= pos < ring_len:
+                norm[pos] += w64[i]
+    return norm.astype(np.float32)

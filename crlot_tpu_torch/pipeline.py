@@ -23,6 +23,15 @@ Branches of `round_trip` (names returned by `formulation_for`):
   on K11 (`fft/int8_backend.roundtrip_folded_tiled_i8`), then B1;
 * "tiled": the same identity at HIGH or HIGHEST, its products IEEE fp32
   (`fft/matmul_backend.roundtrip_folded_tiled`), then B1;
+* "composed": a fixed per-bin response where the blocked formulation does
+  not apply, at every tier: the frames times one [N, N] matrix
+  (`fft/matmul_backend.roundtrip_composed_matmul`; B0 at HIGH where its
+  tiles take N), then B1;
+* "folded": the identity at any other N <= 4096, four half-size products
+  (`fft/matmul_backend.roundtrip_folded_matmul`), then B1. The reference
+  sends an odd N to its packed products instead, but `StftConfig` takes
+  only an even N, in both packages, so that branch is never reached and
+  the port has none;
 * "stft_istft": everything else, `stft` -> fn -> `istft` (B1 for the OLA).
 """
 
@@ -51,6 +60,8 @@ from .fft.matmul_backend import (
     irfft_folded_parts,
     rfft_folded_packed,
     roundtrip_composed_blocked,
+    roundtrip_composed_matmul,
+    roundtrip_folded_matmul,
     roundtrip_folded_tiled,
     tiled_supported,
 )
@@ -210,15 +221,14 @@ def formulation_for(
     cfg: StftConfig, spectral_fn: Optional[Callable], n_samples: int
 ) -> str:
     """The branch `round_trip(signal[..., n_samples], cfg, spectral_fn)`
-    takes: "fused_rt_frames", "blocked", "fused_rt_ola", "packed_parts",
-    "tiled_i8", "tiled" or "stft_istft". For the configurations the
-    reference's accelerator runs through its blocked, fused and tiled
-    formulations, this is the reference accelerator's choice; where the
-    reference would take one of its other frames-level matmul routes (the
-    composed product of a fixed response too short for the blocked kernel,
-    the folded products for N % 256 != 0), the port takes "stft_istft"."""
+    takes: "fused_rt_frames", "blocked", "composed", "tiled_i8", "tiled",
+    "folded", "fused_rt_ola", "packed_parts" or "stft_istft".
+    Each is the reference accelerator's choice at the same gates
+    (`crlot_tpu/pipeline.py`'s round_trip with a "tpu" backend); a
+    frames-level route needs at least one frame."""
     matmul_ok = cfg.fft_backend in (FftBackend.AUTO, FftBackend.MATMUL)
     nfft, hop = cfg.frame_size, cfg.hop_size
+    has_frames = cfg.frame_spec.num_frames(n_samples) > 0
     if not matmul_ok:
         return "stft_istft"
     if (
@@ -226,28 +236,32 @@ def formulation_for(
         and cfg.fused_roundtrip
         and cfg.fft_precision == FftPrecision.HIGH
         and fused_rt_supported(nfft, hop)
-        and cfg.frame_spec.num_frames(n_samples) > 0
+        and has_frames
     ):
         return "fused_rt_frames"
     per_bin = (
         resolve_per_bin_response(spectral_fn, nfft)
         if nfft <= MAX_MATMUL_NFFT else None
     )
-    if spectral_fn is None or per_bin is not None:
+    if nfft <= MAX_MATMUL_NFFT and (spectral_fn is None
+                                    or per_bin is not None):
         if _blocked_ok(cfg, n_samples):
             return "blocked"
-        if (spectral_fn is None and tiled_supported(nfft)
-                and cfg.frame_spec.num_frames(n_samples) > 0):
+        if not has_frames:
+            return "stft_istft"
+        if per_bin is not None:
+            return "composed"
+        if tiled_supported(nfft):
             return ("tiled_i8" if cfg.fft_precision == FftPrecision.INT8X2
                     else "tiled")
-        return "stft_istft"
-    if not hasattr(spectral_fn, "packed"):
+        return "folded"
+    if spectral_fn is None or not hasattr(spectral_fn, "packed"):
         return "stft_istft"
     if (
         not cfg.synthesis_window
         and cfg.fft_precision == FftPrecision.HIGH
         and fused_rt_supported(nfft, hop)
-        and cfg.frame_spec.num_frames(n_samples) > 0
+        and has_frames
         and epilogue_of(spectral_fn) is not None
     ):
         return "fused_rt_ola"
@@ -272,12 +286,13 @@ def round_trip(
     spec_ = cfg.frame_spec
     pad = spec_.pad_amount
 
-    def ola_crop(out_frames):
-        """OLA + COLA normalize (B1 on CUDA) + center crop."""
+    def ola_crop(out_frames, synthesized=False):
+        """OLA + COLA normalize (B1 on CUDA) + center crop; the synthesis
+        window is applied here unless the frames already carry it."""
         num_frames = out_frames.shape[-2]
         full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
         out = ola_normalized_auto(
-            _synthesis(out_frames, cfg),
+            out_frames if synthesized else _synthesis(out_frames, cfg),
             _norm_on(cfg, num_frames, full, signal.device),
             cfg.hop_size, full, cfg.eps,
         )
@@ -308,6 +323,21 @@ def round_trip(
             cfg.eps, spectral_packed=spectral_fn.packed,
         )
         return out[..., pad : pad + n]
+    if route in ("composed", "folded"):
+        # Both apply the synthesis window themselves (composed: folded into
+        # its matrix).
+        w64 = _window_f64(cfg)
+        syn = w64 if cfg.synthesis_window else None
+        frames = frame_signal(signal, spec_)
+        if route == "composed":
+            out_frames = roundtrip_composed_matmul(
+                frames, cfg.frame_size, w64,
+                resolve_per_bin_response(spectral_fn, cfg.frame_size), syn,
+                cfg.fft_precision)
+        else:
+            out_frames = roundtrip_folded_matmul(frames, cfg.frame_size, w64,
+                                                 syn)
+        return ola_crop(out_frames, synthesized=True)
     if route in ("tiled_i8", "tiled"):
         rt = (roundtrip_folded_tiled_i8 if route == "tiled_i8"
               else roundtrip_folded_tiled)

@@ -15,9 +15,11 @@ after it.
 Inputs, made from seed 0: 2 channels x `--seconds` of uniform noise at
 48 kHz (round-trip and sharded rows; N=1024, H=256, Hann, centered, the
 sharded rows center=False on T rounded down to a multiple of 4*H; the
-INT8X2 and tiled rows at H=480, 10 ms, where no blocked kernel applies) and
-at
-44.1 kHz (resample rows); the demo reads a 2-ch 44.1 kHz 16-bit WAV of a
+INT8X2 and tiled rows at H=480, 10 ms, where no blocked kernel applies; the
+frames-level rows at N=960, H=240, the identity "folded" and a 3-band EQ
+"composed", and the EQ "composed" on 128 clips of 1 200 samples from seed 1
+at N=1024, H=256, each beside its stft -> istft) and at 44.1 kHz (resample
+rows); the demo reads a 2-ch 44.1 kHz 16-bit WAV of a
 997 Hz / 1 kHz sine pair plus noise, as `chip_smoke.py` phase 17 writes it.
 The streaming rows run the reference bench's stream (`--stream-chunks`
 device-resident chunks of 2 097 152 mono samples, uniform noise in +-0.9
@@ -231,6 +233,36 @@ def main(argv=None) -> int:
         "resample_chunked 44.1 -> 48 kHz, chunk 65536": lambda: (
             pt.resample_chunked(x44, 44100, 48000, chunk=65536)),
     }
+    # The frames-level routes and the stft -> istft they replace: 20 ms / 5
+    # ms frames (no blocked group, N % 256 != 0), and clips too short for
+    # the blocked kernel.
+    cfg_960 = pt.StftConfig(frame_size=960, hop_size=240, center=True)
+    band_960 = spectral.band_gain([500.0, 4000.0], [0.5, 1.0, 0.25], 48000,
+                                  960)
+    band = spectral.band_gain([500.0, 4000.0], [0.5, 1.0, 0.25], 48000, 1024)
+    clips = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (128, 1200)).astype(np.float32)).to(dev)
+
+    def stft_istft(x, c, fn=None):
+        spec = pt.stft(x, c)
+        return pt.istft(spec if fn is None else fn(spec), c,
+                        length=x.shape[-1])
+
+    calls.update({
+        "round_trip identity (folded), N 960 H 240": lambda: pt.round_trip(
+            x48, cfg_960),
+        "istft(stft(x)), N 960 H 240": lambda: stft_istft(x48, cfg_960),
+        "round_trip band_gain (composed), N 960 H 240": lambda: (
+            pt.round_trip(x48, cfg_960, band_960)),
+        "istft(band_gain(stft(x))), N 960 H 240": lambda: stft_istft(
+            x48, cfg_960, band_960),
+    })
+    clip_calls = {
+        "round_trip band_gain (composed), 128 clips of 1200": lambda: (
+            pt.round_trip(clips, cfg, band)),
+        "istft(band_gain(stft(x))), 128 clips of 1200": lambda: stft_istft(
+            clips, cfg, band),
+    }
     sos8 = pt.butter_sos(8, 1000.0, "lowpass", fs=48000)
     cfg_gl = dataclasses.replace(cfg, synthesis_window=True)
     mag = pt.stft_magnitude(x48, cfg_gl)
@@ -249,6 +281,8 @@ def main(argv=None) -> int:
     for name, fn in calls.items():
         print(profile_call(f"{name}, 2 x {args.seconds:g} s", fn, dev),
               flush=True)
+    for name, fn in clip_calls.items():
+        print(profile_call(name, fn, dev), flush=True)
     del mag
     frames = int(48000 * args.seconds) // 1024 + 1  # N 4096, H 1024
     feats = torch.rand((2, frames, 12), generator=torch.Generator(

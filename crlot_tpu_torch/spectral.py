@@ -104,6 +104,18 @@ def fir_frequency_response(taps: np.ndarray, nfft: int) -> np.ndarray:
     return np.fft.rfft(t).astype(np.complex64)
 
 
+def magnitude(spec) -> torch.Tensor:
+    """|spec| (a tensor stays on its device; an array goes to the CPU)."""
+    return torch.as_tensor(spec).abs()
+
+
+def power_db(spec, floor_db: float = -120.0) -> torch.Tensor:
+    """10*log10(|spec|^2), the power floored at `floor_db`."""
+    p = torch.as_tensor(spec).abs().square()
+    floor = 10.0 ** (floor_db / 10.0)
+    return 10.0 * torch.log10(torch.clamp_min(p, floor))
+
+
 def noise_gate(threshold_db: float, attenuation_db: float = -60.0) -> Callable:
     """Attenuate bins whose power is below `threshold_db` (full scale)."""
     thresh = float(np.float32(10.0 ** (threshold_db / 10.0)))

@@ -101,3 +101,48 @@ def get_window(
     w.setflags(write=False)
     with _CACHE_LOCK:
         return _CACHE.setdefault(key, w)
+
+
+def clear_cache() -> None:
+    """Drop all cached windows. Safe while callers hold references: the
+    returned arrays are read-only and independently owned."""
+    with _CACHE_LOCK:
+        _CACHE.clear()
+
+
+def cache_size() -> int:
+    with _CACHE_LOCK:
+        return len(_CACHE)
+
+
+# --- verification oracles (float64) ---
+
+
+def calculate_sum(w: np.ndarray) -> float:
+    return float(np.asarray(w, dtype=np.float64).sum())
+
+
+def calculate_sum_of_squares(w: np.ndarray) -> float:
+    return float(np.square(np.asarray(w, dtype=np.float64)).sum())
+
+
+def calculate_rms_error(a: np.ndarray, b: np.ndarray) -> float:
+    a64 = np.asarray(a, dtype=np.float64)
+    b64 = np.asarray(b, dtype=np.float64)
+    if a64.shape != b64.shape:
+        raise ValueError("shape mismatch")
+    if a64.size == 0:
+        return 0.0
+    return float(np.sqrt(np.mean(np.square(a64 - b64))))
+
+
+def calculate_ola_gain(window: np.ndarray, hop: int) -> float:
+    """Max over positions of the overlapped SQUARED-window sum."""
+    w = np.asarray(window, dtype=np.float64)
+    n = len(w)
+    if hop <= 0:
+        raise ValueError("hop must be > 0")
+    gain = 0.0
+    for p in range(min(hop, n)):
+        gain = max(gain, float(np.square(w[p::hop]).sum()))
+    return gain

@@ -60,6 +60,12 @@ def _reference(x, jcfg, channel, time, fn=None, **kw):
                                 spectral_fn=fn, **kw))
 
 
+def _stft_istft(x, cfg):
+    """The one-shot stft -> istft of numpy x on the CPU."""
+    x = torch.from_numpy(np.ascontiguousarray(x))
+    return pt.istft(pt.stft(x, cfg), cfg, length=x.shape[-1])
+
+
 def _interior_err(got, want, nfft):
     return np.max(np.abs(np.asarray(got)[:, nfft:-nfft]
                          - np.asarray(want)[:, nfft:-nfft]))
@@ -76,9 +82,11 @@ def test_sharded_matches_single_shard_bitexact(nfft, hop, total, channel,
     one = pt.sharded_round_trip(x, cfg, _mesh(1, 1), device="cpu")
     assert got.shape == x.shape
     assert torch.equal(got, one)
-    if pt.formulation_for(cfg, None, total) == "stft_istft":
-        # The same frames as the one-shot pipeline: bit for bit.
-        assert torch.equal(got, pt.round_trip(torch.from_numpy(x), cfg))
+    if pt.formulation_for(cfg, None, total) != "blocked":
+        # The mesh's frames route (stft -> istft per shard): the same
+        # frames as the one-shot stft -> istft, bit for bit.
+        assert spl.shard_route(cfg, None) == "stft_istft"
+        assert torch.equal(got, _stft_istft(x, cfg))
 
 
 @pytest.mark.parametrize("nfft,hop,total", [(128, 32, 4096), (256, 128, 8192)])
@@ -382,7 +390,7 @@ def test_shard_routes_follow_the_config():
 def test_sharded_synthesis_window_mode():
     cfg = pt.StftConfig(frame_size=128, hop_size=32, synthesis_window=True)
     x = _sig(2, 4096, seed=9)
-    want = pt.round_trip(torch.from_numpy(x), cfg)
+    want = _stft_istft(x, cfg)
     assert torch.equal(
         pt.sharded_round_trip(x, cfg, _mesh(2, 4), device="cpu"), want)
 
@@ -397,7 +405,7 @@ def test_sharded_valid_window_masks_frames():
     got = pt.sharded_round_trip(x, cfg, _mesh(2, 4), **kw, device="cpu")
     assert torch.equal(got, one)
     assert not got[:, :512].any() and not got[:, 3000:].any()
-    inner = pt.round_trip(torch.from_numpy(x[:, 512:3000]), cfg)
+    inner = _stft_istft(x[:, 512:3000], cfg)
     span = (cfg.frame_spec.num_frames(2488) - 1) * 32 + 128
     np.testing.assert_array_equal(got[:, 512:512 + span].numpy(),
                                   inner[:, :span].numpy())

@@ -419,7 +419,9 @@ def test_tiled_routes_match_the_reference(precision, route, gate):
 def test_route_gates_of_the_int8_tier():
     """Identity and fixed responses at H = 256 stay blocked at every tier;
     the tiled routes take the identity only; the fused routes stay HIGH-only;
-    N % 256 != 0 keeps the frames-level torch.fft route."""
+    a fixed response the blocked kernel cannot take runs the composed
+    product at every tier, and the identity at N % 256 != 0 the folded
+    products, as the reference's accelerator does."""
     n = 48000
     gate = pt.spectral.noise_gate(-30.0)
     band = pt.spectral.band_gain([1000.0], [1.0, 0.5], 48000, 1024)
@@ -429,10 +431,10 @@ def test_route_gates_of_the_int8_tier():
         assert pt.formulation_for(c256, None, n) == "blocked"
         assert pt.formulation_for(c256, band, n) == "blocked"
         c480 = dataclasses.replace(c256, hop_size=480)
-        assert pt.formulation_for(c480, band, n) == "stft_istft"
+        assert pt.formulation_for(c480, band, n) == "composed"
         assert pt.formulation_for(
             dataclasses.replace(c480, frame_size=1000), None, n) == \
-            "stft_istft"
+            "folded"
     i8 = pt.StftConfig(frame_size=1024, hop_size=256, center=True,
                        fft_precision=pt.FftPrecision.INT8X2)
     assert pt.formulation_for(i8, None, 1000) == "tiled_i8"  # few frames

@@ -4,7 +4,8 @@ port vs reference on the CPU.
 B1's contract is bit-exactness with the canonical ascending-frame OLA, the
 same gate `tests/test_fused_ola.py` holds the Pallas kernel to; here the
 port's plain version must equal both the Pallas kernel (interpret mode) and
-the reference's jnp OLA exactly.
+the reference's jnp OLA exactly. The norm oracle `brute_force_norm` is
+byte-identical to the reference's, and `edge_index` equal to it.
 """
 
 import numpy as np
@@ -143,4 +144,37 @@ def test_hop_block_frames_matches_reference(length):
     got = t_hbf(torch.from_numpy(x), 256, 64, 40).numpy()
     want = np.asarray(j_hbf(jnp.asarray(x), 256, 64, 40))
     assert got.shape == want.shape == (2, 40, 256)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize(
+    "n,hop,margin",
+    [(8, 2, 3), (8, 4, 2), (16, 4, 20), (1024, 256, 20), (1024, 512, 20),
+     (100, 25, 5), (1000, 300, 4)],
+)
+def test_brute_force_norm_matches_reference(n, hop, margin):
+    """The O(K*N) oracle: byte-identical to the reference's, and the port's
+    `build_norm_linear` against it within the reference test's 1e-5."""
+    from crlot_tpu.ola.norm import brute_force_norm as j_brute
+    from crlot_tpu_torch.ola.norm import brute_force_norm, build_norm_linear
+
+    w = get_window(WindowType.HANN, n, periodic=True)
+    ring_len = (-(-n // hop) + margin) * hop
+    got = brute_force_norm(w, ring_len, n, hop)
+    want = j_brute(w, ring_len, n, hop)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+    np.testing.assert_allclose(build_norm_linear(w, ring_len, n, hop), got,
+                               atol=1e-5)
+    with pytest.raises(ValueError):
+        brute_force_norm(w, ring_len + 1, n, hop)
+
+
+@pytest.mark.parametrize("n", [1, 4, 9])
+def test_edge_index_matches_reference(n):
+    from crlot_tpu.core.padding import edge_index as j_edge_index
+    from crlot_tpu_torch.core.padding import edge_index
+
+    idx = np.arange(-12, 20)
+    got = edge_index(torch.from_numpy(idx), n).numpy()
+    want = np.asarray(j_edge_index(jnp.asarray(idx), n))
     np.testing.assert_array_equal(got, want)

@@ -17,6 +17,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import crlot_tpu.fft.int8_backend as ji8
 import crlot_tpu.fft.matmul_backend as jmm
 import crlot_tpu.fft.pallas_rt as jrt
 import crlot_tpu.pipeline as jpipe
@@ -134,8 +135,11 @@ def reference_accelerator_branch(monkeypatch):
     monkeypatch.setattr(jpipe, "blocked_composed_round_trip", probe("blocked"))
     monkeypatch.setattr(jrt, "roundtrip_signal_fused", fused_probe)
     monkeypatch.setattr(jmm, "rfft_folded_tiled_parts", probe("packed_parts"))
-    monkeypatch.setattr(jmm, "roundtrip_composed_matmul", probe("composed_frames"))
-    monkeypatch.setattr(jmm, "roundtrip_folded_tiled", probe("tiled_frames"))
+    monkeypatch.setattr(jmm, "roundtrip_composed_matmul", probe("composed"))
+    monkeypatch.setattr(jmm, "roundtrip_folded_tiled", probe("tiled"))
+    monkeypatch.setattr(ji8, "roundtrip_folded_tiled_i8", probe("tiled_i8"))
+    monkeypatch.setattr(jmm, "roundtrip_folded_matmul", probe("folded"))
+    monkeypatch.setattr(jmm, "roundtrip_packed_matmul", probe("packed"))
     monkeypatch.setattr(jpipe, "stft", probe("stft_istft"))
 
     def run(jcfg, fn, n):
@@ -188,6 +192,12 @@ def _fns(nfft):
          fft_precision="highest"),
     dict(frame_size=1024, hop_size=256, center=True, fft_backend="xla"),
     dict(frame_size=512, hop_size=128, center=False),
+    dict(frame_size=960, hop_size=240, center=True),
+    dict(frame_size=960, hop_size=240, center=True, synthesis_window=True),
+    dict(frame_size=1024, hop_size=480, center=True),
+    dict(frame_size=1024, hop_size=480, center=True, fft_precision="int8x2"),
+    dict(frame_size=1000, hop_size=250, center=True,
+         fft_precision="highest"),
 ])
 def test_formulation_matches_reference_accelerator(cfg_kw,
                                                    reference_accelerator_branch):
@@ -198,12 +208,10 @@ def test_formulation_matches_reference_accelerator(cfg_kw,
         kw["fft_backend"] = JFftBackend(kw["fft_backend"])
     jcfg = JStftConfig(**kw)
     cfg = config_from_reference(jcfg)
-    for n in (SR, 4000):
+    for n in (SR, 4000, 1200):
         for name, jfn, tfn in _fns(jcfg.frame_size):
             want = reference_accelerator_branch(jcfg, jfn, n)
             got = pt.formulation_for(cfg, tfn, n)
-            if want in ("composed_frames", "tiled_frames"):
-                want = "stft_istft"  # the port's route for those configs
             if name == "exotic_packed" and want == "fused_rt_ola":
                 # The Pallas kernel traces any packed fn; B2 runs a fixed
                 # menu, so a fn outside it is routed up front to the parts.
