@@ -1,0 +1,7 @@
+"""device.idle_share.clip: device.idle_share, read as its own reader
+reads it, in the cells that send one clip a call and so report
+samples_per_s.clip."""
+
+from portbench import spec
+
+read = spec.metric_reader("device.idle_share")
