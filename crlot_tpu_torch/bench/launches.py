@@ -13,19 +13,29 @@ timed repeats by.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Dict
 
 _depth = 0  # open uncounted() regions
 
 
-def launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch count, by kernel."""
+@functools.lru_cache(maxsize=None)
+def _wrappers() -> tuple:
+    """The modules that hold the counters (imported on first use: they
+    import this package's neighbours)."""
+    from .. import int8_gemm
     from ..fft import fp32_window, fused_rt, tf32x3
-    from ..int8_gemm import launches as b6
     from ..ola import fused
-    from ..ola.kernels import launches as b5
+    from ..ola import kernels as b5
     from ..resample import kernel as b4
 
+    return tf32x3, fp32_window, fused, fused_rt, b4, b5, int8_gemm
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launch count, by kernel."""
+    tf32x3, fp32_window, fused, fused_rt, b4, b5, b6 = _wrappers()
+    b5, b6 = b5.launches, b6.launches
     return {"B0": tf32x3.launches, "B0_fp32": fp32_window.launches,
             "B1": fused.launches, "B2": fused_rt.launches,
             "B3": fused_rt.frames_launches, "B4": b4.launches,
@@ -36,12 +46,7 @@ def launch_counts() -> Dict[str, int]:
 
 def set_launch_counts(counts: Dict[str, int]) -> None:
     """Set every kernel wrapper's launch count to `counts[kernel]`."""
-    from .. import int8_gemm
-    from ..fft import fp32_window, fused_rt, tf32x3
-    from ..ola import fused
-    from ..ola import kernels as b5
-    from ..resample import kernel as b4
-
+    tf32x3, fp32_window, fused, fused_rt, b4, b5, int8_gemm = _wrappers()
     tf32x3.launches, fp32_window.launches = counts["B0"], counts["B0_fp32"]
     fused.launches, fused_rt.launches = counts["B1"], counts["B2"]
     fused_rt.frames_launches, b4.launches = counts["B3"], counts["B4"]

@@ -47,6 +47,7 @@ class ExchangeCounter:
     def reset(self) -> None:
         # (c, t) -> the bytes of each halo it received, the last 64
         self.per_shard = {}
+        self.received_bytes = 0  # every halo received, zeros included
         self.moved_bytes = 0  # between shards, zeros excluded
         self.cross_rank_ops = 0
         self.cross_rank_bytes = 0
@@ -55,6 +56,7 @@ class ExchangeCounter:
 
     def add(self, shard, nbytes: int, moved: bool, cross_rank: bool) -> None:
         self.per_shard.setdefault(shard, deque(maxlen=64)).append(nbytes)
+        self.received_bytes += nbytes
         if moved:
             self.moved_bytes += nbytes
         if cross_rank:
@@ -63,6 +65,14 @@ class ExchangeCounter:
 
 
 counter = ExchangeCounter()
+
+
+def halo_counts() -> dict:
+    """The counter's totals whose change a `crlot.sharded.halo` span
+    records (`profiling.span`)."""
+    return {"moved_bytes": counter.moved_bytes,
+            "received_bytes": counter.received_bytes,
+            "cross_rank_ops": counter.cross_rank_ops}
 
 
 class Pending:

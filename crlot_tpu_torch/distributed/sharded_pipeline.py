@@ -45,7 +45,6 @@ Constraints (checked): T % n_time == 0, block % hop == 0, block >= frame
 
 from __future__ import annotations
 
-from functools import lru_cache
 from typing import Callable, Optional
 
 import numpy as np
@@ -53,7 +52,7 @@ import torch
 import torch.distributed as dist
 
 from ..core import device as _device
-from ..core.consts import as_f32, const_on
+from ..core.consts import as_f32, const_on, design_cache
 from ..core.types import FftBackend, FftPrecision, StftConfig
 from ..fft import dispatch as _fft
 from ..fft.fused_rt import fused_rt_supported, roundtrip_frames_fused
@@ -73,10 +72,12 @@ from ..fft.matmul_backend import (
 from ..frame.framing import hop_block_frames
 from ..ola.reference import overlap_add
 from ..pipeline import _norm_np
+from ..profiling import span
 from ..spectral import epilogue_of, resolve_per_bin_response
 from ..window.windows import get_window
 from . import halo as _halo
 from .halo import (
+    halo_counts,
     pull_left_halo,
     pull_right_halo,
     push_right_tail,
@@ -324,7 +325,8 @@ def _block_round_trip(
     else:
         route = shard_route(cfg, spectral_fn)
         frames_per_block = t_block // hop
-        rights = pull_right_halo(xs, halo, row)
+        with span("crlot.sharded.halo", counts=halo_counts):
+            rights = pull_right_halo(xs, halo, row)
         frames = []
         for t, (x, right) in enumerate(zip(xs, rights)):
             if x is None:
@@ -349,9 +351,11 @@ def _block_round_trip(
         tails = [None if of is None
                  else overlap_add(of, hop, t_block + halo)[..., t_block:]
                  for of in frames]
+        with span("crlot.sharded.halo", counts=halo_counts):
+            seeds = push_right_tail(tails, row)
         accs = [None if of is None
                 else overlap_add(of, hop, t_block, init_head=received(seed))
-                for of, seed in zip(frames, push_right_tail(tails, row))]
+                for of, seed in zip(frames, seeds)]
     outs = [None if acc is None else acc / torch.clamp_min(norm, cfg.eps)
             for acc, norm in zip(accs, norms)]
     if not with_metrics:
@@ -365,7 +369,7 @@ def _block_round_trip(
     return outs, partials
 
 
-@lru_cache(maxsize=64)
+@design_cache(64)
 def _norm_block_on(cfg: StftConfig, num_frames: int, valid_start: int,
                    total_len: int, t: int, t_block: int,
                    device: torch.device) -> torch.Tensor:
@@ -405,7 +409,22 @@ def sharded_round_trip(
     On a mesh that spans processes every rank passes the whole `x`,
     computes the shards it holds and returns a `GlobalArray` of them
     (`process_allgather` makes the whole); the metrics are the same
-    scalars on every rank."""
+    scalars on every rank.
+
+    While a profiler records, a call is the span
+    `crlot.sharded.round_trip` over `crlot.sharded.plan` (validation, the
+    route, the window, the norms), `crlot.sharded.halo` where exchanges
+    start (with the bytes `halo.counter` counted: `moved_bytes`,
+    `received_bytes`, `cross_rank_ops`), `crlot.sharded.block` for each
+    channel row and `crlot.sharded.join` (`profiling.span`)."""
+    with span("crlot.sharded.round_trip") as call:
+        return _sharded_round_trip(x, cfg, mesh, spectral_fn, valid_len,
+                                   valid_start, return_metrics,
+                                   allow_blocked, device, call)
+
+
+def _sharded_round_trip(x, cfg, mesh, spectral_fn, valid_len, valid_start,
+                        return_metrics, allow_blocked, device, call):
     if mesh is None:
         mesh = auto_mesh()
     if cfg.center:
@@ -414,27 +433,58 @@ def sharded_round_trip(
         )
     x = _device.place(x, device, torch.float32)
     channels, total_len = x.shape
-    if valid_len is None:
-        valid_len = total_len
-    valid_len = min(valid_len, total_len)
-    n_ch = mesh.shape[CHANNEL_AXIS]
-    n_time = mesh.shape[TIME_AXIS]
-    n, hop = cfg.frame_size, cfg.hop_size
-    if channels % n_ch != 0:
-        raise ValueError(f"channels ({channels}) % mesh channel ({n_ch}) != 0")
-    if total_len % n_time != 0:
-        raise ValueError(f"T ({total_len}) % mesh time ({n_time}) != 0")
-    t_block = total_len // n_time
-    if t_block % hop != 0:
-        raise ValueError(f"time block ({t_block}) must be hop-aligned ({hop})")
-    if t_block < n:
-        raise ValueError(
-            f"time block ({t_block}) must be >= frame_size ({n}) so halos "
-            "touch only immediate neighbors"
-        )
-    if valid_start % hop != 0:
-        raise ValueError(f"valid_start ({valid_start}) must be hop-aligned")
-    num_frames = cfg.frame_spec.num_frames(valid_len - valid_start)
+    if call:
+        call.note(rows=channels, samples=total_len)
+    with span("crlot.sharded.plan"):
+        if valid_len is None:
+            valid_len = total_len
+        valid_len = min(valid_len, total_len)
+        n_ch = mesh.shape[CHANNEL_AXIS]
+        n_time = mesh.shape[TIME_AXIS]
+        n, hop = cfg.frame_size, cfg.hop_size
+        if channels % n_ch != 0:
+            raise ValueError(
+                f"channels ({channels}) % mesh channel ({n_ch}) != 0")
+        if total_len % n_time != 0:
+            raise ValueError(f"T ({total_len}) % mesh time ({n_time}) != 0")
+        t_block = total_len // n_time
+        if t_block % hop != 0:
+            raise ValueError(
+                f"time block ({t_block}) must be hop-aligned ({hop})")
+        if t_block < n:
+            raise ValueError(
+                f"time block ({t_block}) must be >= frame_size ({n}) so "
+                "halos touch only immediate neighbors"
+            )
+        if valid_start % hop != 0:
+            raise ValueError(
+                f"valid_start ({valid_start}) must be hop-aligned")
+        num_frames = cfg.frame_spec.num_frames(valid_len - valid_start)
+        if num_frames > 0:
+            window_f64 = get_window(cfg.window, n, cfg.periodic,
+                                    dtype=np.float64)
+            # Fixed per-bin responses (and the identity) take the blocked
+            # hop-block Toeplitz formulation when the full frame set is
+            # covered and the blocks align to its group grid; otherwise
+            # the masked frame formulation with the tail-seeding protocol.
+            blocked = None
+            if allow_blocked and valid_start == 0 and valid_len == total_len:
+                per_bin_b = blocked_per_bin(
+                    cfg, spectral_fn, t_block=t_block, num_frames=num_frames
+                )
+                if per_bin_b is not None:
+                    blocked = {"group": blocked_group_for(n, hop),
+                               "num_frames": num_frames,
+                               "n_time": n_time, "per_bin": per_bin_b}
+            c_local = channels // n_ch
+            held_rows = [(c, held) for c in range(n_ch)
+                         if any(held := [mesh.local(c, t)
+                                         for t in range(n_time)])]
+            norms = {c: [
+                _norm_block_on(cfg, num_frames, valid_start, total_len, t,
+                               t_block, mesh.device(c, t))
+                if held[t] else None for t in range(n_time)]
+                for c, held in held_rows}
     if num_frames <= 0:
         if mesh.spans_processes:
             return GlobalArray(mesh, x.shape, {
@@ -442,66 +492,50 @@ def sharded_round_trip(
                 for c in range(n_ch) for t in range(n_time)
                 if mesh.local(c, t)})
         return torch.zeros_like(x)
-    window_f64 = get_window(cfg.window, n, cfg.periodic, dtype=np.float64)
+    if call:
+        call.note(route="blocked" if blocked is not None else "masked")
 
-    # Fixed per-bin responses (and the identity) take the blocked
-    # hop-block Toeplitz formulation when the full frame set is covered and
-    # the blocks align to its group grid; otherwise the masked frame
-    # formulation with the tail-seeding protocol.
-    blocked = None
-    if allow_blocked and valid_start == 0 and valid_len == total_len:
-        per_bin_b = blocked_per_bin(
-            cfg, spectral_fn, t_block=t_block, num_frames=num_frames
-        )
-        if per_bin_b is not None:
-            blocked = {"group": blocked_group_for(n, hop),
-                       "num_frames": num_frames,
-                       "n_time": n_time, "per_bin": per_bin_b}
-
-    c_local = channels // n_ch
     rows = []
-    for c in range(n_ch):
-        held = [mesh.local(c, t) for t in range(n_time)]
-        if not any(held):
-            continue
-        devs = [mesh.device(c, t) for t in range(n_time)]
+    for c, held in held_rows:
         xs = [
             x[c * c_local : (c + 1) * c_local,
-              t * t_block : (t + 1) * t_block].to(dev, non_blocking=True)
+              t * t_block : (t + 1) * t_block].to(mesh.device(c, t),
+                                                   non_blocking=True)
             if held[t] else None
-            for t, dev in enumerate(devs)
+            for t in range(n_time)
         ]
-        norms = [
-            _norm_block_on(cfg, num_frames, valid_start, total_len, t,
-                           t_block, dev) if held[t] else None
-            for t, dev in enumerate(devs)
-        ]
-        rows.append((c, held, xs, norms))
+        rows.append((c, held, xs, norms[c]))
     # The blocked route's halos are input context: every row's exchanges
     # are issued before any product, so that no row's staging waits for
     # another row's products.
-    halos = {c: _blocked_halos(xs, n - hop, (mesh, c))
-             for c, _, xs, _ in rows} if blocked is not None else {}
+    halos = {}
+    if blocked is not None:
+        with span("crlot.sharded.halo", counts=halo_counts):
+            halos = {c: _blocked_halos(xs, n - hop, (mesh, c))
+                     for c, _, xs, _ in rows}
     outs, partials = {}, {}
-    for c, held, xs, norms in rows:
-        outs_c, parts = _block_round_trip(
-            xs, norms, window_f64, cfg, valid_len, spectral_fn,
-            valid_start=valid_start, with_metrics=return_metrics,
-            blocked=blocked, row=(mesh, c), halos=halos.get(c),
-        )
+    for c, held, xs, norms_c in rows:
+        with span("crlot.sharded.block", row=c):
+            outs_c, parts = _block_round_trip(
+                xs, norms_c, window_f64, cfg, valid_len, spectral_fn,
+                valid_start=valid_start, with_metrics=return_metrics,
+                blocked=blocked, row=(mesh, c), halos=halos.get(c),
+            )
         for t in range(n_time):
             if held[t]:
                 outs[(c, t)] = outs_c[t]
                 if parts is not None:
                     partials[(c, t)] = parts[t]
-    if mesh.spans_processes:
-        y = GlobalArray(mesh, (channels, total_len), outs)
-        dev0 = mesh.local_device()
-    else:
-        dev0 = mesh.device(0, 0)
-        y = torch.cat([
-            torch.cat([outs[(c, t)].to(dev0) for t in range(n_time)], dim=-1)
-            for c in range(n_ch)], dim=0)
+    with span("crlot.sharded.join"):
+        if mesh.spans_processes:
+            y = GlobalArray(mesh, (channels, total_len), outs)
+            dev0 = mesh.local_device()
+        else:
+            dev0 = mesh.device(0, 0)
+            y = torch.cat([
+                torch.cat([outs[(c, t)].to(dev0) for t in range(n_time)],
+                          dim=-1)
+                for c in range(n_ch)], dim=0)
     if not return_metrics:
         return y
     return y, _reduce_metrics(partials, mesh, dev0)

@@ -47,6 +47,7 @@ from ..core import device as _device
 from ..core.types import StftConfig
 from ..fft.matmul_backend import blocked_edge_patch, blocked_patch_span
 from ..pipeline import _norm_np, _window_f64
+from ..profiling import span
 from ..streaming_pipeline import _resolve_blocked_per_bin
 from .mesh import CHANNEL_AXIS, TIME_AXIS, Mesh, auto_mesh
 from .sharded_pipeline import (
@@ -239,19 +240,21 @@ class ShardedStreamer:
             dev = self.mesh.device(c, 0 if side == "head"
                                    else self._n_time - 1)
         a = l_ctx if side == "head" else l_ctx + s - span_p
-        p = blocked_edge_patch(ext[rows, a : a + span_p].to(dev), n, hop,
-                               mode["wb"], mode["sb"], mode["rb"], side,
-                               cfg.fft_precision, fixed_order=True)
-        norm = torch.from_numpy(mode[side + "_norm"]).to(dev)
-        p = p / torch.clamp_min(norm, cfg.eps)
-        if isinstance(y, GlobalArray):
-            y.write(c, b, p)
-        else:
-            y[rows, b : b + edge] = p.to(y.device)
+        with span("crlot.stream.patch", side=side, row=c):
+            p = blocked_edge_patch(ext[rows, a : a + span_p].to(dev), n, hop,
+                                   mode["wb"], mode["sb"], mode["rb"], side,
+                                   cfg.fft_precision, fixed_order=True)
+            norm = torch.from_numpy(mode[side + "_norm"]).to(dev)
+            p = p / torch.clamp_min(norm, cfg.eps)
+            if isinstance(y, GlobalArray):
+                y.write(c, b, p)
+            else:
+                y[rows, b : b + edge] = p.to(y.device)
 
     def _process(self, left, mid, right, valid_from_mid, is_tail=False):
         l_ctx = self._l_ctx
-        ext = torch.cat([left[:, -l_ctx:], mid, right[:, :l_ctx]], dim=1)
+        with span("crlot.stream.context"):
+            ext = torch.cat([left[:, -l_ctx:], mid, right[:, :l_ctx]], dim=1)
         s = mid.shape[1]
         if self._mode is not None:
             # Blocked: the full-validity mesh program for every chunk (the
@@ -278,9 +281,10 @@ class ShardedStreamer:
                 allow_blocked=False,
             )
         self._first = False
-        if isinstance(y, GlobalArray):
-            return y.window(l_ctx, l_ctx + s)
-        return y[:, l_ctx : l_ctx + s]
+        with span("crlot.stream.slice"):
+            if isinstance(y, GlobalArray):
+                return y.window(l_ctx, l_ctx + s)
+            return y[:, l_ctx : l_ctx + s]
 
     @staticmethod
     def _out(out, force: bool):
@@ -291,13 +295,29 @@ class ShardedStreamer:
         chunk, or None on the first call: numpy with `force=True`, else the
         tensor on the mesh's first device (a `GlobalArray` on a mesh that
         spans processes), without a sync (the caller overlaps its own work
-        with the chunk's)."""
+        with the chunk's).
+
+        While a profiler records, a feed is the span `crlot.stream.feed`
+        (its `rows`, `chunk` and `mode`, and the constants it built and
+        kernels it launched) over `crlot.stream.place`, and for a chunk
+        it completes `crlot.stream.context`, `crlot.sharded.round_trip`,
+        `crlot.stream.patch` on the stream's head and tail and
+        `crlot.stream.slice` (`profiling.span`)."""
         if self._finished:
             raise RuntimeError(
                 "feed() after finish(): the stream has ended; create a new "
                 "ShardedStreamer (or load_state a checkpoint) to continue"
             )
-        chunk = self._place(chunk)
+        with span("crlot.stream.feed") as call:
+            out = self._feed(chunk, force)
+            if call:
+                call.note(rows=self._prev.shape[0], chunk=self._s,
+                          mode="blocked" if self.blocked else "masked")
+            return out
+
+    def _feed(self, chunk, force: bool):
+        with span("crlot.stream.place"):
+            chunk = self._place(chunk)
         if self._s is None:
             s = chunk.shape[1]
             unit = self._n_time * self.cfg.hop_size
@@ -324,16 +344,21 @@ class ShardedStreamer:
         return out
 
     def finish(self, force: bool = True):
-        """Drain the final buffered chunk (the stream ends)."""
+        """Drain the final buffered chunk (the stream ends); the span
+        `crlot.stream.finish`, as `feed` is `crlot.stream.feed`."""
         self._finished = True
         if self._prev is None:
             return None
-        out = self._process(self._tail, self._prev,
-                            torch.zeros_like(self._prev), self._s,
-                            is_tail=True)
-        self._tail = self._prev
-        self._prev = None
-        return self._out(out, force)
+        with span("crlot.stream.finish") as call:
+            if call:
+                call.note(rows=self._prev.shape[0], chunk=self._s,
+                          mode="blocked" if self.blocked else "masked")
+            out = self._process(self._tail, self._prev,
+                                torch.zeros_like(self._prev), self._s,
+                                is_tail=True)
+            self._tail = self._prev
+            self._prev = None
+            return self._out(out, force)
 
     def state(self) -> dict:
         """Picklable / npz-able checkpoint of the stream position, with the

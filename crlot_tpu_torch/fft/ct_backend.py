@@ -24,10 +24,10 @@ D = -i*conj(e_k)*(conj(X[M-k]) - X[k]), then ifft(z) = conj(fft(conj(z)))/M.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
+
+from ..core.consts import design_cache
 
 
 def factor(m: int) -> tuple:
@@ -40,7 +40,7 @@ def factor(m: int) -> tuple:
     return m // m2, m2
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _ct_consts(m1: int, m2: int):
     """(D1 re, D1 im, D2 re, D2 im, twiddle re, twiddle im), float32 casts
     of the float64 designs."""
@@ -56,7 +56,7 @@ def _ct_consts(m1: int, m2: int):
     )
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _pack_consts(n: int):
     """The real-FFT post-twiddle e_k = exp(-2 pi i k / n), k = 0..n/2."""
     m = n // 2
@@ -68,12 +68,12 @@ def _pack_consts(n: int):
     )
 
 
-@lru_cache(maxsize=16)
+@design_cache(16)
 def _ct_consts_on(m1: int, m2: int, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in _ct_consts(m1, m2))
 
 
-@lru_cache(maxsize=16)
+@design_cache(16)
 def _pack_consts_on(n: int, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in _pack_consts(n))
 

@@ -29,8 +29,6 @@ epilogue menu). A failure inside a kernel raises; nothing falls back.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
@@ -45,7 +43,8 @@ from ..spectral import (
     OP_REAL_GAINS,
     OP_SUBTRACT,
 )
-from ..core.consts import const_on
+from ..core.consts import const_on, design_cache
+from ..profiling import span
 from . import tf32x3
 from .matmul_backend import (
     MAX_MATMUL_NFFT,
@@ -89,7 +88,7 @@ def padded_bins(nfft: int) -> int:
     return -(-(nfft // 2 + 1) // 8) * 8
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def tf32_bases(nfft: int) -> tuple:
     """The folded DFT bases as `crlot_rt_frames` reads them: each [Kp, Kp],
     K-major (row = output column), zero-padded, split into TF32 (hi, lo):
@@ -108,7 +107,7 @@ def tf32_bases(nfft: int) -> tuple:
     return tuple(a for b in (ct, st, cit, sit) for a in tf32x3.split_np(b))
 
 
-@lru_cache(maxsize=4)
+@design_cache(4)
 def _kernel_bases_on(nfft: int, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in tf32_bases(nfft))
 
@@ -434,20 +433,22 @@ def roundtrip_signal_fused(
     full = (n_frames - 1) * hop + nfft
     if out_len is None:
         out_len = full
-    w32 = const_on(analysis_window_f64, padded.device)
-    norm = norm.to(device=padded.device, dtype=torch.float32)
-    if padded.device.type == "cpu":
-        return roundtrip_signal_plain(
-            padded.float(), nfft, hop, n_frames, w32, norm, eps, out_len,
+    with span("crlot.fused_rt.consts"):
+        w32 = const_on(analysis_window_f64, padded.device)
+        norm = norm.to(device=padded.device, dtype=torch.float32)
+    with span("crlot.fused_rt.kernels"):
+        if padded.device.type == "cpu":
+            return roundtrip_signal_plain(
+                padded.float(), nfft, hop, n_frames, w32, norm, eps, out_len,
+                spectral_packed,
+            )
+        lead = padded.shape[:-1]
+        flat = padded.reshape(-1, padded.shape[-1]).float().contiguous()
+        out = roundtrip_signal_cuda(
+            flat, nfft, hop, n_frames, w32, norm.contiguous(), eps, out_len,
             spectral_packed,
         )
-    lead = padded.shape[:-1]
-    flat = padded.reshape(-1, padded.shape[-1]).float().contiguous()
-    out = roundtrip_signal_cuda(
-        flat, nfft, hop, n_frames, w32, norm.contiguous(), eps, out_len,
-        spectral_packed,
-    )
-    return out.reshape(tuple(lead) + (out_len,))
+        return out.reshape(tuple(lead) + (out_len,))
 
 
 def roundtrip_frames_fused(

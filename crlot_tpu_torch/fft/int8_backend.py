@@ -26,13 +26,12 @@ Numerics: the one rounding of each operand, about 78 dB round-trip SNR,
 from __future__ import annotations
 
 from dataclasses import dataclass
-from functools import lru_cache
 
 import numpy as np
 import torch
 
 from .. import int8_gemm as b6
-from ..core.consts import const_on
+from ..core.consts import const_on, design_cache
 from . import matmul_backend as mb
 
 # Max quantized magnitude: 127 * 128 (hi limb saturates at 127, lo at 0).
@@ -61,7 +60,7 @@ class QBasis:
         return iter((self.hi, self.lo, self.cs))
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _quantize_basis(key, basis_bytes: bytes, shape) -> QBasis:
     """Per-column 14-bit quantization of a constant basis: basis[:, j] ~=
     (hi + lo/128)[:, j] * 128 * cs[j]."""
@@ -91,7 +90,7 @@ def _pad64(n: int) -> int:
     return -(-n // 64) * 64
 
 
-@lru_cache(maxsize=64)
+@design_cache(64)
 def _operands_on(qbasis: QBasis, device: torch.device):
     """(bh_t int8 [Np, Kp], bl_t int8 [Np, Kp], cs f32 [Np]): the basis as
     the kernel takes it, transposed, K-contiguous, zero-padded to multiples
@@ -133,7 +132,7 @@ def int8_supported(nfft: int) -> bool:
     return mb.tiled_supported(nfft)
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _tiled_consts_i8(nfft: int):
     """The tiled cores quantized (the borders stay f32)."""
     c512, s_eff, ci512, si_eff, cvec, alt, sign_h = mb._tiled_consts(nfft)
@@ -148,7 +147,7 @@ def _tiled_consts_i8(nfft: int):
     )
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _tiled_inverse_gained_i8(nfft: int, gains_bytes: bytes):
     """The inverse cores with a real per-bin gain folded in BEFORE
     quantization (the gains scale the contraction rows; per-column

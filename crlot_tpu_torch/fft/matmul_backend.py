@@ -49,19 +49,18 @@ otherwise.
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
-from ..core.consts import const_on
+from ..core.consts import const_on, design_cache
+from ..profiling import span
 from ..core.types import FftPrecision, float_tier
 from . import fp32_window, tf32x3
 
 MAX_MATMUL_NFFT = 4096
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _folded_forward_consts(nfft: int):
     """C [N/2+1, K] (cos rows n = 0..N/2) and S [N/2-1, K] (-sin rows
     n = 1..N/2-1): the DFT rows' symmetry halves the contraction."""
@@ -74,7 +73,7 @@ def _folded_forward_consts(nfft: int):
     return c.astype(np.float32), s.astype(np.float32)
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _folded_inverse_consts(nfft: int):
     """Cinv [K, N/2+1], Sinv [K, N/2-1], hermitian weights and 1/N
     included: A = Re @ Cinv gives x[0], (x[n]+x[N-n])/2, x[N/2];
@@ -92,7 +91,7 @@ def _folded_inverse_consts(nfft: int):
     return cinv.astype(np.float32), sinv.astype(np.float32)
 
 
-@lru_cache(maxsize=16)
+@design_cache(16)
 def folded_consts_on(nfft: int, device: torch.device):
     """(C, S, Cinv, Sinv) as contiguous f32 tensors on `device`."""
     c, s = _folded_forward_consts(nfft)
@@ -146,7 +145,7 @@ def irfft_folded_parts(re: torch.Tensor, im: torch.Tensor,
     return a  # nfft == 2: output is [x0, x1] = [A0, A1]
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _forward_basis(nfft: int) -> np.ndarray:
     """[N, 2K] with columns [cos | -sin]: x @ B -> [Re(X) | Im(X)]."""
     k = np.arange(nfft // 2 + 1, dtype=np.float64)
@@ -155,7 +154,7 @@ def _forward_basis(nfft: int) -> np.ndarray:
     return np.concatenate([np.cos(ang), -np.sin(ang)], axis=1).astype(np.float32)
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _inverse_basis(nfft: int) -> np.ndarray:
     """[2K, N]: [Re(X) | Im(X)] @ B -> x, with hermitian weights and 1/N."""
     kk = nfft // 2 + 1
@@ -171,7 +170,7 @@ def _inverse_basis(nfft: int) -> np.ndarray:
     return np.concatenate([cos_part, sin_part], axis=0).astype(np.float32)
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _windowed_forward_basis(nfft: int, window_bytes: bytes) -> np.ndarray:
     """The forward basis with the analysis window folded in:
     (x * w) @ B == x @ (diag(w) @ B)."""
@@ -182,7 +181,7 @@ def _windowed_forward_basis(nfft: int, window_bytes: bytes) -> np.ndarray:
     )
 
 
-@lru_cache(maxsize=8)
+@design_cache(8)
 def _dense_basis_on(nfft: int, window_bytes, inverse: bool,
                     device: torch.device) -> torch.Tensor:
     if inverse:
@@ -217,7 +216,7 @@ def irfft_matmul(spec: torch.Tensor, nfft: int) -> torch.Tensor:
     return torch.matmul(ri, _dense_basis_on(nfft, None, True, spec.device))
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _composed_roundtrip_basis(
     nfft: int,
     awin_bytes: bytes,
@@ -244,7 +243,7 @@ def _bytes(a, dtype) -> bytes:
     return np.ascontiguousarray(a, dtype).tobytes()
 
 
-@lru_cache(maxsize=8)
+@design_cache(8)
 def _composed_bt_on(nfft, awin_bytes, swin_bytes, response_bytes,
                     device: torch.device):
     """The composed basis as B0 takes it: transposed, TF32 hi and lo."""
@@ -282,7 +281,7 @@ def roundtrip_composed_matmul(
     return torch.matmul(frames.float(), torch.from_numpy(m).to(frames.device))
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _composed_block_kernel(
     nfft: int,
     hop: int,
@@ -329,7 +328,7 @@ def composed_block_supported(nfft: int, hop: int) -> bool:
     return blocked_group_for(nfft, hop) is not None
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _composed_block_kernel_grouped(
     nfft: int,
     hop: int,
@@ -370,7 +369,7 @@ def blocked_runtime_kernel(
     return kern, mg
 
 
-@lru_cache(maxsize=8)
+@design_cache(8)
 def _runtime_kernel_on(nfft, hop, group, awin_bytes, swin_bytes, rb_kern,
                        device: torch.device) -> torch.Tensor:
     kern, _ = blocked_runtime_kernel(
@@ -379,7 +378,7 @@ def _runtime_kernel_on(nfft, hop, group, awin_bytes, swin_bytes, rb_kern,
     return torch.from_numpy(kern).to(device)
 
 
-@lru_cache(maxsize=8)
+@design_cache(8)
 def _runtime_bt_on(nfft, hop, group, awin_bytes, swin_bytes, rb_kern,
                    device: torch.device) -> tuple:
     """The runtime kernel as B0 takes it: transposed [G*hop, mg*G*hop],
@@ -390,7 +389,7 @@ def _runtime_bt_on(nfft, hop, group, awin_bytes, swin_bytes, rb_kern,
     return tuple(torch.from_numpy(a).to(device) for a in tf32x3.split_t(kern))
 
 
-@lru_cache(maxsize=8)
+@design_cache(8)
 def _composed_basis_on(nfft, awin_bytes, swin_bytes, response_bytes,
                        device: torch.device) -> torch.Tensor:
     m = _composed_roundtrip_basis(nfft, awin_bytes, swin_bytes, response_bytes)
@@ -567,45 +566,48 @@ def roundtrip_composed_blocked(
     assert composed_block_supported(nfft, hop)
     assert num_frames >= 2 * (nfft // hop - 1)
     assert group >= 1
-    wb = _bytes(analysis_window_f64, np.float64)
-    sb = (
-        None if synthesis_window_f64 is None
-        else _bytes(synthesis_window_f64, np.float64)
-    )
-    rb = _bytes(per_bin_response, np.complex128)
     r_count = nfft // hop
     full = (num_frames - 1) * hop + nfft
     edge = (r_count - 1) * hop
-    rb_kern = rb
-    if norm_fold is not None:
-        rb_kern = _bytes(
-            np.asarray(per_bin_response, np.complex128) / norm_fold[0],
-            np.complex128,
+    dev = padded.device
+    with span("crlot.blocked.consts"):
+        wb = _bytes(analysis_window_f64, np.float64)
+        sb = (
+            None if synthesis_window_f64 is None
+            else _bytes(synthesis_window_f64, np.float64)
         )
-    kern = _runtime_kernel_on(nfft, hop, group, wb, sb, rb_kern, padded.device)
-    x = padded[..., :full].float()
-    out = hopblock_apply(
-        x, kern, group * hop, full, edge, precision,
-        _runtime_bt_on(nfft, hop, group, wb, sb, rb_kern, padded.device)
-        if padded.device.type != "cpu"
-        and float_tier(precision) == FftPrecision.HIGH
-        else None,
-    )
-    span_p = blocked_patch_span(nfft, hop)
-    head = blocked_edge_patch(x[..., :span_p], nfft, hop, wb, sb, rb, "head")
-    tail = blocked_edge_patch(
-        x[..., full - span_p : full], nfft, hop, wb, sb, rb, "tail"
-    )
-    if norm_fold is not None:
-        head = head / norm_fold[1]
-        tail = tail / norm_fold[2]
-    return torch.cat([head, out[..., edge : full - edge], tail], dim=-1)
+        rb = _bytes(per_bin_response, np.complex128)
+        rb_kern = rb
+        if norm_fold is not None:
+            rb_kern = _bytes(
+                np.asarray(per_bin_response, np.complex128) / norm_fold[0],
+                np.complex128,
+            )
+        kern = _runtime_kernel_on(nfft, hop, group, wb, sb, rb_kern, dev)
+        bt = (_runtime_bt_on(nfft, hop, group, wb, sb, rb_kern, dev)
+              if dev.type != "cpu"
+              and float_tier(precision) == FftPrecision.HIGH else None)
+    with span("crlot.blocked.b0"):
+        x = padded[..., :full].float()
+        out = hopblock_apply(x, kern, group * hop, full, edge, precision, bt)
+    with span("crlot.blocked.edges"):
+        span_p = blocked_patch_span(nfft, hop)
+        head = blocked_edge_patch(x[..., :span_p], nfft, hop, wb, sb, rb,
+                                  "head")
+        tail = blocked_edge_patch(
+            x[..., full - span_p : full], nfft, hop, wb, sb, rb, "tail"
+        )
+    with span("crlot.blocked.join"):
+        if norm_fold is not None:
+            head = head / norm_fold[1]
+            tail = tail / norm_fold[2]
+        return torch.cat([head, out[..., edge : full - edge], tail], dim=-1)
 
 
 # --- the tiled layout -------------------------------------------------------
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _tiled_consts(nfft: int):
     """(c512, s_eff, ci512, si_eff, cvec, alt, sign_h): the folded bases'
     [h, h] cores (h = N/2; [h-1, h-1] for the sine parts) and their rank-1
@@ -635,7 +637,7 @@ def tiled_supported(nfft: int) -> bool:
     return nfft % 256 == 0 and nfft <= MAX_MATMUL_NFFT
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _tiled_inverse_gained(nfft: int, gains_bytes: bytes):
     """The tiled inverse constants with a REAL per-bin gain g [h+1] folded
     into their rows in f64: (ci512_g, si_eff_g, cvec_g, g_nyq)."""
@@ -656,14 +658,14 @@ def _gains_bytes(per_bin_gains_f64) -> bytes:
     return np.ascontiguousarray(per_bin_gains_f64, np.float64).tobytes()
 
 
-@lru_cache(maxsize=16)
+@design_cache(16)
 def _tiled_consts_on(nfft: int, device: torch.device) -> tuple:
     """`_tiled_consts`' arrays as f32 tensors on `device` (sign_h a float)."""
     *arrays, sign_h = _tiled_consts(nfft)
     return (*(torch.from_numpy(a).to(device) for a in arrays), sign_h)
 
 
-@lru_cache(maxsize=16)
+@design_cache(16)
 def _tiled_gained_on(nfft: int, gains_bytes: bytes, device: torch.device):
     ci512_g, si_eff_g, cvec_g, g_nyq = _tiled_inverse_gained(nfft,
                                                              gains_bytes)
@@ -906,7 +908,7 @@ def _quad_inverse_f64(nfft: int, g: "np.ndarray | None"):
     return pe, po, qe, qo, pe_q, qo_q, cve, cvo, g_nyq
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _quad_consts(nfft: int):
     """Quarter-size DFT bases: one more exact symmetry fold than the
     folded bases. cos(2 pi k (h-n)/N) = (-1)^k cos(2 pi k n/N) (h = N/2),
@@ -943,7 +945,7 @@ def _quad_consts(nfft: int):
     )
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _quad_inverse_gained(nfft: int, gains_bytes: bytes):
     g = np.frombuffer(gains_bytes, dtype=np.float64)
     assert len(g) == nfft // 2 + 1
@@ -954,7 +956,7 @@ def _quad_inverse_gained(nfft: int, gains_bytes: bytes):
     )
 
 
-@lru_cache(maxsize=16)
+@design_cache(16)
 def _quad_on(nfft: int, gains_bytes, device: torch.device) -> dict:
     """The quad constants on `device`: each product's basis as (f32 tensor,
     its transposed TF32 halves for B0), the border vectors as tensors, and
@@ -1084,7 +1086,7 @@ def roundtrip_folded_quad(frames: torch.Tensor, nfft: int,
     return out
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _windowed_inverse_basis(nfft: int, window_bytes: bytes) -> np.ndarray:
     """The inverse basis with a synthesis window folded in (columns
     scaled)."""
@@ -1094,7 +1096,7 @@ def _windowed_inverse_basis(nfft: int, window_bytes: bytes) -> np.ndarray:
     return (base * w[None, :]).astype(np.float32)
 
 
-@lru_cache(maxsize=8)
+@design_cache(8)
 def _packed_bases_on(nfft: int, awin_bytes: bytes, swin_bytes,
                      device: torch.device) -> tuple:
     """The packed round-trip's two bases on `device`, each as (f32 tensor,

@@ -37,14 +37,14 @@ Branches of `round_trip` (names returned by `formulation_for`):
 
 from __future__ import annotations
 
-from functools import lru_cache
+import math
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from .core import device as _device
-from .core.consts import as_f32, const_on
+from .core.consts import as_f32, const_on, design_cache
 from .core.padding import pad_signal
 from .core.types import FftBackend, FftPrecision, StftConfig
 from .fft import dispatch as _fft
@@ -69,29 +69,33 @@ from .fft.int8_backend import roundtrip_folded_tiled_i8
 from .frame.framing import frame_signal
 from .ola.fused import ola_normalized_auto
 from .ola.norm import edge_norm
+from .profiling import span
 from .resample.polyphase import resample
 from .spectral import epilogue_of, resolve_per_bin_response
 from .window.windows import get_window
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _window_np(cfg: StftConfig) -> np.ndarray:
     return get_window(cfg.window, cfg.frame_size, cfg.periodic)
 
 
-@lru_cache(maxsize=None)
+@design_cache(None)
 def _window_f64(cfg: StftConfig) -> np.ndarray:
     return get_window(cfg.window, cfg.frame_size, cfg.periodic, dtype=np.float64)
 
 
-@lru_cache(maxsize=None)
+# Bounded as its callers' caches are: a norm is as long as its signal
+# (11.5 MB for a 60 s clip at 48 kHz), and a stream of clips of varying
+# length would otherwise keep one for every length it has seen.
+@design_cache(8)
 def _norm_np(cfg: StftConfig, num_frames: int, out_len: int) -> np.ndarray:
     w = _window_np(cfg).astype(np.float64)
     contrib = w * w if cfg.synthesis_window else w
     return edge_norm(contrib, cfg.hop_size, num_frames, out_len)
 
 
-@lru_cache(maxsize=8)
+@design_cache(8)
 def _norm_on(cfg: StftConfig, num_frames: int, out_len: int,
              device: torch.device) -> torch.Tensor:
     return as_f32(_norm_np(cfg, num_frames, out_len), device)
@@ -136,19 +140,25 @@ def istft(
     """`[..., F, nfft//2+1]` complex -> `[..., length]` real (default: the
     span an stft of that many frames covers, minus center padding)."""
     spec = _device.place(spec, device)
-    num_frames = spec.shape[-2]
-    frames = _fft.irfft(spec, cfg.frame_size, backend=cfg.fft_backend)
-    frames = _synthesis(frames, cfg)
     pad = cfg.frame_spec.pad_amount
-    full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
+    out = _istft_uncropped(spec, cfg)
     if length is None:
-        length = full - 2 * pad
-    norm = _norm_on(cfg, num_frames, full, frames.device)
-    out = ola_normalized_auto(frames, norm, cfg.hop_size, full, cfg.eps)
+        length = out.shape[-1] - 2 * pad
     return out[..., pad : pad + length]
 
 
-@lru_cache(maxsize=8)
+def _istft_uncropped(spec: torch.Tensor, cfg: StftConfig) -> torch.Tensor:
+    """`istft`'s overlap-added, normalized frames over their whole span,
+    the center padding included."""
+    num_frames = spec.shape[-2]
+    frames = _fft.irfft(spec, cfg.frame_size, backend=cfg.fft_backend)
+    frames = _synthesis(frames, cfg)
+    full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
+    norm = _norm_on(cfg, num_frames, full, frames.device)
+    return ola_normalized_auto(frames, norm, cfg.hop_size, full, cfg.eps)
+
+
+@design_cache(8)
 def blocked_norm_fold(cfg: StftConfig, num_frames: int):
     """(norm_arr, full, edge, fold_ok): fold_ok when the interior COLA sum
     is constant (to 1e-9 relative), so 1/norm folds into the blocked kernel
@@ -166,7 +176,7 @@ def blocked_norm_fold(cfg: StftConfig, num_frames: int):
     return norm_arr, full, edge, fold_ok
 
 
-@lru_cache(maxsize=8)
+@design_cache(8)
 def _norm_fold_on(cfg: StftConfig, num_frames: int, device: torch.device):
     """`roundtrip_composed_blocked`'s norm_fold for this geometry, or None
     when the interior norm is not constant."""
@@ -188,12 +198,14 @@ def blocked_composed_round_trip(
     num_frames >= 2*(N/hop - 1)."""
     spec_ = cfg.frame_spec
     num_frames = spec_.num_frames(signal.shape[-1])
-    w64 = _window_f64(cfg)
-    padded = pad_signal(
-        signal, spec_.pad_amount, spec_.pad_amount,
-        spec_.pad_mode, spec_.pad_value,
-    )
-    norm_fold = _norm_fold_on(cfg, num_frames, signal.device)
+    with span("crlot.blocked.pad"):
+        padded = pad_signal(
+            signal, spec_.pad_amount, spec_.pad_amount,
+            spec_.pad_mode, spec_.pad_value,
+        )
+    with span("crlot.blocked.consts"):
+        w64 = _window_f64(cfg)
+        norm_fold = _norm_fold_on(cfg, num_frames, signal.device)
     out = roundtrip_composed_blocked(
         padded, cfg.frame_size, cfg.hop_size, num_frames, w64,
         per_bin, w64 if cfg.synthesis_window else None,
@@ -207,7 +219,8 @@ def blocked_composed_round_trip(
         out = out / torch.clamp_min(
             _norm_on(cfg, num_frames, full, out.device), cfg.eps
         )
-    return out[..., pad : pad + signal.shape[-1]]
+    with span("crlot.round_trip.crop"):
+        return out[..., pad : pad + signal.shape[-1]]
 
 
 def _blocked_ok(cfg: StftConfig, n_samples: int) -> bool:
@@ -279,54 +292,79 @@ def round_trip(
     """stft -> (spectral processing) -> istft, output the length of the
     input. The identity round-trip must reconstruct at > 60 dB SNR. A
     tensor is processed on its own device; an array-like goes to `device`
-    (default "cuda", which raises without a card; "cpu" asks for the CPU)."""
-    signal = _device.place(signal, device)
+    (default "cuda", which raises without a card; "cpu" asks for the CPU).
+
+    While a profiler records, a call is the span `crlot.round_trip` (its
+    `route`, `rows` and `samples`, and the constants it built and kernels
+    it launched) over its stages: `crlot.round_trip.plan` (the route, and
+    the per-bin response on the "blocked" route, the window on the
+    others), the route's own stages and
+    `crlot.round_trip.crop` (`profiling.span`)."""
+    with span("crlot.round_trip") as call:
+        signal = _device.place(signal, device)
+        n = signal.shape[-1]
+        with span("crlot.round_trip.plan"):
+            route = formulation_for(cfg, spectral_fn, n)
+            if route == "blocked":
+                per_bin = resolve_per_bin_response(spectral_fn,
+                                                   cfg.frame_size)
+                if per_bin is None:
+                    per_bin = np.ones(cfg.frame_size // 2 + 1)
+            else:
+                w64 = _window_f64(cfg)
+        if call:
+            call.note(route=route, rows=math.prod(signal.shape[:-1]),
+                      samples=n)
+        if route == "blocked":
+            return blocked_composed_round_trip(signal, cfg, per_bin)
+        return _round_trip(signal, cfg, spectral_fn, route, w64)
+
+
+def _round_trip(signal: torch.Tensor, cfg: StftConfig, spectral_fn,
+                route: str, w64: np.ndarray) -> torch.Tensor:
+    """`round_trip` on `route`, every route but "blocked"."""
     n = signal.shape[-1]
-    route = formulation_for(cfg, spectral_fn, n)
     spec_ = cfg.frame_spec
     pad = spec_.pad_amount
+
+    def crop(out):
+        with span("crlot.round_trip.crop"):
+            return out[..., pad : pad + n]
 
     def ola_crop(out_frames, synthesized=False):
         """OLA + COLA normalize (B1 on CUDA) + center crop; the synthesis
         window is applied here unless the frames already carry it."""
         num_frames = out_frames.shape[-2]
         full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
-        out = ola_normalized_auto(
+        return crop(ola_normalized_auto(
             out_frames if synthesized else _synthesis(out_frames, cfg),
             _norm_on(cfg, num_frames, full, signal.device),
             cfg.hop_size, full, cfg.eps,
-        )
-        return out[..., pad : pad + n]
+        ))
 
     if route == "fused_rt_frames":
         padded = pad_signal(
             signal, pad, pad, spec_.pad_mode, spec_.pad_value
         )
         return ola_crop(roundtrip_frames_fused(
-            padded, cfg.frame_size, cfg.hop_size, spec_.num_frames(n),
-            _window_f64(cfg),
+            padded, cfg.frame_size, cfg.hop_size, spec_.num_frames(n), w64,
         ))
-    if route == "blocked":
-        per_bin = resolve_per_bin_response(spectral_fn, cfg.frame_size)
-        if per_bin is None:
-            per_bin = np.ones(cfg.frame_size // 2 + 1)
-        return blocked_composed_round_trip(signal, cfg, per_bin)
     if route == "fused_rt_ola":
         num_frames = spec_.num_frames(n)
-        padded = pad_signal(
-            signal, pad, pad, spec_.pad_mode, spec_.pad_value
-        )
+        with span("crlot.fused_rt.pad"):
+            padded = pad_signal(
+                signal, pad, pad, spec_.pad_mode, spec_.pad_value
+            )
         full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
-        out = roundtrip_signal_fused(
-            padded, cfg.frame_size, cfg.hop_size, num_frames,
-            _window_f64(cfg), _norm_on(cfg, num_frames, full, signal.device),
+        with span("crlot.fused_rt.consts"):
+            norm = _norm_on(cfg, num_frames, full, signal.device)
+        return crop(roundtrip_signal_fused(
+            padded, cfg.frame_size, cfg.hop_size, num_frames, w64, norm,
             cfg.eps, spectral_packed=spectral_fn.packed,
-        )
-        return out[..., pad : pad + n]
+        ))
     if route in ("composed", "folded"):
         # Both apply the synthesis window themselves (composed: folded into
         # its matrix).
-        w64 = _window_f64(cfg)
         syn = w64 if cfg.synthesis_window else None
         frames = frame_signal(signal, spec_)
         if route == "composed":
@@ -341,8 +379,7 @@ def round_trip(
     if route in ("tiled_i8", "tiled"):
         rt = (roundtrip_folded_tiled_i8 if route == "tiled_i8"
               else roundtrip_folded_tiled)
-        return ola_crop(rt(frame_signal(signal, spec_), cfg.frame_size,
-                           _window_f64(cfg)))
+        return ola_crop(rt(frame_signal(signal, spec_), cfg.frame_size, w64))
     if route == "packed_parts":
         frames = frame_signal(signal, spec_)
         re, im = rfft_folded_packed(frames, cfg.frame_size, _window_np(cfg))
@@ -351,4 +388,4 @@ def round_trip(
     spec = stft(signal, cfg)
     if spectral_fn is not None:
         spec = spectral_fn(spec)
-    return istft(spec, cfg, length=n)
+    return crop(_istft_uncropped(spec, cfg))

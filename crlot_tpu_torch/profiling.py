@@ -8,23 +8,36 @@ first op that makes a NaN (the reference's `jax_debug_nans`),
 the card's published peaks. `PipelineTraffic` and `roundtrip_traffic` are
 the reference's traffic model, copied: pure arithmetic.
 
+The program's stages are spans (`span`): while a `torch.profiler` records
+(`trace()`, or any profiler of the caller's), each is a range on the
+trace's host timeline, on the clock of the card's events, and a record in `span_log()` with its host time and the
+counts of its call; otherwise a span is one flag read. `idle_by_span`
+charges the card's idle time in a trace to the program's stages.
+
     python -m crlot_tpu_torch.profiling   # environment and roofline, as JSON
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
+import functools
+import itertools
 import json
 import math
 import os
 import platform
 import subprocess
 import tempfile
+import threading
+import time
+from collections import defaultdict, deque
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Iterator, NamedTuple, Optional
+from typing import Callable, Iterator, NamedTuple, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
@@ -171,6 +184,255 @@ def trace(log_dir: Optional[str] = None) -> Iterator[torch.profiler.profile]:
         prof.stop()
         os.makedirs(log_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+# --- spans ------------------------------------------------------------------
+
+SPAN_PREFIX = "crlot."  # every span's name starts so
+OUTSIDE = "outside the program"  # idle_by_span's name for no span
+LOG_CALLS = 1024  # span_log keeps the spans of this many entry calls
+
+
+class SpanRecord(NamedTuple):
+    """One closed span. `call` is shared by every span of one entry call
+    (the outermost span open on its thread); `parent` is the enclosing
+    span's `id`, None for the entry span; `start_ns` and `end_ns` are
+    `time.perf_counter_ns()` read inside the profiler's range, so that the
+    span's own bookkeeping lies outside them; `attrs` holds the attributes
+    given and the change of each count over the span (an entry span's:
+    `const_builds`, the design constants built, and `launches`, the
+    hand-written kernels launched, by kernel)."""
+
+    call: int
+    id: int
+    parent: Optional[int]
+    name: str
+    start_ns: int
+    end_ns: int
+    attrs: dict
+
+
+@functools.lru_cache(maxsize=None)
+def _counters() -> tuple:
+    """(const_builds, launch_counts), imported on first use: the modules
+    that hold the counts import this one."""
+    from .bench.launches import launch_counts
+    from .core.consts import const_builds
+
+    return const_builds, launch_counts
+
+
+def _entry_counts() -> dict:
+    const_builds, launch_counts = _counters()
+    return {"const_builds": const_builds(), "launches": launch_counts()}
+
+
+def _change(before: dict, after: dict) -> dict:
+    """after - before, count by count; of a table of counts by name, the
+    names whose count moved."""
+    out = {}
+    for key, v in after.items():
+        if isinstance(v, dict):
+            was = before[key]
+            out[key] = {} if v == was else {
+                k: c - was.get(k, 0) for k, c in v.items()
+                if c != was.get(k, 0)}
+        else:
+            out[key] = v - before[key]
+    return out
+
+
+class _Off:
+    """A span while no profiler records: nothing happens."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def __bool__(self) -> bool:
+        return False
+
+    def note(self, **attrs) -> None:
+        pass
+
+
+_OFF = _Off()
+_open = threading.local()  # .stack: the spans open on this thread
+_ids = itertools.count()
+_calls = itertools.count()
+_log: deque = deque(maxlen=LOG_CALLS)  # a list of records an entry call
+
+
+class _Span:
+    __slots__ = ("name", "counts", "attrs", "call", "id", "parent",
+                 "records", "before", "start", "_range")
+
+    def __init__(self, name: str, counts, attrs: dict) -> None:
+        self.name, self.counts, self.attrs = name, counts, attrs
+
+    def _read(self) -> dict:
+        out = _entry_counts() if self.parent is None else {}
+        if self.counts is not None:
+            out.update(self.counts())
+        return out
+
+    def __enter__(self):
+        # The profiler's own light range, as an operator is recorded:
+        # `torch.profiler.record_function` records the same interval as a
+        # user annotation, with a copy on the card's timeline, at several
+        # times the host time, which a traced step spends with the card
+        # waiting.
+        self._range = torch._C._profiler._RecordFunctionFast(self.name)
+        self._range.__enter__()
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        if stack:
+            up = stack[-1]
+            self.call, self.parent, self.records = up.call, up.id, up.records
+        else:
+            self.call, self.parent, self.records = next(_calls), None, []
+        self.id = next(_ids)
+        stack.append(self)
+        self.before = self._read()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def note(self, **attrs) -> None:
+        """Add attributes known only inside the span."""
+        self.attrs.update(attrs)
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        self.attrs.update(_change(self.before, self._read()))
+        _open.stack.pop()
+        self.records.append(SpanRecord(self.call, self.id, self.parent,
+                                       self.name, self.start, end,
+                                       self.attrs))
+        if self.parent is None:
+            _log.append(self.records)
+        self._range.__exit__(*exc)
+        return False
+
+
+def span(name: str, counts: Optional[Callable[[], dict]] = None, **attrs):
+    """A stage of the program, as a context manager.
+
+    While a `torch.profiler` records, the stage is a range named `name` on
+    the trace's host timeline (the kernels launched inside it are linked
+    to it) and, on exit, a `SpanRecord` in `span_log()` with `attrs`
+    and the change over the span of each count `counts()` returns (a
+    number, or a table of numbers by name). Otherwise it does nothing: one
+    flag read, the same shared object every time. The object entered has
+    `note(**attrs)` for attributes known only inside the span, and is
+    false when off, so that `if call: call.note(...)` builds attributes
+    only for a span that records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, counts, attrs)
+
+
+def span_log() -> list:
+    """The `SpanRecord`s of the last `LOG_CALLS` entry calls made while a
+    profiler recorded, oldest call first, a call's spans in the order they
+    opened."""
+    return [r for call in list(_log)
+            for r in sorted(call, key=lambda r: r.id)]
+
+
+def _union(intervals, lo: float, hi: float) -> list:
+    """The union of (start, end) intervals clipped to [lo, hi], merged and
+    in order."""
+    out = []
+    for s, e in sorted((max(s, lo), min(e, hi)) for s, e in intervals):
+        if e <= s:
+            continue
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def self_ns(records) -> dict:
+    """{id: self time in ns} of `SpanRecord`s: each span's duration less
+    the part of it that its children cover."""
+    kids = defaultdict(list)
+    for r in records:
+        if r.parent is not None:
+            kids[r.parent].append((r.start_ns, r.end_ns))
+    return {r.id: r.end_ns - r.start_ns - sum(
+        e - s for s, e in _union(kids.get(r.id, ()), r.start_ns, r.end_ns))
+        for r in records}
+
+
+def _innermost(spans: list, lo: float, hi: float) -> list:
+    """[lo, hi] cut at every span boundary into (start, end, name): the
+    innermost span open over each piece (the latest started; of two that
+    started together, the first to end), `OUTSIDE` where none is."""
+    order = sorted(spans, key=lambda sp: sp[1])
+    points = sorted({lo, hi} | {t for _, s, e in spans for t in (s, e)
+                                if lo < t < hi})
+    k, out, active = 0, [], []
+    for a, b in zip(points, points[1:]):
+        while k < len(order) and order[k][1] <= a:
+            active.append(order[k])
+            k += 1
+        active = [sp for sp in active if sp[2] > a]
+        name = (max(active, key=lambda sp: (sp[1], -sp[2]))[0]
+                if active else OUTSIDE)
+        out.append((a, b, name))
+    return out
+
+
+def idle_split(device: list, spans: list, lo: float, hi: float) -> dict:
+    """{name: seconds} of [lo, hi] (microseconds) in which no `device`
+    event ran, each moment charged to the innermost of `spans` open then,
+    or to `OUTSIDE`. Both are lists of (name, start_us, end_us); a gap is
+    split over its whole length, wherever its pieces fall."""
+    t = lo
+    idle = []
+    for s, e in _union([(s, e) for _, s, e in device], lo, hi):
+        if s > t:
+            idle.append((t, s))
+        t = max(t, e)
+    if hi > t:
+        idle.append((t, hi))
+    pieces = _innermost(spans, lo, hi)
+    ends = [p[1] for p in pieces]
+    out = defaultdict(float)
+    for g0, g1 in idle:
+        for s, e, name in pieces[bisect.bisect_right(ends, g0):]:
+            if s >= g1:
+                break
+            out[name] += (min(e, g1) - max(s, g0)) * 1e-6
+    return dict(out)
+
+
+def idle_by_span(prof) -> dict:
+    """Why the card was idle: {span name: seconds} of the finished
+    profiler `prof` in which no operation ran on the card, each moment
+    charged to the innermost program span the host was inside then, and
+    `OUTSIDE` ("outside the program") where it was in none. Over the
+    profile's first event to its last (`idle_split` takes any other
+    stretch). The card's mirrors of host ranges are not work."""
+    cpu = torch.autograd.DeviceType.CPU
+    dev, spans, ends = [], [], []
+    for e in prof.events():
+        item = (e.name, float(e.time_range.start), float(e.time_range.end))
+        ends += item[1:]
+        if e.device_type == cpu:
+            if e.name.startswith(SPAN_PREFIX):
+                spans.append(item)
+        elif not getattr(e, "is_user_annotation", False):
+            dev.append(item)
+    if not ends:
+        return {}
+    return idle_split(dev, spans, min(ends), max(ends))
 
 
 class _NanCheck(TorchDispatchMode):

@@ -29,14 +29,13 @@ tensor stays on its own device. No environment knob is read.
 from __future__ import annotations
 
 import logging
-from functools import lru_cache
 from typing import Optional
 
 import numpy as np
 import torch
 
 from .core import device as _device
-from .core.consts import as_f32, const_on
+from .core.consts import as_f32, const_on, design_cache
 from .core.types import FftBackend, FftPrecision, StftConfig, float_tier
 from .fft import dispatch as _fft
 from .fft import tf32x3
@@ -80,7 +79,7 @@ def _resolve_blocked_per_bin(cfg: StftConfig, spectral_fn) -> Optional[bytes]:
     return np.ascontiguousarray(per_bin, np.complex128).tobytes()
 
 
-@lru_cache(maxsize=16)
+@design_cache(16)
 def _blocked_stream_consts(cfg: StftConfig, rb: bytes) -> dict:
     """Design-time constants of the blocked chunk program, identical to
     what `pipeline.blocked_composed_round_trip` builds for any stream
@@ -126,7 +125,7 @@ def _blocked_stream_consts(cfg: StftConfig, rb: bytes) -> dict:
     }
 
 
-@lru_cache(maxsize=8)
+@design_cache(8)
 def _blocked_consts_on(cfg: StftConfig, rb: bytes, device: torch.device):
     c = _blocked_stream_consts(cfg, rb)
     tile = c["interior_norm_tile"]
@@ -380,7 +379,7 @@ def _frames_round_trip(frames: torch.Tensor, cfg: StftConfig,
     return _synthesis(_fft.irfft(spec, n, backend=cfg.fft_backend), cfg)
 
 
-@lru_cache(maxsize=8)
+@design_cache(8)
 def _stream_norm_on(cfg: StftConfig, length: int, device: torch.device):
     """The steady-state (full-coverage) COLA norm of `length` samples,
     eps-clamped, float32 on `device`."""
