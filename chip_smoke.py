@@ -41,7 +41,12 @@ Phases (each prints one line; the script exits 1 if any fails):
      overlap; prints how many frames it left out (fails above 0.1 %) and
      whether the worst sample lies in one. (Products may be summed in
      another order; the center padding divides by the near-zero edge norm,
-     and every caller crops it.)
+     and every caller crops it.) Then the gate batch of
+     `multich64.denoise_resident` (64 channels x 60 s, the GEMMs in
+     clusters of 2 row blocks): one channel of it torch.equal to the
+     channel alone and, over its first 100 hops, to its first 100 frames
+     alone (a cluster of 1); each GEMM's device time there and the TF32
+     rate it issues.
   3. round_trip identity ("blocked", one B0 launch): SNR vs input >= 60 dB.
   4. round_trip with a 3-band band_gain ("blocked", one B0 launch): the
      first 1 s against a float64 numpy STFT * g * iSTFT oracle, SNR >= 80
@@ -52,7 +57,10 @@ Phases (each prints one line; the script exits 1 if any fails):
   7. B3 (fused round-trip frames) vs plain for the identity and the three
      fns of phase 2, on the centered signal ([2, 11251, 1024] frames): SNR
      >= 100 dB, and max-abs <= 1e-5 against the plain version on the card
-     and on the host CPU outside the ambiguous frames (as phase 2).
+     and on the host CPU outside the ambiguous frames (as phase 2); the
+     gate batch's channel hold of phase 2 on the frames; the library's
+     launch plan (`crlot_rt_plan`) equal to `fused_rt.gemm_plan` at 56
+     shapes.
   8. round_trip with cfg.fused_roundtrip ("fused_rt_frames"): SNR vs input
      >= 60 dB, B3 and B1 launched.
   9. sharded_round_trip with noise_gate(-30), center=False, T = 2879488
@@ -728,6 +736,39 @@ def main() -> int:
             f"{'equal, its overlap-add not' if frames_same else 'differ'}) "
             f"and is left out (ROADMAP C16)")
 
+    # The gate batch of `multich64.denoise_resident`: 64 channels x 60 s a
+    # call, whose GEMMs run in clusters of 2 row blocks. Channel ALONE of
+    # it must equal, bit for bit, the channel computed alone (clusters of 2
+    # at other row offsets) and its first SHORT frames alone (one row
+    # block: a cluster of 1).
+    from crlot_tpu_torch.profile_paths import _device_events
+
+    BATCH, ALONE, SHORT = 64, 5, 100
+    g64 = torch.Generator(device=dev).manual_seed(SEED)
+    padded64 = pad_signal(
+        torch.rand((BATCH, n), generator=g64, device=dev) * 2 - 1, pad, pad,
+        spec_.pad_mode).contiguous()
+    one64 = padded64[ALONE:ALONE + 1].contiguous()
+    short64 = padded64[ALONE:ALONE + 1, :(SHORT - 1) * HOP + NFFT].contiguous()
+
+    def batch_hold(got, alone, short, upto, what):
+        """Channel ALONE of the batch's `got` against `alone` and, over its
+        first `upto` entries, against `short`."""
+        rows = (b2.gemm_plan(BATCH * n_frames, NFFT).cluster,
+                b2.gemm_plan(n_frames, NFFT).cluster,
+                b2.gemm_plan(SHORT, NFFT).cluster)
+        check(rows[2] == 1 < rows[1], f"clusters {rows}")
+        check(torch.equal(got[ALONE], alone[0]),
+              f"{what}: channel {ALONE} of the {BATCH}-channel call != the "
+              f"channel alone")
+        check(torch.equal(got[ALONE, :upto], short[0, :upto]),
+              f"{what}: channel {ALONE} of the {BATCH}-channel call != its "
+              f"first {SHORT} frames alone")
+        return (f"{what}: channel {ALONE} of {BATCH} x 60 s (clusters of "
+                f"{rows[0]}) torch.equal to the channel alone (clusters of "
+                f"{rows[1]}) and to its first {SHORT} frames alone (a "
+                f"cluster of {rows[2]})")
+
     # 2. B2 vs plain.
     def p2():
         worst, lines = 0.0, []
@@ -769,6 +810,46 @@ def main() -> int:
             check(err <= 1e-5 and snr >= 100.0 and err_f64 <= 1e-5
                   and err_host <= 1e-5 and left <= 1e-3 * n_rows, lines[-1])
         results["b2_err"] = worst
+        gate = fns["noise_gate(-30)"].packed
+
+        def b2_call(p, frames_):
+            return b2.roundtrip_signal_cuda(p, NFFT, HOP, frames_, w32, norm,
+                                            cfg.eps, p.shape[-1], gate)
+
+        got = b2_call(padded64, n_frames)
+        lines.append(batch_hold(got, b2_call(one64, n_frames),
+                                b2_call(short64, SHORT), SHORT * HOP,
+                                "B2 signal"))
+        del got
+        # Each GEMM's device time at the gate batch (torch.profiler), and
+        # the TF32 rate it issues: rows and columns padded to whole tiles,
+        # the k8 steps the plan runs, 2 accumulators x 3 passes x 2 FLOP.
+        plan = b2.gemm_plan(BATCH * n_frames, NFFT)
+        steps = 4 * (plan.k_stages - 1) + plan.k_last
+        b2_call(padded64, n_frames)
+        sync()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                b2_call(padded64, n_frames)
+            sync()
+        events = _device_events(prof)
+        for inverse, cb in zip(("false", "true"), plan.col_blocks):
+            t_ms = sum(us for name, (_, us) in events.items()
+                       if "rt_gemm_kernel" in name and inverse in name
+                       ) / REPS / 1e3
+            check(t_ms > 0, f"no rt_gemm_kernel<{inverse}> in the trace")
+            flop = (plan.row_blocks * b2.GEMM_ROWS * cb * b2.GEMM_COLS * 8
+                    * steps * 12)
+            key = "b2_gemm_inverse" if inverse == "true" else "b2_gemm_forward"
+            results[key + "_ms"] = t_ms
+            results[key + "_tflops"] = flop / t_ms / 1e9
+            lines.append(
+                f"time rt_gemm_kernel<{inverse}> at {BATCH} x 60 s: "
+                f"{t_ms:.4f} ms, {flop / t_ms / 1e9:.1f} TFLOP/s TF32 issued "
+                f"({flop / 1e12:.3f} TFLOP; clusters of {plan.cluster}, "
+                f"{plan.stage_bytes} L2 bytes a CTA stage; torch.profiler, "
+                f"mean of {REPS})")
         return "; ".join(lines)
 
     phase("2 B2 vs plain", p2)
@@ -874,9 +955,32 @@ def main() -> int:
                      f"{err:.3e} vs plain on the host CPU")
         check(err <= 1e-5, lines[-1])
         results["b3_err"] = worst
+        gate = fns["noise_gate(-30)"].packed
+
+        def b3_call(p, frames_):
+            return b2.roundtrip_frames_cuda(p, NFFT, HOP, frames_, w32, gate)
+
+        lines.append(batch_hold(b3_call(padded64, n_frames),
+                                b3_call(one64, n_frames),
+                                b3_call(short64, SHORT), SHORT, "B3 frames"))
+        # The library's plan (crlot_rt_plan) is fused_rt.gemm_plan.
+        import ctypes
+
+        lib = cuda_build.load_library()
+        got = (ctypes.c_int * 6)()
+        for rows in (1, 127, 128, 129, 511, 512, 11251, BATCH * n_frames):
+            for nfft in (4, 8, 256, 512, 1024, 2048, 4096):
+                check(lib.crlot_rt_plan(rows, nfft, got) == 0, "plan refused")
+                pl = b2.gemm_plan(rows, nfft)
+                want = (pl.cluster, pl.stage_bytes, pl.k_last, pl.row_groups,
+                        *pl.col_blocks)
+                check(tuple(got) == want, f"crlot_rt_plan({rows}, {nfft}) "
+                      f"{tuple(got)} != gemm_plan's {want}")
+        lines.append("crlot_rt_plan == gemm_plan at 56 shapes")
         return "; ".join(lines)
 
     phase("7 B3 vs plain", p7)
+    del padded64, one64, short64
 
     # The fused-frames and sharded path, counters reset just before.
     cfg_frames = dataclasses.replace(cfg, fused_roundtrip=True)

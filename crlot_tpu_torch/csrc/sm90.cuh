@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the TMA + wgmma kernels (b6_sm90.cu,
-// fused_rt.cu): mbarriers, TMA loads and stores, the 128-byte-swizzle
-// operand descriptor, wgmma (int8, bf16 and the 3xTF32 products), the
-// tensor-map encoder and the setmaxnreg register check.
+// fused_rt.cu): mbarriers, TMA loads and stores, cluster multicast loads
+// and remote arrivals, the 128-byte-swizzle operand descriptor, wgmma
+// (int8, bf16 and the 3xTF32 products), the tensor-map encoder and the
+// setmaxnreg register check.
 //
 // 3xTF32. wgmma's .tf32 operands keep 10 of an f32's 23 mantissa bits. An
 // f32 a is split as hi = tf32(a) and lo = tf32(a - hi) (both rounded to
@@ -111,6 +112,38 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// --- clusters --------------------------------------------------------------
+
+// tma_load_2d multicast: one read from L2 lands at the same CTA-relative
+// offset `dst` in every CTA of the cluster whose bit is set in `mask`, and
+// completes its bytes on the barrier at offset `bar` in each of them.
+__device__ __forceinline__ void tma_load_2d_multicast(
+    uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0, int c1,
+    uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5}], [%2], %3;\n"
+      :: "r"(dst), "l"((uint64_t)map), "r"(bar), "h"(mask), "r"(c0), "r"(c1)
+      : "memory");
+}
+// One arrival on the barrier at CTA-relative offset `bar` of CTA `rank` of
+// the cluster (this CTA's own included), with bar_arrive's release at CTA
+// scope: it orders this thread's reads of the stage (a cluster-scope
+// release would also wait for its global stores).
+__device__ __forceinline__ void bar_arrive_cluster(uint32_t bar,
+                                                   uint32_t rank) {
+  asm volatile(
+      "{\n .reg .b32 remote;\n"
+      " mapa.shared::cluster.u32 remote, %0, %1;\n"
+      " mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      :: "r"(bar), "r"(rank) : "memory");
+}
+// Until every thread of the cluster that has not exited gets here.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n"
+               "barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // A K-major operand tile in shared memory as TMA's 128-byte swizzle leaves
 // it: rows of 128 bytes, 8-row groups 1024 bytes apart (the stride byte
 // offset), layout type 1 = SWIZZLE_128B. Tile bases are 1024-byte aligned;
@@ -128,6 +161,10 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Until all but the last committed group are done.
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 // Keeps the compiler from moving accumulator accesses across a wgmma wait.
 template <int R>
@@ -168,6 +205,13 @@ __device__ __forceinline__ uint32_t tf32_rna(float a) {
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
   return r;
 }
+// tf32_rna's bits from two integer operations, in place of a cvt on the
+// slower conversion unit: the magnitude rounded half away from zero at bit
+// 13 (the sign stays), carrying into the exponent as the rounding does;
+// the same bits for every finite or infinite a.
+__device__ __forceinline__ uint32_t tf32_rna_int(float a) {
+  return (__float_as_uint(a) + 0x1000u) & 0xFFFFE000u;
+}
 
 // The 3xTF32 A fragments of k step k (8 TF32, 32 bytes) of warpgroup wg's 64
 // rows, from a 128-row x 128-byte tile that TMA's 128-byte swizzle left in
@@ -176,6 +220,8 @@ __device__ __forceinline__ uint32_t tf32_rna(float a) {
 // of the step in rows 16w + g and 16w + g + 8: a[0] (g, t), a[1] (g + 8,
 // t), a[2] (g, t + 4), a[3] (g + 8, t + 4), the same 32-bit words as the
 // 8-bit layout's. A warp's 32 loads of one q fall on 32 distinct banks.
+// kInt: round with tf32_rna_int.
+template <bool kInt = false>
 __device__ __forceinline__ void tf32_frags(const uint8_t* tile, int wg,
                                            int tid, int k,
                                            uint32_t (&hi)[4],
@@ -187,8 +233,9 @@ __device__ __forceinline__ void tf32_frags(const uint8_t* tile, int wg,
     const int b = 32 * k + 16 * (q >> 1) + 4 * t;  // byte in the row
     const float a = *reinterpret_cast<const float*>(
         tile + r * 128 + (((b >> 4) ^ (r & 7)) << 4) + (b & 15));
-    hi[q] = tf32_rna(a);
-    lo[q] = tf32_rna(__fsub_rn(a, __uint_as_float(hi[q])));
+    hi[q] = kInt ? tf32_rna_int(a) : tf32_rna(a);
+    const float rest = __fsub_rn(a, __uint_as_float(hi[q]));
+    lo[q] = kInt ? tf32_rna_int(rest) : tf32_rna(rest);
   }
 }
 

@@ -53,6 +53,8 @@ _SIGNATURES = {
         _VP, _LL, _LL, _LL, _VP, *[_VP] * 8, _VP, _I, _VP,
         _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP,
     ],
+    # (rows, nfft, out[6]): the GEMMs' plan, fft/fused_rt.py's gemm_plan
+    "crlot_rt_plan": [_LL, _I, _VP],
     # (x, t_in, u, nc, span, taps_t, offsets, out, channels, n_out, l, m,
     #  tp, w, tau_min, h0, j, r, wc, seg_floats, stream)
     "crlot_resample": [

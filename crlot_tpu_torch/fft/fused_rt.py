@@ -29,6 +29,8 @@ epilogue menu). A failure inside a kernel raises; nothing falls back.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -67,6 +69,46 @@ _MENU = {
     OP_GATE: (2, 0),
     OP_SUBTRACT: (2, 1),
 }
+
+
+class GemmPlan(NamedTuple):
+    """How `crlot_rt_frames` launches its two GEMMs (`csrc/fused_rt.cu`'s
+    `rt_shape` and `crlot_rt_plan`): a function of the frame rows and N
+    alone. A tile is `GEMM_ROWS` rows x `GEMM_COLS` columns; a stage holds
+    `GEMM_K` floats of the contraction."""
+
+    cluster: int  # CTAs sharing one multicast load: row blocks, one column block
+    stage_bytes: int  # L2 bytes a CTA loads a stage: A tiles, its basis share
+    k_stages: int  # contraction stages
+    k_last: int  # k8 steps of the last stage that hold bins (1 to 4)
+    row_blocks: int
+    row_groups: int  # ceil(row_blocks / cluster): a cluster's row blocks
+    col_blocks: tuple  # (forward, inverse)
+
+
+GEMM_ROWS, GEMM_COLS, GEMM_K = 128, 64, 32
+
+
+def gemm_plan(rows: int, nfft: int) -> GemmPlan:
+    """The GEMMs' plan for `rows` frame rows at N = `nfft`: clusters of 2
+    row blocks, of 1 under 2. Each CTA loads its two A tiles (2 x 16 KB a
+    stage) and 1 / cluster of the four 8 KB basis tiles, which the
+    multicast delivers to the whole cluster."""
+    kp = padded_bins(nfft)
+    k_stages = -(-kp // GEMM_K)
+    row_blocks = -(-rows // GEMM_ROWS)
+    cluster = 2 if row_blocks >= 2 else 1
+    a_bytes = GEMM_ROWS * GEMM_K * 4
+    b_bytes = GEMM_COLS * GEMM_K * 4
+    return GemmPlan(
+        cluster=cluster,
+        stage_bytes=2 * a_bytes + 4 * b_bytes // cluster,
+        k_stages=k_stages,
+        k_last=(kp - (k_stages - 1) * GEMM_K) // 8,
+        row_blocks=row_blocks,
+        row_groups=-(-row_blocks // cluster),
+        col_blocks=(-(-kp // GEMM_COLS), -(-(nfft // 2 + 1) // GEMM_COLS)),
+    )
 
 
 def fused_rt_supported(nfft: int, hop: int) -> bool:
@@ -436,7 +478,7 @@ def roundtrip_signal_fused(
     with span("crlot.fused_rt.consts"):
         w32 = const_on(analysis_window_f64, padded.device)
         norm = norm.to(device=padded.device, dtype=torch.float32)
-    with span("crlot.fused_rt.kernels"):
+    with span("crlot.fused_rt.kernels") as call:
         if padded.device.type == "cpu":
             return roundtrip_signal_plain(
                 padded.float(), nfft, hop, n_frames, w32, norm, eps, out_len,
@@ -444,6 +486,9 @@ def roundtrip_signal_fused(
             )
         lead = padded.shape[:-1]
         flat = padded.reshape(-1, padded.shape[-1]).float().contiguous()
+        if call:
+            plan = gemm_plan(flat.shape[0] * n_frames, nfft)
+            call.note(cluster=plan.cluster, stage_bytes=plan.stage_bytes)
         out = roundtrip_signal_cuda(
             flat, nfft, hop, n_frames, w32, norm.contiguous(), eps, out_len,
             spectral_packed,

@@ -28,8 +28,10 @@ from crlot_tpu.pipeline import round_trip as j_round_trip
 import crlot_tpu_torch as pt
 from crlot_tpu_torch import spectral as tsp
 from crlot_tpu_torch.convert import config_from_reference, spectral_from_reference
+from crlot_tpu_torch.fft import fused_rt
 from crlot_tpu_torch.fft.fused_rt import (
     fused_rt_supported,
+    gemm_plan,
     pack_epilogue,
     roundtrip_signal_fused as t_fused,
 )
@@ -230,3 +232,99 @@ def test_b2_support_gate_matches_reference():
     for nfft in (256, 512, 768, 1024, 2048):
         for hop in (64, 128, 192, 256, 341, 512):
             assert fused_rt_supported(nfft, hop) == j_supported(nfft, hop)
+
+
+# --- the GEMMs' launch plan (csrc/fused_rt.cu's rt_shape) -------------------
+
+PLAN_N = (4, 8, 256, 512, 1024, 2048, 4096)
+PLAN_ROWS = (1, 127, 128, 129, 511, 512, 11251, 720064)
+
+
+def _tiles(plan, col_blocks, clusters):
+    """[T, 2] (row block, column block) of every tile that the kernel's
+    persistent loop stores with `clusters` clusters resident: cluster `cid`
+    takes cluster tiles cid, cid + clusters, ...; cluster tile t is row
+    group t // col_blocks at column block t % col_blocks, and CTA `rank` of
+    the cluster takes that group's row block `rank`, storing nothing past
+    the last row block."""
+    out = []
+    for cid in range(clusters):
+        t = np.arange(cid, plan.row_groups * col_blocks, clusters)
+        for rank in range(plan.cluster):
+            rb = (t // col_blocks) * plan.cluster + rank
+            keep = rb < plan.row_blocks
+            out.append(np.stack([rb[keep], t[keep] % col_blocks], -1))
+    return np.concatenate(out)
+
+
+@pytest.mark.parametrize("nfft", PLAN_N)
+@pytest.mark.parametrize("rows", PLAN_ROWS)
+def test_gemm_plan_covers_every_tile_once(nfft, rows):
+    plan = gemm_plan(rows, nfft)
+    assert plan.row_blocks == -(-rows // 128)
+    assert 1 <= plan.cluster <= plan.row_blocks
+    assert plan.cluster == min(2, plan.row_blocks)
+    kp = fused_rt.padded_bins(nfft)
+    cols = (kp, nfft // 2 + 1)  # the forward's and the inverse's columns
+    for cb, n_cols in zip(plan.col_blocks, cols):
+        assert (cb - 1) * 64 < n_cols <= cb * 64
+        for clusters in (1, 3, 32, 33):  # the cards' resident clusters vary
+            got = _tiles(plan, cb, clusters)
+            ids = got[:, 0] * cb + got[:, 1]
+            assert len(ids) == plan.row_blocks * cb
+            assert np.array_equal(np.sort(ids),
+                                  np.arange(plan.row_blocks * cb))
+
+
+@pytest.mark.parametrize("nfft", PLAN_N)
+def test_gemm_plan_last_stage_issues_the_steps_with_bins(nfft):
+    """The k8 steps issued cover Kp, and Kp's last 8 floats hold a bin."""
+    plan = gemm_plan(720064, nfft)
+    kp, k = fused_rt.padded_bins(nfft), nfft // 2 + 1
+    steps = 4 * (plan.k_stages - 1) + plan.k_last
+    assert 1 <= plan.k_last <= 4
+    assert 8 * steps == kp
+    assert 8 * (steps - 1) < k <= 8 * steps
+    assert (plan.k_stages - 1) * 32 < kp <= plan.k_stages * 32
+
+
+def test_gemm_plan_at_the_gate_batch():
+    plan = gemm_plan(64 * 11251, 1024)
+    assert plan == fused_rt.GemmPlan(
+        cluster=2, stage_bytes=48 * 1024, k_stages=17, k_last=1,
+        row_blocks=5626, row_groups=2813, col_blocks=(9, 9))
+
+
+@pytest.mark.parametrize("rows,cluster,stage_kb", [
+    (128, 1, 64), (129, 2, 48), (511, 2, 48), (11251, 2, 48)])
+def test_gemm_plan_stage_bytes(rows, cluster, stage_kb):
+    """Two 16 KB A tiles of the CTA's own and 1 / cluster of the four 8 KB
+    basis tiles from L2 a stage."""
+    plan = gemm_plan(rows, 1024)
+    assert (plan.cluster, plan.stage_bytes) == (cluster, stage_kb * 1024)
+
+
+@pytest.mark.parametrize("channels,samples,cluster", [
+    (1, 20000, 1), (1, 48000, 2), (64, 48000, 2)])
+def test_kernels_span_records_the_gemm_plan(monkeypatch, channels, samples,
+                                            cluster):
+    """Under a fake launch, the `crlot.fused_rt.kernels` span of a gate
+    call carries the GEMMs' cluster and L2 bytes a CTA stage."""
+    from crlot_tpu_torch import cuda_build, profiling
+
+    launched = []
+    monkeypatch.setattr(cuda_build, "launch",
+                        lambda name, device, *a: launched.append(name))
+    monkeypatch.setattr(cuda_build, "require_cuda", lambda what, *t: None)
+    cfg = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=True)
+    x = torch.empty((channels, samples), device="meta")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        pt.round_trip(x, cfg, tsp.noise_gate(-45.0))
+    assert "crlot_rt_frames" in launched
+    rec = [r for r in profiling.span_log()
+           if r.name == "crlot.fused_rt.kernels"][-1]
+    plan = gemm_plan(channels * cfg.frame_spec.num_frames(samples), NFFT)
+    assert plan.cluster == cluster
+    assert (rec.attrs["cluster"], rec.attrs["stage_bytes"]) == (
+        cluster, plan.stage_bytes)
