@@ -109,17 +109,22 @@ def _fold_frames(y: torch.Tensor, nfft: int):
     return even, odd
 
 
-def rfft_folded_packed(x: torch.Tensor, nfft: int, window_f32=None):
-    """rfft(x [* window]) -> (Re [..., K], Im [..., K]) via two half-size
-    products."""
-    c, s, _, _ = folded_consts_on(nfft, x.device)
+def fold_windowed(x: torch.Tensor, nfft: int, window_f32=None):
+    """x [* window] [..., N] -> the folded halves (even [..., N/2+1], odd
+    [..., N/2-1]) that the forward products take."""
     y = x.float()
     if window_f32 is not None:
         w = (window_f32.to(x.device, torch.float32)
              if isinstance(window_f32, torch.Tensor)
              else const_on(window_f32, x.device))
         y = y * w
-    even, odd = _fold_frames(y, nfft)
+    return _fold_frames(y, nfft)
+
+
+def folded_forward(even: torch.Tensor, odd: torch.Tensor, c: torch.Tensor,
+                   s: torch.Tensor):
+    """The folded halves -> (Re [..., K], Im [..., K]): two half-size
+    products on `folded_consts_on`'s C and S."""
     re = torch.matmul(even, c)
     if s.shape[0]:
         im = torch.matmul(odd, s)
@@ -128,13 +133,12 @@ def rfft_folded_packed(x: torch.Tensor, nfft: int, window_f32=None):
     return re, im
 
 
-def irfft_folded_parts(re: torch.Tensor, im: torch.Tensor,
-                       nfft: int) -> torch.Tensor:
+def folded_inverse(re: torch.Tensor, im: torch.Tensor, cinv: torch.Tensor,
+                   sinv: torch.Tensor) -> torch.Tensor:
     """(Re, Im) [..., K] -> real [..., N] (1/N included): two half-size
-    products and an unfold."""
-    _, _, cinv, sinv = folded_consts_on(nfft, re.device)
+    products on `folded_consts_on`'s Cinv and Sinv, and the unfold."""
     a = torch.matmul(re.float(), cinv)
-    h = nfft // 2
+    h = cinv.shape[1] - 1
     if sinv.shape[1]:
         b = torch.matmul(im.float(), sinv)
         mid = a[..., 1:h]
@@ -143,6 +147,21 @@ def irfft_folded_parts(re: torch.Tensor, im: torch.Tensor,
             dim=-1,
         )
     return a  # nfft == 2: output is [x0, x1] = [A0, A1]
+
+
+def rfft_folded_packed(x: torch.Tensor, nfft: int, window_f32=None):
+    """rfft(x [* window]) -> (Re [..., K], Im [..., K]) via two half-size
+    products."""
+    c, s, _, _ = folded_consts_on(nfft, x.device)
+    return folded_forward(*fold_windowed(x, nfft, window_f32), c, s)
+
+
+def irfft_folded_parts(re: torch.Tensor, im: torch.Tensor,
+                       nfft: int) -> torch.Tensor:
+    """(Re, Im) [..., K] -> real [..., N] (1/N included): two half-size
+    products and an unfold."""
+    _, _, cinv, sinv = folded_consts_on(nfft, re.device)
+    return folded_inverse(re, im, cinv, sinv)
 
 
 @design_cache(None)

@@ -57,8 +57,10 @@ from .fft.matmul_backend import (
     MAX_MATMUL_NFFT,
     blocked_group_for,
     composed_block_supported,
-    irfft_folded_parts,
-    rfft_folded_packed,
+    fold_windowed,
+    folded_consts_on,
+    folded_forward,
+    folded_inverse,
     roundtrip_composed_blocked,
     roundtrip_composed_matmul,
     roundtrip_folded_matmul,
@@ -295,8 +297,9 @@ def round_trip(
     (default "cuda", which raises without a card; "cpu" asks for the CPU).
 
     While a profiler records, a call is the span `crlot.round_trip` (its
-    `route`, `rows` and `samples`, and the constants it built and kernels
-    it launched) over its stages: `crlot.round_trip.plan` (the route, and
+    `route`, `rows` and `samples`, the constants it built and kernels it
+    launched, and on "packed_parts" `frame_bytes`, `packed_frame_bytes`)
+    over its stages: `crlot.round_trip.plan` (the route, and
     the per-bin response on the "blocked" route, the window on the
     others), the route's own stages and
     `crlot.round_trip.crop` (`profiling.span`)."""
@@ -313,8 +316,10 @@ def round_trip(
             else:
                 w64 = _window_f64(cfg)
         if call:
-            call.note(route=route, rows=math.prod(signal.shape[:-1]),
-                      samples=n)
+            rows = math.prod(signal.shape[:-1])
+            call.note(route=route, rows=rows, samples=n)
+            if route == "packed_parts":
+                call.note(frame_bytes=packed_frame_bytes(cfg, rows, n))
         if route == "blocked":
             return blocked_composed_round_trip(signal, cfg, per_bin)
         return _round_trip(signal, cfg, spectral_fn, route, w64)
@@ -381,11 +386,56 @@ def _round_trip(signal: torch.Tensor, cfg: StftConfig, spectral_fn,
               else roundtrip_folded_tiled)
         return ola_crop(rt(frame_signal(signal, spec_), cfg.frame_size, w64))
     if route == "packed_parts":
-        frames = frame_signal(signal, spec_)
-        re, im = rfft_folded_packed(frames, cfg.frame_size, _window_np(cfg))
-        re, im = spectral_fn.packed(re, im)
-        return ola_crop(irfft_folded_parts(re, im, cfg.frame_size))
+        return crop(_packed_parts(signal, cfg, spectral_fn))
     spec = stft(signal, cfg)
     if spectral_fn is not None:
         spec = spectral_fn(spec)
     return crop(_istft_uncropped(spec, cfg))
+
+
+def packed_frame_bytes(cfg: StftConfig, rows: int, n_samples: int) -> int:
+    """The bytes of the frame-sized float32 tensors that the "packed_parts"
+    route writes in a call of `rows` x `n_samples`, from the shapes: every
+    [rows, F, *] output of the route's own passes (the windowed frames, the
+    fold's flip, sum, cat and difference, the forward products, the inverse
+    products, the unfold's sum, difference, flip and cat, and the synthesis
+    window's product where there is one) and the two planes the spectral
+    fn returns (its own temporaries are the fn's, and not counted)."""
+    n, h = cfg.frame_size, cfg.frame_size // 2
+    widths = (
+        n + (h - 1) + (h - 1) + (h + 1) + (h - 1)  # window, fold
+        + 2 * (h + 1)                              # forward products
+        + 2 * (h + 1)                              # the fn's Re, Im
+        + (h + 1) + (h - 1) + 3 * (h - 1) + n      # inverse, unfold
+        + (n if cfg.synthesis_window else 0)
+    )
+    return 4 * rows * cfg.frame_spec.num_frames(n_samples) * widths
+
+
+def _packed_parts(signal: torch.Tensor, cfg: StftConfig,
+                  spectral_fn) -> torch.Tensor:
+    """round_trip's "packed_parts" route up to the crop: the folded forward
+    products, `spectral_fn.packed`, the folded inverse products, then B1's
+    OLA and normalize, each stage a span."""
+    spec_ = cfg.frame_spec
+    nfft, hop = cfg.frame_size, cfg.hop_size
+    num_frames = spec_.num_frames(signal.shape[-1])
+    full = (num_frames - 1) * hop + nfft
+    with span("crlot.packed.consts"):
+        c, s, cinv, sinv = folded_consts_on(nfft, signal.device)
+        window = const_on(_window_np(cfg), signal.device)
+        norm = _norm_on(cfg, num_frames, full, signal.device)
+    with span("crlot.packed.fold"):
+        parts = fold_windowed(frame_signal(signal, spec_), nfft, window)
+    with span("crlot.packed.forward") as fwd:
+        if fwd:
+            fwd.note(frames=math.prod(signal.shape[:-1]) * num_frames,
+                     bins=nfft // 2 + 1)
+        parts = folded_forward(*parts, c, s)
+    with span("crlot.packed.fn"):
+        parts = spectral_fn.packed(*parts)
+    with span("crlot.packed.inverse"):
+        frames = folded_inverse(*parts, cinv, sinv)
+    with span("crlot.packed.ola"):
+        return ola_normalized_auto(_synthesis(frames, cfg), norm, hop, full,
+                                   cfg.eps)

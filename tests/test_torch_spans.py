@@ -77,6 +77,9 @@ STAGES = {
                 "crlot.blocked.edges", "crlot.blocked.join"],
     "fused_rt_ola": ["crlot.fused_rt.pad", "crlot.fused_rt.consts",
                      "crlot.fused_rt.consts", "crlot.fused_rt.kernels"],
+    "packed_parts": ["crlot.packed.consts", "crlot.packed.fold",
+                     "crlot.packed.forward", "crlot.packed.fn",
+                     "crlot.packed.inverse", "crlot.packed.ola"],
 }
 
 
