@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from `crlot_tpu_torch/csrc/` (nvcc, sm_90a),
 holds each kernel against its plain PyTorch version on the card, then runs
-eleven paths through the public entry points, each with the kernels' launch
+twelve paths through the public entry points, each with the kernels' launch
 counters reset just before and read just after: on 2 channels x 60 s at
 48 kHz, N=1024 / H=256, Hann, seed 0, the round-trip path (`round_trip`,
 `stft`, `istft`; centered) and the fused-frames and sharded path
@@ -22,9 +22,11 @@ the multi-process path (`dryrun`, two ranks through `initialize`,
 conv and packed formulations); and the tooling path (the native host
 runtime `io/native.py`, `python -m crlot_tpu_torch.bench.suite`,
 `bench.stages`, `bench.regression` with `bench.probes`, and the eight
-`python -m crlot_tpu_torch.examples.<name>`); and the frames-level routes
+`python -m crlot_tpu_torch.examples.<name>`); the frames-level routes
 (`round_trip`'s "folded" and "composed", and the packed products the
-reference keeps for an odd N).
+reference keeps for an odd N); and the large frames (`round_trip`'s
+"packed_parts" at N 2048 and 4096 on B2's kernels launched one by one).
+`python3 chip_smoke.py --large-frames` runs the last path alone.
 
 Phases (each prints one line; the script exits 1 if any fails):
   1. B1 (fused OLA + normalize) vs plain on [2, 11251, 1024] frames, and
@@ -379,6 +381,21 @@ sum|x||k| of plain (`KernelHold`):
      Then each case's CUDA-event time (median of 10, queued) beside the
      `stft_istft` route it replaces (at N = 1323: frames, `torch.fft`, B1),
      in turns, outside the counts.
+Then the large frames, with the split path's and B1's counters reset just
+before, on the cell `large4096.gate_tracks`'s configuration, gate and
+tones (16 ch x 3 s at 44.1 kHz):
+ 50. `round_trip`'s "packed_parts" route at N 2048 and 4096, hop N/4. At
+     HIGH the split path (B2's fold pass, forward GEMM and inverse GEMM
+     launched one by one, the gate in torch between them): every launch
+     held against plain on its own operands (`SplitHold`: the fold
+     torch.equal, each GEMM within 2^-18 of sum|a||b|), exactly one of
+     each a call, max-abs <= 1e-5 against the plain split path outside
+     the frames whose gate decision the kernel's and the plain spectrum
+     flip (at most 5 % of them), and err_rel / peak_rel within the cell's
+     limits against `portbench/reference/stft64.py`'s float64 round trip;
+     at HIGHEST no launch of the split path, the same limits. Then, at the
+     cell's full 16 x 200 s, each kernel's CUDA-event time with the TF32
+     rate the GEMMs issue and the DFT's bound, and the whole call's.
 Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
 busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
@@ -1123,6 +1140,7 @@ def main() -> int:
     path9 = multiprocess_path(dev, phase, check, failures, x_np)
     path10 = tooling_path(dev, phase, check, failures, x_np, path6)
     path11 = routes_path(dev, phase, check, failures, x, x_np)
+    large_frames_path(dev, phase, check, failures)
 
     # Timings.
     def e2e_rate(fn, samples=2 * n):
@@ -1240,7 +1258,7 @@ def main() -> int:
     # does four products per frame: 4 * frames * (N/2 + 1) * N * 2 / 2.
     from crlot_tpu_torch.resample import kernel as b4
 
-    tf32_bases = b2._kernel_bases_on(NFFT, dev)
+    tf32_bases = b2.kernel_bases_on(NFFT, dev)
     dft_ops = 4.0 * 2 * n_frames * (NFFT // 2 + 1) * NFFT
     # B2 and B3: 3 TF32 products per f32 product; beside it, the bound of
     # the same f32 products on the FMA pipe (the former design's).
@@ -5505,6 +5523,316 @@ def routes_path(dev, phase, check, failures, x, x_np) -> dict:
     return out
 
 
+# Phase 50: the "packed_parts" route at large frames (BASELINE config 2),
+# the cell `large4096.gate_tracks`'s configuration and tones at N 2048 and
+# 4096, hop N/4: LARGE_ROWS channels of LARGE_SECONDS a call.
+LARGE_N = (2048, 4096)
+LARGE_ROWS, LARGE_SECONDS = 16, 3
+LARGE_SEED = 2 ** 31 + 50
+# The frames whose gate decision the kernel's and the plain version's
+# rounding flip (C12) are left out of the comparison with the plain split
+# path; a share above this means a wrong spectrum, not rounding.
+LARGE_FLIPPED = 0.05
+
+
+class SplitHold:
+    """Every launch of the split path's three kernels while the context is
+    open (`fused_rt.packed_fold_cuda`, `packed_forward_cuda`,
+    `packed_inverse_cuda`), held at once against its plain version on its
+    own operands: the fold torch.equal to `packed_fold_plain`; the forward
+    GEMM within tf32x3.REL_TOL of sum |a||b| of `packed_forward_plain`
+    per output; the inverse within REL_TOL of the two products' sum
+    |a||b| (each unfolded sample adds two), plus 2^-23 of the sample for
+    the f32 adds, of `packed_inverse_plain`. No gate runs inside a launch,
+    so no frame is left out here."""
+
+    def __init__(self, check):
+        from crlot_tpu_torch.fft import fused_rt, tf32x3
+
+        self.rt, self.b0, self.check = fused_rt, tf32x3, check
+        self.held = {"fold": 0, "forward": 0, "inverse": 0}
+        self.worst = {"forward": 0.0, "inverse": 0.0}
+
+    def _scale(self, a, hi, lo):
+        import torch
+
+        return torch.matmul(a.abs(), (hi + lo).abs().T)
+
+    def __enter__(self):
+        import torch
+
+        rt = self.rt
+        self.orig = fold, fwd, inv = (rt.packed_fold_cuda,
+                                      rt.packed_forward_cuda,
+                                      rt.packed_inverse_cuda)
+
+        def fold_spy(padded, nfft, hop, n_frames, window_f32):
+            e, o = fold(padded, nfft, hop, n_frames, window_f32)
+            we, wo = rt.packed_fold_plain(padded, nfft, hop, n_frames,
+                                          window_f32)
+            self.check(torch.equal(e, we) and torch.equal(o, wo),
+                       f"fold N {nfft} {list(padded.shape)}: not bit-exact")
+            self.held["fold"] += 1
+            return e, o
+
+        def fwd_spy(e, o, nfft, bases):
+            re, im = fwd(e, o, nfft, bases)
+            wre, wim = rt.packed_forward_plain(e, o, bases)
+            rel = max(
+                float(((got - want).abs()
+                       / self._scale(a, hi, lo).clamp_min(1e-30)).max())
+                for got, want, a, hi, lo in ((re, wre, e, *bases[:2]),
+                                             (im, wim, o, *bases[2:])))
+            self.worst["forward"] = max(self.worst["forward"], rel)
+            self.check(rel <= self.b0.REL_TOL,
+                       f"forward N {nfft}, {e.shape[0]} rows: {rel:.3e} of "
+                       f"sum|a||b| (bound {self.b0.REL_TOL:.3e})")
+            self.held["forward"] += 1
+            return re, im
+
+        def inv_spy(re, im, nfft, bases):
+            out = inv(re, im, nfft, bases)
+            want = rt.packed_inverse_plain(re, im, nfft, bases)
+            sa, sb = (self._scale(re, *bases[:2]),
+                      self._scale(im, *bases[2:]))
+            h = nfft // 2
+            scale = torch.cat([sa[:, : h + 1] + sb[:, : h + 1],
+                               (sa[:, 1:h] + sb[:, 1:h]).flip(-1)], -1)
+            err = (out - want).abs() - 2.0 ** -23 * want.abs()
+            rel = float((err / scale.clamp_min(1e-30)).max())
+            self.worst["inverse"] = max(self.worst["inverse"], rel)
+            self.check(rel <= self.b0.REL_TOL,
+                       f"inverse N {nfft}, {re.shape[0]} rows: {rel:.3e} of "
+                       f"sum|a||b| (bound {self.b0.REL_TOL:.3e})")
+            self.held["inverse"] += 1
+            return out
+
+        rt.packed_fold_cuda, rt.packed_forward_cuda = fold_spy, fwd_spy
+        rt.packed_inverse_cuda = inv_spy
+        return self
+
+    def __exit__(self, *exc):
+        (self.rt.packed_fold_cuda, self.rt.packed_forward_cuda,
+         self.rt.packed_inverse_cuda) = self.orig
+
+    def summary(self) -> str:
+        return (f"held against plain: fold x{self.held['fold']} torch.equal, "
+                f"forward x{self.held['forward']} (worst "
+                f"{self.worst['forward']:.3e} of sum|a||b|), inverse "
+                f"x{self.held['inverse']} (worst {self.worst['inverse']:.3e}"
+                f"), bound {self.b0.REL_TOL:.3e}")
+
+
+def large_frames_path(dev, phase, check, failures) -> dict:
+    """Phase 50, with the split path's and B1's counters reset just
+    before: `round_trip`'s "packed_parts" route on the cell
+    `large4096.gate_tracks`'s configuration, gate and tones
+    (LARGE_ROWS x LARGE_SECONDS a call) at N 2048 and 4096, hop N/4. At
+    HIGH: each launch held against plain (`SplitHold`), exactly one fold,
+    one forward and one inverse launch a call, the output within the
+    plain split path's (3xTF32 as the kernels split it) max-abs 1e-5
+    outside the frames whose gate decision the two spectra flip (C12; at
+    most LARGE_FLIPPED of them), and within the cell's limits of
+    `portbench/reference/stft64.py`'s float64 round trip. At HIGHEST: no
+    launch of the split path, the same limits. Then, outside the counts,
+    at the cell's full shape (16 x 200 s, N 4096): each kernel's CUDA-event
+    time with its TF32 rate and bound, and the whole call's."""
+    import torch
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch import pipeline, spectral
+    from crlot_tpu_torch.bench.launches import uncounted
+    from crlot_tpu_torch.core.padding import pad_signal
+    from crlot_tpu_torch.fft import fused_rt as rt
+    from crlot_tpu_torch.ola import fused as b1
+    from crlot_tpu_torch.timing import cuda_ms
+    from portbench import drive, signals
+    from portbench.reference import stft64
+
+    cell = json.loads((ROOT / "portbench/configs/large4096.json").read_text())
+    mix = json.loads((ROOT / "portbench/traffic/gate_tracks.json").read_text())
+    limits = json.loads(
+        (ROOT / "portbench/limits/large4096.gate_tracks.json").read_text())
+    sr = cell["sample_rate"]
+    g = torch.Generator(device=dev).manual_seed(LARGE_SEED)
+    x = signals.make(mix["signal"], LARGE_ROWS, LARGE_SECONDS * sr, sr, g,
+                     dev)
+    out = {"results": {}, "timings": {}}
+    for k in rt.packed_launches:
+        rt.packed_launches[k] = 0
+    b1.launches = 0
+    hold = SplitHold(check)
+
+    def flipped_frames(padded, nfft, f, w32, fn):
+        """[C, f] bool: the frames holding a bin that the gate decides one
+        way on the forward GEMM's spectrum and the other on the plain
+        version's, of the same fold (ROADMAP C12: rounding, not a fault);
+        the launch made here is not counted."""
+        (op,) = spectral.epilogue_of(fn)
+        thresh = float(op.scalars[0])
+        bases = rt.kernel_bases_on(nfft, dev)
+        k = nfft // 2 + 1
+        e, o = rt.packed_fold_plain(padded, nfft, nfft // 4, f, w32)
+        with uncounted():
+            got = rt.packed_forward_cuda(e, o, nfft, bases[:4])
+        want = rt.packed_forward_plain(e, o, bases[:4])
+        keep = [((re * re + im * im) >= thresh)[:, :k]
+                for re, im in (got, want)]
+        return (keep[0] != keep[1]).any(-1).view(padded.shape[0], f)
+
+    def p50():
+        lines = []
+        calls = 0
+        for nfft in LARGE_N:
+            config = {**cell, "frame_size": nfft, "hop_size": nfft // 4}
+            cfg = drive.port_config(config)
+            fn = drive.port_spectral(mix["spectral"], config)
+            check(pt.formulation_for(cfg, fn, x.shape[-1]) == "packed_parts",
+                  f"N {nfft}: route")
+            check(rt.packed_engine(cfg.fft_precision, dev) == "rt_gemm",
+                  f"N {nfft}: engine")
+            before = dict(rt.packed_launches)
+            with hold:
+                y = pt.round_trip(x, cfg, fn)
+                torch.cuda.synchronize(dev)
+            calls += 1
+            got = {k: rt.packed_launches[k] - before[k] for k in before}
+            check(got == {"fold": 1, "forward": 1, "inverse": 1},
+                  f"N {nfft}: launches {got}")
+            # Against the plain split path outside the ambiguous frames.
+            spec_ = cfg.frame_spec
+            f = spec_.num_frames(x.shape[-1])
+            pad = spec_.pad_amount
+            padded = pad_signal(x, pad, pad, spec_.pad_mode).contiguous()
+            w32 = torch.from_numpy(
+                pipeline._window_np(cfg).astype("float32")).to(dev)
+            frames = rt.packed_frames_plain(padded, nfft, nfft // 4, f, w32,
+                                            fn.packed)
+            full = (f - 1) * (nfft // 4) + nfft
+            norm = pipeline._norm_on(cfg, f, full, dev)
+            want = b1.ola_normalized_plain(frames, norm, nfft // 4, full,
+                                           cfg.eps)[..., pad : pad + x.shape[-1]]
+            mask = flipped_frames(padded, nfft, f, w32, fn)
+            cover = rt.frames_cover(mask, nfft // 4, nfft, padded.shape[-1])
+            keep = ~cover[..., pad : pad + x.shape[-1]]
+            err = float((y - want).abs()[keep].max())
+            left = int(mask.sum())
+            check(err <= 1e-5, f"N {nfft}: max-abs {err:.3e} from the plain "
+                  f"split path outside {left} flipped frames")
+            check(left <= LARGE_FLIPPED * mask.numel(),
+                  f"N {nfft}: {left} of {mask.numel()} frames flipped")
+            ref = stft64.RoundTrip(config, mix["spectral"], dev)
+            r = stft64.clip_round_trip(ref, x, cfg.center)
+            c = stft64.compare(y, r)
+            check(c["err_rel"] <= limits["err_rel"]["limit"]
+                  and c["peak_rel"] <= limits["peak_rel"]["limit"],
+                  f"N {nfft} HIGH: {c} against the float64 reference")
+            # HIGHEST keeps torch.matmul.
+            cfg_hi = drive.port_config({**config, "precision": "highest"})
+            check(rt.packed_engine(cfg_hi.fft_precision, dev) == "matmul",
+                  f"N {nfft}: HIGHEST's engine")
+            before = dict(rt.packed_launches)
+            y_hi = pt.round_trip(x, cfg_hi, fn)
+            torch.cuda.synchronize(dev)
+            calls += 1
+            check(rt.packed_launches == before,
+                  f"N {nfft}: HIGHEST launched the split path")
+            c_hi = stft64.compare(y_hi, r)
+            check(c_hi["err_rel"] <= limits["err_rel"]["limit"]
+                  and c_hi["peak_rel"] <= limits["peak_rel"]["limit"],
+                  f"N {nfft} HIGHEST: {c_hi} against the float64 reference")
+            out["results"][nfft] = {"high": c, "highest": c_hi,
+                                    "plain_max_abs": err, "ambiguous": left,
+                                    "frames": mask.numel()}
+            lines.append(
+                f"N {nfft}: HIGH err_rel {c['err_rel']:.3e} peak_rel "
+                f"{c['peak_rel']:.3e}, HIGHEST {c_hi['err_rel']:.3e} / "
+                f"{c_hi['peak_rel']:.3e} (limits "
+                f"{limits['err_rel']['limit']:g} / "
+                f"{limits['peak_rel']['limit']:g}); max-abs {err:.3e} from "
+                f"the plain split path outside {left} flipped frames of "
+                f"{mask.numel()}")
+        check(b1.launches == calls, f"B1 launches {b1.launches}, {calls} "
+              "calls")
+        lines.append(hold.summary())
+        lines.append(f"launches {dict(rt.packed_launches)}, B1 "
+                     f"{b1.launches}")
+        return "; ".join(lines)
+
+    phase("50 large frames on packed_parts (the split path)", p50)
+    out["counts"] = dict(rt.packed_launches)
+    try:
+        with uncounted():
+            out["timings"] = large_frames_timings(dev, cell, mix, cuda_ms)
+    except Exception as e:
+        failures.append("timings (large frames)")
+        log(f"FAIL timings (large frames): {type(e).__name__}: {e}")
+    return out
+
+
+def large_frames_timings(dev, cell, mix, cuda_ms) -> dict:
+    """At the cell's full shape (its channels x samples, N 4096, hop 1024):
+    each split-path kernel's CUDA-event time (median of REPS, queued) with
+    the TF32 rate its products issue (3 passes of 2 accumulators over the
+    tiles of `fused_rt.gemm_plan`) and its bound at the TF32 peak; the
+    fold's bytes over HBM; then the whole `round_trip` call."""
+    import torch
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch import pipeline
+    from crlot_tpu_torch.core.padding import pad_signal
+    from crlot_tpu_torch.fft import fused_rt as rt
+    from portbench import drive, signals
+
+    cfg = drive.port_config(cell)
+    fn = drive.port_spectral(mix["spectral"], cell)
+    nfft, hop = cfg.frame_size, cfg.hop_size
+    rows_c, n = cell["channels"], cell["samples"]
+    g = torch.Generator(device=dev).manual_seed(LARGE_SEED + 1)
+    x = signals.make(mix["signal"], rows_c, n, cell["sample_rate"], g, dev)
+    spec_ = cfg.frame_spec
+    f = spec_.num_frames(n)
+    rows = rows_c * f
+    pad = spec_.pad_amount
+    padded = pad_signal(x, pad, pad, spec_.pad_mode).contiguous()
+    w32 = torch.from_numpy(pipeline._window_np(cfg).astype("float32")).to(dev)
+    bases = rt.kernel_bases_on(nfft, dev)
+    e, o = rt.packed_fold_cuda(padded, nfft, hop, f, w32)
+    re, im = rt.packed_forward_cuda(e, o, nfft, bases[:4])
+    plan = rt.gemm_plan(rows, nfft)
+    kp = rt.padded_bins(nfft)
+    t = {}
+    for key, call in (
+            ("fold", lambda: rt.packed_fold_cuda(padded, nfft, hop, f, w32)),
+            ("forward", lambda: rt.packed_forward_cuda(e, o, nfft,
+                                                       bases[:4])),
+            ("inverse", lambda: rt.packed_inverse_cuda(re, im, nfft,
+                                                       bases[4:])),
+            ("round_trip", lambda: pt.round_trip(x, cfg, fn))):
+        queued, per_call = cuda_ms(call, REPS)
+        t[key] = per_call if queued is None else queued
+    # The TF32 operations the tiles issue: 128 rows x 64 columns a tile, the
+    # issued k8 steps, 2 accumulators, 3 passes, 2 flop a MAC.
+    k_issued = 8 * (4 * (plan.k_stages - 1) + plan.k_last)
+    dft = 4.0 * rows * (nfft // 2 + 1) * (nfft // 2) * 2  # N^2 MACs a frame
+    for key, cb in (("forward", plan.col_blocks[0]),
+                    ("inverse", plan.col_blocks[1])):
+        issued = plan.row_blocks * 128 * cb * 64 * k_issued * 2 * 3 * 2
+        t[key + "_tflops"] = issued / (t[key] / 1e3) / 1e12
+        t[key + "_bound_ms"] = 3 * dft / 2 / PEAK_OPS["tf32"] * 1e3
+    fold_bytes = padded.numel() * 4 + 2 * rows * kp * 4
+    t["fold_bound_ms"] = fold_bytes / HBM_BPS * 1e3
+    log(f"time large frames at the cell's shape ({rows_c} x {n}, N {nfft}, "
+        f"{rows} frames; CUDA events, median of {REPS}, queued): fold "
+        f"{t['fold']:.3f} ms (bound {t['fold_bound_ms']:.3f}, "
+        f"{fold_bytes / 1e9:.2f} GB), forward GEMM {t['forward']:.3f} ms "
+        f"({t['forward_tflops']:.1f} TFLOP/s of TF32 issued; the DFT's "
+        f"bound {t['forward_bound_ms']:.3f} ms), inverse GEMM "
+        f"{t['inverse']:.3f} ms ({t['inverse_tflops']:.1f} TFLOP/s; bound "
+        f"{t['inverse_bound_ms']:.3f}), round_trip {t['round_trip']:.3f} ms")
+    return t
+
+
 def _oracle(x_np, gains_f64, cfg, span=SR):
     """float64 numpy STFT * g * iSTFT (center, reflect padding) of the first
     `span` samples of each row of x_np. Frames touching t < span lie inside
@@ -5558,7 +5886,49 @@ def multihost(nproc: int) -> int:
     return 0
 
 
+def large_frames() -> int:
+    """`python3 chip_smoke.py --large-frames`: phase 50 alone, with its
+    timings; exits 1 if it fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from crlot_tpu_torch import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log(f"nvidia-smi: {smi()}")
+    cuda_build.load_library()
+    log(f"kernel build: {cuda_build.build_seconds:.2f} s")
+    failures = []
+
+    def phase(name, fn):
+        try:
+            msg = fn()
+            torch.cuda.synchronize()
+            log(f"PASS {name}: {msg}")
+        except Exception as e:
+            failures.append(name)
+            log(f"FAIL {name}: {type(e).__name__}: {e}")
+
+    def check(cond, what):
+        if not cond:
+            raise AssertionError(what)
+
+    large_frames_path(torch.device("cuda", 0), phase, check, failures)
+    log(f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if failures:
+        log(f"chip_smoke: failed: {failures}")
+        return 1
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--large-frames"]:
+        sys.exit(large_frames())
     if sys.argv[1:2] == ["--multihost-child"]:
         sys.exit(multihost_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--multihost"]:

@@ -41,6 +41,7 @@ def launch_counts() -> Dict[str, int]:
             "B3": fused_rt.frames_launches, "B4": b4.launches,
             "K4": b5["axpy"], "K5": b5["axpy_windowed"],
             "K6": b5["normalize_and_clear"],
+            **{f"B2_{k}": v for k, v in fused_rt.packed_launches.items()},
             **{f"B6_{k}": v for k, v in b6.items()}}
 
 
@@ -52,6 +53,8 @@ def set_launch_counts(counts: Dict[str, int]) -> None:
     fused_rt.frames_launches, b4.launches = counts["B3"], counts["B4"]
     b5.launches.update(axpy=counts["K4"], axpy_windowed=counts["K5"],
                        normalize_and_clear=counts["K6"])
+    for k in fused_rt.packed_launches:
+        fused_rt.packed_launches[k] = counts[f"B2_{k}"]
     for k in int8_gemm.launches:
         int8_gemm.launches[k] = counts[f"B6_{k}"]
 

@@ -6,7 +6,10 @@
 // pallas_rt.py::_rt_ola_kernel. One call, crlot_rt_frames, runs three
 // kernels on the frames of a signal (frame f of channel c starts at c *
 // ch_stride + f * frame_stride; samples at or past the channel's lp read as
-// 0.0, the zero padding the Pallas caller applies):
+// 0.0, the zero padding the Pallas caller applies). Each also has an entry
+// of its own (crlot_rt_fold, crlot_rt_forward, crlot_rt_inverse) for a
+// caller that runs a step of its own between the GEMMs: round_trip's
+// "packed_parts" route, whose spectral fn runs in torch on Re, Im.
 //
 //   1. rt_fold_kernel: frame -> window -> fold, into e [rows, Kp] and o
 //      [rows, Kp]: e[n] = y[n] + y[N-n], o[n] = y[n] - y[N-n] (y = x * w;
@@ -505,6 +508,27 @@ int launch_gemm(const float* a0, const float* a1, const float* const* b,
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
+// The checks every entry makes on the frame rows and N.
+bool rows_ok(long long rows, int nfft) {
+  return nfft >= 4 && nfft % 2 == 0 && rows >= 1 &&
+         rows <= (1ll << 31) - 1 - kBM;
+}
+
+template <bool kInverse>
+int gemm_entry(const float* a0, const float* a1, const float* const* b,
+               const int* desc, int n_ops, const float* params, float* out0,
+               float* out1, long long rows, int nfft, void* stream) {
+  if (!rows_ok(rows, nfft)) return (int)cudaErrorInvalidValue;
+  int device;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  const int status = prepare_gemm<kInverse>(device);
+  if (status != 0) return status;
+  return launch_gemm<kInverse>(a0, a1, b, desc, n_ops, params, out0, out1,
+                               rt_shape(rows, nfft), device,
+                               (cudaStream_t)stream);
+}
+
 }  // namespace
 
 // The GEMMs' plan of `rows` frame rows at N = nfft, as crlot_rt_frames
@@ -512,8 +536,7 @@ int launch_gemm(const float* a0, const float* a1, const float* const* b,
 // the k8 steps of the last stage, the row groups, and the forward's and
 // the inverse's column blocks.
 extern "C" int crlot_rt_plan(long long rows, int nfft, int* out) {
-  if (nfft < 4 || nfft % 2 || rows < 1 || rows > (1ll << 31) - 1 - kBM)
-    return (int)cudaErrorInvalidValue;
+  if (!rows_ok(rows, nfft)) return (int)cudaErrorInvalidValue;
   const RtShape s = rt_shape(rows, nfft);
   out[0] = s.cluster;
   out[1] = rt_stage_l2_bytes(s.cluster);
@@ -524,11 +547,51 @@ extern "C" int crlot_rt_plan(long long rows, int nfft, int* out) {
   return 0;
 }
 
-// The round-trip frames of `channels` x `n_frames` frames: frame f of
-// channel c is x[c * ch_stride + f * frame_stride + n], n < nfft, read as 0
-// at or past lp. fwd = (C hi, C lo, S hi, S lo), inv = (Cinv hi, Cinv lo,
-// Sinv hi, Sinv lo), each [Kp, Kp] K-major. e, o, re, im: [rows, Kp]
-// scratch; out: [rows, nfft].
+// 1. The fold pass over `channels` x `n_frames` frames: frame f of channel
+// c is x[c * ch_stride + f * frame_stride + n], n < nfft, read as 0 at or
+// past lp. e, o: [rows, Kp].
+extern "C" int crlot_rt_fold(const float* x, long long ch_stride,
+                             long long lp, long long frame_stride,
+                             const float* window, float* e, float* o,
+                             int channels, int n_frames, int nfft,
+                             void* stream) {
+  const long long rows = (long long)channels * n_frames;
+  if (!rows_ok(rows, nfft) || n_frames < 1 || channels < 1 || lp < 1)
+    return (int)cudaErrorInvalidValue;
+  rt_fold_kernel<<<(unsigned)rows, kFoldThreads, 0, (cudaStream_t)stream>>>(
+      x, ch_stride, lp, frame_stride, window, e, o, n_frames, nfft,
+      rt_shape(rows, nfft).kp);
+  return (int)cudaGetLastError();
+}
+
+// 2. The forward GEMM with the epilogue menu (n_ops 0: none): e, o ->
+// re, im, each [rows, Kp]. fwd = (C hi, C lo, S hi, S lo), [Kp, Kp]
+// K-major.
+extern "C" int crlot_rt_forward(const float* e, const float* o,
+                                const float* c_hi, const float* c_lo,
+                                const float* s_hi, const float* s_lo,
+                                const int* desc, int n_ops,
+                                const float* params, float* re, float* im,
+                                long long rows, int nfft, void* stream) {
+  const float* fwd[4] = {c_hi, c_lo, s_hi, s_lo};
+  return gemm_entry<false>(e, o, fwd, desc, n_ops, params, re, im, rows, nfft,
+                           stream);
+}
+
+// 3. The inverse GEMM and the unfold: re, im [rows, Kp] -> out [rows,
+// nfft]. inv = (Cinv hi, Cinv lo, Sinv hi, Sinv lo), [Kp, Kp] K-major.
+extern "C" int crlot_rt_inverse(const float* re, const float* im,
+                                const float* ci_hi, const float* ci_lo,
+                                const float* si_hi, const float* si_lo,
+                                float* out, long long rows, int nfft,
+                                void* stream) {
+  const float* inv[4] = {ci_hi, ci_lo, si_hi, si_lo};
+  return gemm_entry<true>(re, im, inv, nullptr, 0, nullptr, out, nullptr,
+                          rows, nfft, stream);
+}
+
+// The round-trip frames of `channels` x `n_frames` frames: 1, 2 and 3 in
+// turn. e, o, re, im: [rows, Kp] scratch; out: [rows, nfft].
 extern "C" int crlot_rt_frames(
     const float* x, long long ch_stride, long long lp, long long frame_stride,
     const float* window, const float* c_hi, const float* c_lo,
@@ -538,26 +601,13 @@ extern "C" int crlot_rt_frames(
     float* re, float* im, float* out, int channels, int n_frames, int nfft,
     void* stream) {
   const long long rows = (long long)channels * n_frames;
-  if (nfft < 4 || nfft % 2 || n_frames < 1 || channels < 1 || lp < 1 ||
-      rows > (1ll << 31) - 1 - kBM)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  int device;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  int status = prepare_gemm<false>(device);
-  if (status == 0) status = prepare_gemm<true>(device);
-  if (status != 0) return status;
-  const RtShape s = rt_shape(rows, nfft);
-  rt_fold_kernel<<<(unsigned)rows, kFoldThreads, 0, st>>>(
-      x, ch_stride, lp, frame_stride, window, e, o, n_frames, nfft, s.kp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const float* fwd[4] = {c_hi, c_lo, s_hi, s_lo};
-  const float* inv[4] = {ci_hi, ci_lo, si_hi, si_lo};
-  status = launch_gemm<false>(e, o, fwd, desc, n_ops, params, re, im, s,
-                              device, st);
-  if (status != 0) return status;
-  return launch_gemm<true>(re, im, inv, desc, 0, params, out, nullptr, s,
-                           device, st);
+  int status = crlot_rt_fold(x, ch_stride, lp, frame_stride, window, e, o,
+                             channels, n_frames, nfft, stream);
+  if (status == 0)
+    status = crlot_rt_forward(e, o, c_hi, c_lo, s_hi, s_lo, desc, n_ops,
+                              params, re, im, rows, nfft, stream);
+  if (status == 0)
+    status = crlot_rt_inverse(re, im, ci_hi, ci_lo, si_hi, si_lo, out, rows,
+                              nfft, stream);
+  return status;
 }

@@ -53,6 +53,14 @@ _SIGNATURES = {
         _VP, _LL, _LL, _LL, _VP, *[_VP] * 8, _VP, _I, _VP,
         _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP,
     ],
+    # (x, ch_stride, lp, frame_stride, window, e, o, channels, n_frames,
+    #  nfft, stream)
+    "crlot_rt_fold": [_VP, _LL, _LL, _LL, _VP, _VP, _VP, _I, _I, _I, _VP],
+    # (e, o, c_hi, c_lo, s_hi, s_lo, desc, n_ops, params, re, im, rows,
+    #  nfft, stream)
+    "crlot_rt_forward": [*[_VP] * 7, _I, _VP, _VP, _VP, _LL, _I, _VP],
+    # (re, im, cinv_hi, cinv_lo, sinv_hi, sinv_lo, out, rows, nfft, stream)
+    "crlot_rt_inverse": [*[_VP] * 7, _LL, _I, _VP],
     # (rows, nfft, out[6]): the GEMMs' plan, fft/fused_rt.py's gemm_plan
     "crlot_rt_plan": [_LL, _I, _VP],
     # (x, t_in, u, nc, span, taps_t, offsets, out, channels, n_out, l, m,

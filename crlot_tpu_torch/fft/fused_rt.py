@@ -20,6 +20,13 @@ halves by the host design code (`tf32_bases`).
   ascending frame order and divided by the COLA norm by B1's kernel
   (`ola/fused.py`).
 
+* The split path, `round_trip`'s "packed_parts" route at HIGH on the card
+  (`packed_engine`): the three kernels launched one by one
+  (`packed_fold_cuda`, `packed_forward_cuda` with no menu,
+  `packed_inverse_cuda`), with the spectral fn run in torch between the
+  GEMMs (`packed_spectral`), so that any packed fn and any even N <= 4096
+  takes them; `packed_frames_plain` is its plain version.
+
 A frame's result depends only on its own samples, so any batching of the
 frames gives the same frames bit for bit. A CPU tensor takes the plain
 version; a CUDA tensor launches the kernels or raises. Which spectral fns
@@ -46,6 +53,7 @@ from ..spectral import (
     OP_SUBTRACT,
 )
 from ..core.consts import const_on, design_cache
+from ..core.types import FftPrecision, float_tier
 from ..profiling import span
 from . import tf32x3
 from .matmul_backend import (
@@ -60,6 +68,8 @@ MAX_FUSED_NFFT = 1024
 
 launches = 0  # B2 kernel launches since import (or the caller's reset)
 frames_launches = 0  # B3 kernel launches, likewise
+# The split path's launches, by kernel, likewise.
+packed_launches = {"fold": 0, "forward": 0, "inverse": 0}
 
 # (opcode -> number of scalars, number of per-bin arrays)
 _MENU = {
@@ -150,7 +160,7 @@ def tf32_bases(nfft: int) -> tuple:
 
 
 @design_cache(4)
-def _kernel_bases_on(nfft: int, device: torch.device):
+def kernel_bases_on(nfft: int, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in tf32_bases(nfft))
 
 
@@ -273,7 +283,7 @@ def _launch_frames(what: str, x: torch.Tensor, ch_stride: int, lp: int,
     cuda_build.launch(
         "crlot_rt_frames", dev, x.data_ptr(), ch_stride, lp, frame_stride,
         window_f32.data_ptr(),
-        *(b.data_ptr() for b in _kernel_bases_on(nfft, dev)),
+        *(b.data_ptr() for b in kernel_bases_on(nfft, dev)),
         desc.data_ptr(), desc_np.shape[0], params.data_ptr(), e.data_ptr(),
         o.data_ptr(), re.data_ptr(), im.data_ptr(), out.data_ptr(),
         x.shape[0], n_frames, nfft,
@@ -363,6 +373,153 @@ def roundtrip_of_frames(frames: torch.Tensor, nfft: int,
                          spectral_packed)
     frames_launches += 1
     return out.view(frames.shape)
+
+
+# --- the split path: round_trip's "packed_parts" route at HIGH --------------
+
+
+def packed_engine(precision: FftPrecision, device) -> str:
+    """What runs the "packed_parts" route's fold, products and unfold:
+    "rt_gemm" (the split path: B2's fold pass and 3xTF32 GEMMs) for a
+    tensor off the CPU at HIGH (INT8X2 runs its float products as HIGH);
+    "matmul" (IEEE fp32 `torch.matmul`, the fold and the unfold in torch
+    ops) at HIGHEST and on the CPU, as B0's callers do."""
+    if (torch.device(device).type != "cpu"
+            and float_tier(precision) == FftPrecision.HIGH):
+        return "rt_gemm"
+    return "matmul"
+
+
+def _check_nfft(what, nfft):
+    if nfft < 4 or nfft % 2 or nfft > MAX_MATMUL_NFFT:
+        raise ValueError(f"{what}: unsupported N={nfft}")
+
+
+def _check_planes(what, nfft, *planes):
+    _check_nfft(what, nfft)
+    kp = padded_bins(nfft)
+    for t in planes:
+        if (t.dtype != torch.float32 or not t.is_contiguous()
+                or t.ndim != 2 or t.shape != planes[0].shape
+                or t.shape[1] != kp):
+            raise ValueError(f"{what} takes contiguous float32 [rows, {kp}] "
+                             f"planes, got {[tuple(p.shape) for p in planes]}")
+
+
+def packed_fold_plain(padded: torch.Tensor, nfft: int, hop: int,
+                      n_frames: int, window_f32: torch.Tensor):
+    """The fold pass in torch (`fold_plain` on the frames of `padded`
+    [C, Lp]): (e, o), each [C * n_frames, Kp]."""
+    e, o = fold_plain(hop_block_frames(padded.float(), nfft, hop, n_frames),
+                      window_f32)
+    kp = padded_bins(nfft)
+    return e.reshape(-1, kp), o.reshape(-1, kp)
+
+
+def packed_fold_cuda(padded: torch.Tensor, nfft: int, hop: int,
+                     n_frames: int, window_f32: torch.Tensor):
+    """Launch the fold pass over `padded` [C, Lp] (f32, contiguous, CUDA;
+    frame f of row c at padded[c, f*hop:], zero past Lp): (e, o), each
+    [C * n_frames, Kp]."""
+    cuda_build.require_cuda("B2 fold", padded, window_f32)
+    for t in (padded, window_f32):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("B2 fold takes contiguous float32 tensors")
+    _check_nfft("B2 fold", nfft)
+    if padded.ndim != 2 or window_f32.shape != (nfft,) or n_frames <= 0:
+        raise ValueError(f"B2 fold: bad signal {tuple(padded.shape)}, "
+                         f"window or n_frames {n_frames}")
+    rows = padded.shape[0] * n_frames
+    e, o = (torch.empty((rows, padded_bins(nfft)), dtype=torch.float32,
+                        device=padded.device) for _ in range(2))
+    lp = padded.shape[-1]
+    cuda_build.launch("crlot_rt_fold", padded.device, padded.data_ptr(), lp,
+                      lp, hop, window_f32.data_ptr(), e.data_ptr(),
+                      o.data_ptr(), padded.shape[0], n_frames, nfft)
+    packed_launches["fold"] += 1
+    return e, o
+
+
+def packed_forward_plain(e: torch.Tensor, o: torch.Tensor, bases):
+    """The forward GEMM in torch: (Re, Im) = (e . C, o . S), each [rows,
+    Kp], 3xTF32 as the kernel splits it (`tf32x3.gemm_plain` on the TF32
+    halves of `bases` = (C hi, C lo, S hi, S lo), `kernel_bases_on`)."""
+    c_hi, c_lo, s_hi, s_lo = bases
+    return tf32x3.gemm_plain(e, c_hi, c_lo), tf32x3.gemm_plain(o, s_hi, s_lo)
+
+
+def packed_forward_cuda(e: torch.Tensor, o: torch.Tensor, nfft: int, bases):
+    """Launch the forward GEMM with no menu on e, o [rows, Kp] (f32,
+    contiguous, CUDA): (Re, Im), each [rows, Kp], zero past K."""
+    cuda_build.require_cuda("B2 forward", e, o, *bases)
+    _check_planes("B2 forward", nfft, e, o)
+    re, im = torch.empty_like(e), torch.empty_like(o)
+    cuda_build.launch("crlot_rt_forward", e.device, e.data_ptr(),
+                      o.data_ptr(), *(b.data_ptr() for b in bases), None, 0,
+                      None, re.data_ptr(), im.data_ptr(), e.shape[0], nfft)
+    packed_launches["forward"] += 1
+    return re, im
+
+
+def packed_inverse_plain(re: torch.Tensor, im: torch.Tensor, nfft: int,
+                         bases):
+    """The inverse GEMM and the unfold in torch, 3xTF32 as the kernel
+    splits it: A = Re . Cinv, B = Im . Sinv (`bases` = (Cinv hi, Cinv lo,
+    Sinv hi, Sinv lo)); frame sample n = A[n] + B[n] (n <= N/2) and N - n =
+    A[n] - B[n] (0 < n < N/2): [rows, N]."""
+    ci_hi, ci_lo, si_hi, si_lo = bases
+    a = tf32x3.gemm_plain(re, ci_hi, ci_lo)
+    b = tf32x3.gemm_plain(im, si_hi, si_lo)
+    h = nfft // 2
+    return torch.cat([a[:, : h + 1] + b[:, : h + 1],
+                      (a[:, 1:h] - b[:, 1:h]).flip(-1)], dim=-1)
+
+
+def packed_inverse_cuda(re: torch.Tensor, im: torch.Tensor, nfft: int,
+                        bases) -> torch.Tensor:
+    """Launch the inverse GEMM and the unfold on Re, Im [rows, Kp] (f32,
+    contiguous, CUDA, zero past K): the [rows, N] round-trip frames."""
+    cuda_build.require_cuda("B2 inverse", re, im, *bases)
+    _check_planes("B2 inverse", nfft, re, im)
+    out = torch.empty((re.shape[0], nfft), dtype=torch.float32,
+                      device=re.device)
+    cuda_build.launch("crlot_rt_inverse", re.device, re.data_ptr(),
+                      im.data_ptr(), *(b.data_ptr() for b in bases),
+                      out.data_ptr(), re.shape[0], nfft)
+    packed_launches["inverse"] += 1
+    return out
+
+
+def packed_spectral(spectral_packed, re, im, e, o, lead, nfft: int):
+    """`spectral_packed` on the [*lead, K] views of the forward's Re, Im
+    [rows, Kp] (row stride Kp), its two outputs written into the first K
+    columns of e, o: the fold's planes, dead by then and zero past K, so
+    that the inverse reads zeros in the pad columns (its basis is zero
+    there, but a NaN times 0 is NaN). Returns (e, o), the inverse's
+    operands."""
+    k = nfft // 2 + 1
+    out_re, out_im = spectral_packed(re[:, :k].view(*lead, k),
+                                     im[:, :k].view(*lead, k))
+    e[:, :k].view(*lead, k).copy_(out_re)
+    o[:, :k].view(*lead, k).copy_(out_im)
+    return e, o
+
+
+def packed_frames_plain(padded, nfft, hop, n_frames, window_f32,
+                        spectral_packed=None) -> torch.Tensor:
+    """The split path in torch on `padded` [C, Lp]: fold, the forward
+    GEMM, `spectral_packed`, the inverse GEMM and the unfold, 3xTF32 as
+    the kernels split it: [C, n_frames, N]."""
+    bases = kernel_bases_on(nfft, padded.device)
+    e, o = packed_fold_plain(padded, nfft, hop, n_frames, window_f32)
+    re, im = packed_forward_plain(e, o, bases[:4])
+    if spectral_packed is not None:
+        e, o = packed_spectral(spectral_packed, re, im, e, o,
+                               (padded.shape[0], n_frames), nfft)
+    else:
+        e, o = re, im
+    frames = packed_inverse_plain(e, o, nfft, bases[4:])
+    return frames.view(padded.shape[0], n_frames, nfft)
 
 
 # C12: B2 and B3 and their plain version decide each noise-gate bin on

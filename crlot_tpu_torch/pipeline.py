@@ -16,7 +16,9 @@ Branches of `round_trip` (names returned by `formulation_for`):
 * "fused_rt_ola": a nonlinear packed fn whose packed chain has a full B2
   epilogue menu, through the B2 kernel (`fft/fused_rt.py`);
 * "packed_parts": any other packed fn: folded forward, `fn.packed`, folded
-  inverse, then the B1 OLA kernel;
+  inverse, then the B1 OLA kernel; at HIGH on the card the fold, the
+  products and the unfold run on B2's kernels launched one by one
+  (`fft/fused_rt.packed_engine`), elsewhere in torch ops;
 * "tiled_i8": the identity at `FftPrecision.INT8X2` where the blocked
   formulation does not apply (N % hop != 0, or too few frames) and the
   tiled layout does (N % 256 == 0): the tiled round-trip's four products
@@ -48,6 +50,7 @@ from .core.consts import as_f32, const_on, design_cache
 from .core.padding import pad_signal
 from .core.types import FftBackend, FftPrecision, StftConfig
 from .fft import dispatch as _fft
+from .fft import fused_rt as _rt
 from .fft.fused_rt import (
     fused_rt_supported,
     roundtrip_frames_fused,
@@ -319,7 +322,9 @@ def round_trip(
             rows = math.prod(signal.shape[:-1])
             call.note(route=route, rows=rows, samples=n)
             if route == "packed_parts":
-                call.note(frame_bytes=packed_frame_bytes(cfg, rows, n))
+                call.note(frame_bytes=packed_frame_bytes(
+                    cfg, rows, n,
+                    _rt.packed_engine(cfg.fft_precision, signal.device)))
         if route == "blocked":
             return blocked_composed_round_trip(signal, cfg, per_bin)
         return _round_trip(signal, cfg, spectral_fn, route, w64)
@@ -393,22 +398,35 @@ def _round_trip(signal: torch.Tensor, cfg: StftConfig, spectral_fn,
     return crop(_istft_uncropped(spec, cfg))
 
 
-def packed_frame_bytes(cfg: StftConfig, rows: int, n_samples: int) -> int:
+def packed_frame_bytes(cfg: StftConfig, rows: int, n_samples: int,
+                       engine: str = "matmul") -> int:
     """The bytes of the frame-sized float32 tensors that the "packed_parts"
-    route writes in a call of `rows` x `n_samples`, from the shapes: every
-    [rows, F, *] output of the route's own passes (the windowed frames, the
-    fold's flip, sum, cat and difference, the forward products, the inverse
-    products, the unfold's sum, difference, flip and cat, and the synthesis
-    window's product where there is one) and the two planes the spectral
-    fn returns (its own temporaries are the fn's, and not counted)."""
+    route writes in a call of `rows` x `n_samples` on `engine`
+    (`fft/fused_rt.packed_engine`), from the shapes: every [rows, F, *]
+    output of the route's own passes and the two planes the spectral fn
+    returns (its own temporaries are the fn's, and not counted). On
+    "matmul": the windowed frames, the fold's flip, sum, cat and
+    difference, the forward products, the inverse products, the unfold's
+    sum, difference, flip and cat; on "rt_gemm": the fold pass's e, o and
+    the forward GEMM's Re, Im (each Kp wide), the fn's planes copied into
+    e, o, and the inverse GEMM's frames. Both: the synthesis window's
+    product where there is one."""
     n, h = cfg.frame_size, cfg.frame_size // 2
-    widths = (
-        n + (h - 1) + (h - 1) + (h + 1) + (h - 1)  # window, fold
-        + 2 * (h + 1)                              # forward products
-        + 2 * (h + 1)                              # the fn's Re, Im
-        + (h + 1) + (h - 1) + 3 * (h - 1) + n      # inverse, unfold
-        + (n if cfg.synthesis_window else 0)
-    )
+    if engine == "rt_gemm":
+        k, kp = h + 1, _rt.padded_bins(n)
+        widths = (
+            2 * kp + 2 * kp   # fold, forward GEMM
+            + 2 * k + 2 * k   # the fn's Re, Im, copied into e, o
+            + n               # inverse GEMM and unfold
+        )
+    else:
+        widths = (
+            n + (h - 1) + (h - 1) + (h + 1) + (h - 1)  # window, fold
+            + 2 * (h + 1)                              # forward products
+            + 2 * (h + 1)                              # the fn's Re, Im
+            + (h + 1) + (h - 1) + 3 * (h - 1) + n      # inverse, unfold
+        )
+    widths += n if cfg.synthesis_window else 0
     return 4 * rows * cfg.frame_spec.num_frames(n_samples) * widths
 
 
@@ -416,26 +434,60 @@ def _packed_parts(signal: torch.Tensor, cfg: StftConfig,
                   spectral_fn) -> torch.Tensor:
     """round_trip's "packed_parts" route up to the crop: the folded forward
     products, `spectral_fn.packed`, the folded inverse products, then B1's
-    OLA and normalize, each stage a span."""
+    OLA and normalize, each stage a span. The `.forward` and `.inverse`
+    spans name the `engine` that ran (`fft/fused_rt.packed_engine`): on
+    "rt_gemm" the centre pad then B2's fold pass, its forward GEMM with no
+    menu, the fn on views of Re, Im (`fused_rt.packed_spectral`), and its
+    inverse GEMM with the unfold; on "matmul" the framing, the window's
+    product and the fold, two `torch.matmul`s each way and the unfold in
+    torch ops."""
     spec_ = cfg.frame_spec
     nfft, hop = cfg.frame_size, cfg.hop_size
     num_frames = spec_.num_frames(signal.shape[-1])
     full = (num_frames - 1) * hop + nfft
+    engine = _rt.packed_engine(cfg.fft_precision, signal.device)
+    lead = signal.shape[:-1]
     with span("crlot.packed.consts"):
-        c, s, cinv, sinv = folded_consts_on(nfft, signal.device)
+        if engine == "rt_gemm":
+            bases = _rt.kernel_bases_on(nfft, signal.device)
+        else:
+            c, s, cinv, sinv = folded_consts_on(nfft, signal.device)
         window = const_on(_window_np(cfg), signal.device)
         norm = _norm_on(cfg, num_frames, full, signal.device)
     with span("crlot.packed.fold"):
-        parts = fold_windowed(frame_signal(signal, spec_), nfft, window)
+        if engine == "rt_gemm":
+            pad = spec_.pad_amount
+            padded = pad_signal(signal, pad, pad, spec_.pad_mode,
+                                spec_.pad_value)
+            folded = _rt.packed_fold_cuda(
+                padded.reshape(-1, padded.shape[-1]).float().contiguous(),
+                nfft, hop, num_frames, window)
+        else:
+            folded = fold_windowed(frame_signal(signal, spec_), nfft, window)
     with span("crlot.packed.forward") as fwd:
         if fwd:
-            fwd.note(frames=math.prod(signal.shape[:-1]) * num_frames,
-                     bins=nfft // 2 + 1)
-        parts = folded_forward(*parts, c, s)
+            fwd.note(frames=math.prod(lead) * num_frames, bins=nfft // 2 + 1,
+                     engine=engine)
+        if engine == "rt_gemm":
+            parts = _rt.packed_forward_cuda(*folded, nfft, bases[:4])
+        else:
+            parts, folded = folded_forward(*folded, c, s), None
     with span("crlot.packed.fn"):
-        parts = spectral_fn.packed(*parts)
-    with span("crlot.packed.inverse"):
-        frames = folded_inverse(*parts, cinv, sinv)
+        if engine == "rt_gemm":
+            parts = _rt.packed_spectral(spectral_fn.packed, *parts, *folded,
+                                        (*lead, num_frames), nfft)
+        else:
+            parts = spectral_fn.packed(*parts)
+        folded = None
+    with span("crlot.packed.inverse") as inv:
+        if inv:
+            inv.note(engine=engine)
+        if engine == "rt_gemm":
+            frames = _rt.packed_inverse_cuda(*parts, nfft, bases[4:]).view(
+                *lead, num_frames, nfft)
+        else:
+            frames = folded_inverse(*parts, cinv, sinv)
+        parts = None  # the planes go before B1 allocates its output
     with span("crlot.packed.ola"):
         return ola_normalized_auto(_synthesis(frames, cfg), norm, hop, full,
                                    cfg.eps)

@@ -60,6 +60,8 @@ def guarded(monkeypatch):
                       (tf32x3, "launches")):
         monkeypatch.setattr(mod, name, getattr(mod, name))
     monkeypatch.setattr(b5, "launches", dict(b5.launches))
+    monkeypatch.setattr(fused_rt, "packed_launches",
+                        dict(fused_rt.packed_launches))
     monkeypatch.setattr(b6, "launches", dict(b6.launches))
     return state
 
@@ -98,6 +100,31 @@ def _b3_of_frames():
     frames = x.unfold(-1, 1024, 256)
     fused_rt.roundtrip_of_frames(frames.to("meta"), 1024, _rand(1024, 31))
     return "crlot_rt_frames", torch.device("meta")
+
+
+def _split_fold():
+    padded, w = _rand((2, 8192), 36), _rand(2048, 37)
+    fused_rt.packed_fold_cuda(padded, 2048, 512, 9, w)
+    return "crlot_rt_fold", padded.device
+
+
+def _split_planes(nfft, rows, seed):
+    kp = fused_rt.padded_bins(nfft)
+    return _rand((rows, kp), seed), _rand((rows, kp), seed + 1)
+
+
+def _split_forward():
+    e, o = _split_planes(4096, 18, 38)
+    bases = fused_rt.kernel_bases_on(4096, e.device)
+    fused_rt.packed_forward_cuda(e, o, 4096, bases[:4])
+    return "crlot_rt_forward", e.device
+
+
+def _split_inverse():
+    re, im = _split_planes(4096, 18, 40)
+    bases = fused_rt.kernel_bases_on(4096, re.device)
+    fused_rt.packed_inverse_cuda(re, im, 4096, bases[4:])
+    return "crlot_rt_inverse", re.device
 
 
 def _b0():
@@ -193,7 +220,8 @@ WRAPPERS = {
     "B5 axpy_windowed": _axpy_windowed, "B5 normalize": _normalize,
     "B6-i8": _i8, "B6-limb probe3": _probe3, "B6-limb int16": _wire_i16,
     "B6-bf16": _bf16, "B6-fusedq": _fusedq, "K11 dot_i8x2": _fusedq_ref,
-    "B0 fp32": _b0_fp32,
+    "B0 fp32": _b0_fp32, "B2 split fold": _split_fold,
+    "B2 split forward": _split_forward, "B2 split inverse": _split_inverse,
 }
 
 
