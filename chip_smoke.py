@@ -2011,25 +2011,17 @@ def b6_checks(dev, phase, check) -> dict:
 
 def b0_inputs(cfg, padded, n_frames, per_bin):
     """B0's operands on the blocked round-trip's main path, as
-    `roundtrip_composed_blocked` builds them: (x_ext [C, L] padded signal,
-    kernel [mg*gh, gh], its TF32 halves, rows, gh)."""
-    import numpy as np
-
+    `blocked_composed_round_trip` takes them from its plan: (x_ext [C, L]
+    padded signal, kernel [mg*gh, gh], its TF32 halves, rows, gh)."""
+    from crlot_tpu_torch.core.types import FftPrecision
     from crlot_tpu_torch.fft import matmul_backend as mb
-    from crlot_tpu_torch.pipeline import _norm_fold_on, _window_f64
 
-    group = mb.blocked_group_for(NFFT, HOP)
-    gh, edge = group * HOP, NFFT - HOP
+    plan = mb.blocked_plan_for(cfg, per_bin)
     full = (n_frames - 1) * HOP + NFFT
-    norm_c = _norm_fold_on(cfg, n_frames, padded.device)[0]
-    wb = np.ascontiguousarray(_window_f64(cfg), np.float64).tobytes()
-    rb = np.ascontiguousarray(np.asarray(per_bin, np.complex128) / norm_c
-                              ).tobytes()
-    keys = (NFFT, HOP, group, wb, None, rb, padded.device)
-    kern = mb._runtime_kernel_on(*keys)
-    x_ext, _, rows = mb._hopblock_ext(padded[..., :full].float(), kern, gh,
-                                      full, edge)
-    return x_ext.contiguous(), kern, mb._runtime_bt_on(*keys), rows, gh
+    kern, bt = plan.operands(padded.device, FftPrecision.HIGH)
+    x_ext, _, rows = mb._hopblock_ext(padded[..., :full].float(), kern,
+                                      plan.gh, full, plan.edge)
+    return x_ext.contiguous(), kern, bt, rows, plan.gh
 
 
 def b0_checks(dev, phase, check, cfg, padded, n_frames, band) -> dict:
@@ -2460,6 +2452,7 @@ def wire_path(dev, phase, check, failures) -> dict:
     from crlot_tpu_torch import int8_probe, spectral, wire
     from crlot_tpu_torch.fft import fp32_window as b0f
     from crlot_tpu_torch.fft import fused_rt as b3
+    from crlot_tpu_torch.fft import matmul_backend as mb
     from crlot_tpu_torch.fft import tf32x3 as b0
     from crlot_tpu_torch.pipeline import blocked_composed_round_trip
     from crlot_tpu_torch.streaming_pipeline import BlockedChunkStreamer
@@ -2586,7 +2579,8 @@ def wire_path(dev, phase, check, failures) -> dict:
             host = wire.i16_round_trip(torch.from_numpy(sq), cfg, tier=tier,
                                        emit_i16=False, chunk_samples=n_full)
             c = wire._i16_kernel_consts(
-                cfg, wire._resolve_blocked_per_bin(cfg, None), tier)
+                mb.blocked_plan_for(cfg, mb.blocked_response(cfg, None)),
+                tier)
             kq = (c["k_i8"].astype(np.float64) if tier == "int8x1"
                   else c["k_hi"].astype(np.float64) * 128 + c["k_lo"])
             x_ext = np.concatenate([np.zeros(edge), sq.astype(np.float64),
@@ -4507,6 +4501,7 @@ def wire_timings(dev, path4, path_b6) -> dict:
     import crlot_tpu_torch as pt
     from crlot_tpu_torch import int8_gemm as b6
     from crlot_tpu_torch import int8_probe, wire
+    from crlot_tpu_torch.fft import matmul_backend as mb
 
     cfg = pt.StftConfig(frame_size=NFFT, hop_size=HOP, center=False)
     timing = {}
@@ -4528,8 +4523,8 @@ def wire_timings(dev, path4, path_b6) -> dict:
         f"{name} {ms(timing, name + '_plain')}"
         for name in int8_probe.variants(t)))
     x16 = path4["x16"][: WIRE_CHUNK + 2 * (NFFT - HOP)][None].contiguous()
-    rb = wire._resolve_blocked_per_bin(cfg, None)
-    kh, kl = wire._i16_limbs_on(cfg, rb, "int8x2", x16.device)
+    plan = mb.blocked_plan_for(cfg, mb.blocked_response(cfg, None))
+    kh, kl = wire._i16_limbs_on(plan, "int8x2", x16.device)
     rows = WIRE_CHUNK // 512
     timed(timing, "limb_wire", lambda: b6.limb_gemm_i16_cuda(
         x16, kh, kl, "wire2", 1e-5, rows=rows, lda=512))

@@ -125,12 +125,8 @@ def main_pipeline(seconds=60, n=1024, hop=256, only=None,
     from ..core.padding import pad_signal
     from ..core.types import StftConfig
     from ..fft.matmul_backend import (
-        _bytes,
-        _runtime_bt_on,
-        _runtime_kernel_on,
-        blocked_edge_patch,
-        blocked_group_for,
-        blocked_patch_span,
+        blocked_plan_for,
+        blocked_response,
         hopblock_apply,
         irfft_folded_parts,
         rfft_folded_packed,
@@ -139,7 +135,8 @@ def main_pipeline(seconds=60, n=1024, hop=256, only=None,
     from ..frame.framing import frame_signal
     from ..ola.fused import ola_normalized_auto
     from ..ola.norm import edge_norm
-    from ..pipeline import _norm_fold_on, _window_f64, formulation_for, round_trip
+    from ..pipeline import formulation_for, round_trip
+    from ..window.windows import get_window
 
     dev = _device(device)
     sr = 48000
@@ -147,7 +144,7 @@ def main_pipeline(seconds=60, n=1024, hop=256, only=None,
     cfg = StftConfig(frame_size=n, hop_size=hop, center=True)
     rng = np.random.default_rng(0)
     x = torch.from_numpy(rng.uniform(-1, 1, total).astype(np.float32)).to(dev)
-    w64 = _window_f64(cfg)
+    w64 = get_window(cfg.window, n, cfg.periodic, dtype=np.float64)
     w32 = torch.from_numpy(w64.astype(np.float32)).to(dev)
     frames_np = rng.uniform(-1, 1, ((total // hop) + 1, n)).astype(np.float32)
     frames = torch.from_numpy(frames_np).to(dev)
@@ -158,30 +155,19 @@ def main_pipeline(seconds=60, n=1024, hop=256, only=None,
     k = n // 2 + 1
 
     # The "blocked" route's pieces, as `blocked_composed_round_trip` runs
-    # them on this signal.
+    # them on this signal, on its plan.
     spec_ = cfg.frame_spec
     nf = spec_.num_frames(total)
-    group = blocked_group_for(n, hop)
-    wb = _bytes(w64, np.float64)
-    rb = _bytes(np.ones(k), np.complex128)
-    fold = _norm_fold_on(cfg, nf, dev)
-    rb_kern = rb if fold is None else _bytes(np.ones(k) / fold[0],
-                                             np.complex128)
-    kern = _runtime_kernel_on(n, hop, group, wb, None, rb_kern, dev)
-    bt = (_runtime_bt_on(n, hop, group, wb, None, rb_kern, dev)
-          if dev.type == "cuda" else None)
+    plan = blocked_plan_for(cfg, blocked_response(cfg, None))
+    kern, bt = plan.operands(dev, cfg.fft_precision)
     bfull = (nf - 1) * hop + n
-    edge = (n // hop - 1) * hop
-    span_p = blocked_patch_span(n, hop)
+    edge, span_p = plan.edge, plan.patch_span
     xpad = pad_signal(x, spec_.pad_amount, spec_.pad_amount, spec_.pad_mode,
                       spec_.pad_value)[..., :bfull].contiguous()
 
     def edges(xp):
-        head = blocked_edge_patch(xp[..., :span_p], n, hop, wb, None, rb,
-                                  "head")
-        tail = blocked_edge_patch(xp[..., bfull - span_p:], n, hop, wb, None,
-                                  rb, "tail")
-        return head, tail
+        return (plan.patch(xp[..., :span_p], "head"),
+                plan.patch(xp[..., bfull - span_p:], "tail"))
 
     stages = {
         "frame_signal": (lambda s: frame_signal(s, cfg.frame_spec), x),
@@ -196,7 +182,7 @@ def main_pipeline(seconds=60, n=1024, hop=256, only=None,
             s, spec_.pad_amount, spec_.pad_amount, spec_.pad_mode,
             spec_.pad_value), x),
         "blocked_b0": (lambda xp: hopblock_apply(
-            xp, kern, group * hop, bfull, edge, cfg.fft_precision, bt), xpad),
+            xp, kern, plan.gh, bfull, edge, cfg.fft_precision, bt), xpad),
         "blocked_edges": (edges, xpad),
         "round_trip": (lambda s: round_trip(s, cfg), x),
     }

@@ -470,15 +470,16 @@ def bench_streaming(results: Dict[str, float], dev) -> None:
     mid-stream checkpoint resumed (asserted bit-exact), the tail chunk's
     SNR, and one hop block's latency."""
     from ..core.types import FftBackend, StftConfig
-    from ..fft.matmul_backend import hopblock_apply
+    from ..fft.matmul_backend import (
+        blocked_plan_for,
+        blocked_response,
+        hopblock_apply,
+    )
     from ..frame.framing import hop_block_frames
     from ..metrics import snr_db
     from ..pipeline import blocked_composed_round_trip
     from ..streaming_pipeline import (
         BlockedChunkStreamer,
-        _blocked_consts_on,
-        _blocked_stream_consts,
-        _resolve_blocked_per_bin,
         blocked_stream_supported,
         streaming_round_trip_blocks,
     )
@@ -721,10 +722,9 @@ def bench_streaming(results: Dict[str, float], dev) -> None:
     del outs_by_tier, chunks_i16
 
     # The one-program variants: the chunk loop as one CUDA-graph replay.
-    rb = _resolve_blocked_per_bin(cfg_blk, None)
-    cb = _blocked_stream_consts(cfg_blk, rb)
-    kb = _blocked_consts_on(cfg_blk, rb, dev)
-    gh_b, edge_b, rctx_b = cb["gh"], cb["edge"], cb["right_ctx"]
+    plan = blocked_plan_for(cfg_blk, blocked_response(cfg_blk, None))
+    kern_b, bt_b = plan.operands(dev, cfg_blk.fft_precision)
+    gh_b, edge_b, rctx_b = plan.gh, plan.edge, plan.right_ctx
     span_b = edge_b + chunk_samples + rctx_b
     x_pad = np.pad(x[:total], (edge_b, rctx_b))
     segs_blk = torch.stack([_on(x_pad[k * chunk_samples :
@@ -733,8 +733,8 @@ def bench_streaming(results: Dict[str, float], dev) -> None:
     x_ext_res = _on(x_pad, dev)
 
     def blocked_chunk(seg):
-        return hopblock_apply(seg, kb["kern"], gh_b, chunk_samples, 0,
-                              cfg_blk.fft_precision, kb["bt"])
+        return hopblock_apply(seg, kern_b, gh_b, chunk_samples, 0,
+                              cfg_blk.fft_precision, bt_b)
 
     def scan_blocked():
         return torch.stack([blocked_chunk(segs_blk[k])

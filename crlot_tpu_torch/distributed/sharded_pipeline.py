@@ -58,12 +58,10 @@ from ..fft import dispatch as _fft
 from ..fft.fused_rt import fused_rt_supported, roundtrip_frames_fused
 from ..fft.matmul_backend import (
     MAX_MATMUL_NFFT,
-    _bytes,
-    _runtime_bt_on,
-    _runtime_kernel_on,
-    blocked_edge_patch,
+    BlockedPlan,
     blocked_group_for,
-    blocked_patch_span,
+    blocked_plan_for,
+    blocked_response,
     hopblock_apply,
     irfft_folded_parts,
     rfft_folded_packed,
@@ -195,10 +193,8 @@ def _blocked_halos(xs: list, halo: int, row) -> tuple:
 
 def _blocked_local_round_trip(
     xs: list,  # one channel group's time shards, [C_local, T_block] each
-    window_f64: np.ndarray,
+    plan: BlockedPlan,
     cfg: StftConfig,
-    per_bin: np.ndarray,
-    group: int,
     num_frames: int,
     t_block: int,
     n_time: int,
@@ -222,20 +218,17 @@ def _blocked_local_round_trip(
     the reference's interior / boundary split lets its exchanges overlap
     the bulk of its products. The global head and tail, where the Toeplitz
     product sees phantom frames, are recomputed by `blocked_edge_patch` on
-    the first and last time shard.
+    the first and last time shard. The plan's kernel is its raw
+    response's (the caller divides by the norm blocks afterwards), so the
+    patches are too.
 
-    Preconditions (gated by the caller): the blocked group G divides
-    2(R-1) (so the kernel's look-ahead equals the halo), t_block % (G*hop)
-    == 0, full-coverage frame set, num_frames >= 2*(N/hop - 1)."""
+    Preconditions (gated by the caller): t_block % (G*hop) == 0,
+    full-coverage frame set, num_frames >= 2*(N/hop - 1). (The plan's
+    group G divides 2(R-1), so the kernel's look-ahead equals the halo.)"""
     n, hop = cfg.frame_size, cfg.hop_size
-    halo = n - hop
-    gh = group * hop
+    halo, gh, mg, span_p = plan.edge, plan.gh, plan.mg, plan.patch_span
     nb = t_block // gh
     span = (num_frames - 1) * hop + n
-    span_p = blocked_patch_span(n, hop)
-    wb = _bytes(window_f64, np.float64)
-    sb = wb if cfg.synthesis_window else None
-    rb = _bytes(per_bin, np.complex128)
     off = span - (n_time - 1) * t_block  # end of the span in the last block
     lefts, rights = halos if halos is not None else _blocked_halos(xs, halo,
                                                                    row)
@@ -244,13 +237,8 @@ def _blocked_local_round_trip(
         if x is None:
             accs.append(None)
             continue
-        kern = _runtime_kernel_on(n, hop, group, wb, sb, rb, x.device)
-        mg = kern.shape[0] // gh
-        if kern.shape[0] - gh - halo != halo:
-            raise ValueError("blocked group must divide 2(R-1)")
         x = x.float()
-        bt = (_runtime_bt_on(n, hop, group, wb, sb, rb, x.device)
-              if x.device.type != "cpu" else None)
+        kern, bt = plan.operands(x.device, cfg.fft_precision, folded=False)
         b_lo, b_hi = _interior_rows(nb, mg, gh, halo, t_block)
         row_macs = x[..., :1].numel() * mg * gh * gh
 
@@ -288,10 +276,9 @@ def _blocked_local_round_trip(
             patches.append(("tail", off - span_p, off, off - halo))
         for side, lo, hi, at in patches:
             src, from_halo = _span(x, left, right, lo, hi)
-            acc[..., at : at + halo] = blocked_edge_patch(
-                src, n, hop, wb, sb, rb, side, cfg.fft_precision,
-                fixed_order=True,
-            )
+            acc[..., at : at + halo] = plan.patch(src, side,
+                                                  cfg.fft_precision,
+                                                  fixed_order=True)
             _report((n // hop - 1) * x[..., :1].numel() * n * n, from_halo)
         accs.append(acc)
     return accs
@@ -319,8 +306,8 @@ def _block_round_trip(
     t_block = next(x for x in xs if x is not None).shape[-1]
     if blocked is not None:
         accs = _blocked_local_round_trip(
-            xs, window_f64, cfg, blocked["per_bin"], blocked["group"],
-            blocked["num_frames"], t_block, blocked["n_time"], row, halos,
+            xs, blocked["plan"], cfg, blocked["num_frames"], t_block,
+            blocked["n_time"], row, halos,
         )
     else:
         route = shard_route(cfg, spectral_fn)
@@ -417,14 +404,24 @@ def sharded_round_trip(
     start (with the bytes `halo.counter` counted: `moved_bytes`,
     `received_bytes`, `cross_rank_ops`), `crlot.sharded.block` for each
     channel row and `crlot.sharded.join` (`profiling.span`)."""
+    return _sharded_round_trip(x, cfg, mesh, spectral_fn, valid_len,
+                               valid_start, return_metrics, allow_blocked,
+                               device)
+
+
+def _sharded_round_trip(x, cfg, mesh, spectral_fn, valid_len=None,
+                        valid_start=0, return_metrics=False,
+                        allow_blocked=True, device=None, plan=None):
+    """`sharded_round_trip`, given the fn's `blocked_plan` where the caller
+    resolved it (a stream does, once a stream), else resolving it here."""
     with span("crlot.sharded.round_trip") as call:
-        return _sharded_round_trip(x, cfg, mesh, spectral_fn, valid_len,
-                                   valid_start, return_metrics,
-                                   allow_blocked, device, call)
+        return _mesh_program(x, cfg, mesh, spectral_fn, valid_len,
+                             valid_start, return_metrics, allow_blocked,
+                             device, call, plan)
 
 
-def _sharded_round_trip(x, cfg, mesh, spectral_fn, valid_len, valid_start,
-                        return_metrics, allow_blocked, device, call):
+def _mesh_program(x, cfg, mesh, spectral_fn, valid_len, valid_start,
+                  return_metrics, allow_blocked, device, call, plan):
     if mesh is None:
         mesh = auto_mesh()
     if cfg.center:
@@ -461,21 +458,23 @@ def _sharded_round_trip(x, cfg, mesh, spectral_fn, valid_len, valid_start,
                 f"valid_start ({valid_start}) must be hop-aligned")
         num_frames = cfg.frame_spec.num_frames(valid_len - valid_start)
         if num_frames > 0:
-            window_f64 = get_window(cfg.window, n, cfg.periodic,
-                                    dtype=np.float64)
             # Fixed per-bin responses (and the identity) take the blocked
             # hop-block Toeplitz formulation when the full frame set is
             # covered and the blocks align to its group grid; otherwise
             # the masked frame formulation with the tail-seeding protocol.
-            blocked = None
-            if allow_blocked and valid_start == 0 and valid_len == total_len:
-                per_bin_b = blocked_per_bin(
-                    cfg, spectral_fn, t_block=t_block, num_frames=num_frames
-                )
-                if per_bin_b is not None:
-                    blocked = {"group": blocked_group_for(n, hop),
-                               "num_frames": num_frames,
-                               "n_time": n_time, "per_bin": per_bin_b}
+            blocked = window_f64 = None
+            if (allow_blocked and valid_start == 0 and valid_len == total_len
+                    and _blocked_fits(cfg, t_block, num_frames)):
+                if plan is None:
+                    response = blocked_response(cfg, spectral_fn)
+                    if response is not None:
+                        plan = blocked_plan_for(cfg, response)
+                if plan is not None:
+                    blocked = {"plan": plan, "num_frames": num_frames,
+                               "n_time": n_time}
+            if blocked is None:
+                window_f64 = get_window(cfg.window, n, cfg.periodic,
+                                        dtype=np.float64)
             c_local = channels // n_ch
             held_rows = [(c, held) for c in range(n_ch)
                          if any(held := [mesh.local(c, t)
@@ -655,21 +654,19 @@ def blocked_per_bin(
     identity), or None when its gate does not hold: not a matmul config,
     unsupported N/hop, unaligned blocks, too few frames, or a spectral fn
     that is not a fixed per-bin response."""
+    if not _blocked_fits(cfg, t_block, num_frames):
+        return None
+    return blocked_response(cfg, spectral_fn)
+
+
+def _blocked_fits(cfg: StftConfig, t_block: int, num_frames: int) -> bool:
+    """`blocked_per_bin`'s gate but the response: a matmul config, a
+    supported N/hop, blocks on its group grid and enough frames."""
     n, hop = cfg.frame_size, cfg.hop_size
-    if spectral_fn is None:
-        per_bin = np.ones(n // 2 + 1)
-    else:
-        per_bin = resolve_per_bin_response(spectral_fn, n)
     group = blocked_group_for(n, hop)
-    if (
-        per_bin is not None
-        and _on_matmul(cfg)
-        and group is not None
-        and t_block % (group * hop) == 0
-        and num_frames >= 2 * (n // hop - 1)
-    ):
-        return per_bin
-    return None
+    return (_on_matmul(cfg) and group is not None
+            and t_block % (group * hop) == 0
+            and num_frames >= 2 * (n // hop - 1))
 
 
 def metrics_report(metrics: dict) -> dict:

@@ -45,13 +45,12 @@ import torch
 
 from ..core import device as _device
 from ..core.types import StftConfig
-from ..fft.matmul_backend import blocked_edge_patch, blocked_patch_span
-from ..pipeline import _norm_np, _window_f64
+from ..fft.matmul_backend import BlockedPlan, blocked_plan_for
 from ..profiling import span
-from ..streaming_pipeline import _resolve_blocked_per_bin
 from .mesh import CHANNEL_AXIS, TIME_AXIS, Mesh, auto_mesh
 from .sharded_pipeline import (
     GlobalArray,
+    _sharded_round_trip,
     blocked_per_bin,
     process_allgather,
     sharded_round_trip,
@@ -79,38 +78,19 @@ def _pinned_place(a: np.ndarray, device) -> torch.Tensor:
 
 
 def _blocked_stream_mode(cfg: StftConfig, mesh: Mesh, spectral_fn,
-                         s: int) -> Optional[dict]:
-    """The blocked formulation's constants for a stream of [C, s] chunks on
-    `mesh`, or None when its gate does not hold: the one-shot's
-    `blocked_per_bin` gate at the halo-extended chunk shape, and chunks
-    long enough that the head and tail patches never overlap."""
+                         s: int) -> Optional[BlockedPlan]:
+    """The blocked plan of a stream of [C, s] chunks on `mesh` (its
+    response resolved once, here), or None when its gate does not hold:
+    the one-shot's `blocked_per_bin` gate at the halo-extended chunk shape,
+    and chunks long enough that the head and tail patches never overlap."""
     n, hop = cfg.frame_size, cfg.hop_size
     n_time = mesh.shape[TIME_AXIS]
     ext = s + 2 * _ctx_len(cfg, n_time)
-    edge = n - hop
-    if s < 2 * edge + n:
+    if s < 2 * (n - hop) + n:
         return None
-    rb = _resolve_blocked_per_bin(cfg, spectral_fn)
-    if rb is None:
-        return None
-    nf = (ext - n) // hop + 1
-    if blocked_per_bin(cfg, spectral_fn, t_block=ext // n_time,
-                       num_frames=nf) is None:
-        return None
-    # The edge norms do not depend on the frame count: a reference count
-    # stands in for the unknown stream length.
-    r = n // hop
-    nf_ref = 2 * (r - 1) + 2
-    span_ref = (nf_ref - 1) * hop + n
-    norm_ref = _norm_np(cfg, nf_ref, span_ref)
-    wb = np.ascontiguousarray(_window_f64(cfg), np.float64).tobytes()
-    return {
-        "rb": rb,
-        "wb": wb,
-        "sb": wb if cfg.synthesis_window else None,
-        "head_norm": np.asarray(norm_ref[:edge], np.float32),
-        "tail_norm": np.asarray(norm_ref[span_ref - edge :], np.float32),
-    }
+    response = blocked_per_bin(cfg, spectral_fn, t_block=ext // n_time,
+                               num_frames=(ext - n) // hop + 1)
+    return None if response is None else blocked_plan_for(cfg, response)
 
 
 def sharded_stream(
@@ -203,13 +183,13 @@ class ShardedStreamer:
         self._first = True  # the next processed chunk is the stream head
         self._s: Optional[int] = None
         self._finished = False  # finish() ends the stream; feed() raises
-        self._mode: Optional[dict] = None  # blocked-mode constants, or None
+        self._plan: Optional[BlockedPlan] = None  # the blocked mode's plan
 
     @property
     def blocked(self) -> bool:
         """Whether the stream runs the blocked formulation (known after the
         first chunk)."""
-        return self._mode is not None
+        return self._plan is not None
 
     def _place(self, chunk) -> torch.Tensor:
         if isinstance(chunk, torch.Tensor):
@@ -227,9 +207,8 @@ class ShardedStreamer:
         the one-shot's edge shard at its shapes (across processes, on a
         device of the rank that holds them: the mesh's devices are of one
         kind)."""
-        mode, cfg = self._mode, self.cfg
-        n, hop = cfg.frame_size, cfg.hop_size
-        edge, span_p = n - hop, blocked_patch_span(n, hop)
+        plan, cfg = self._plan, self.cfg
+        edge, span_p = plan.edge, plan.patch_span
         l_ctx, s = self._l_ctx, ext.shape[1] - 2 * self._l_ctx
         b = l_ctx if side == "head" else l_ctx + s - edge
         if isinstance(y, GlobalArray):
@@ -241,11 +220,8 @@ class ShardedStreamer:
                                    else self._n_time - 1)
         a = l_ctx if side == "head" else l_ctx + s - span_p
         with span("crlot.stream.patch", side=side, row=c):
-            p = blocked_edge_patch(ext[rows, a : a + span_p].to(dev), n, hop,
-                                   mode["wb"], mode["sb"], mode["rb"], side,
-                                   cfg.fft_precision, fixed_order=True)
-            norm = torch.from_numpy(mode[side + "_norm"]).to(dev)
-            p = p / torch.clamp_min(norm, cfg.eps)
+            p = plan.edge_patch(ext[rows, a : a + span_p].to(dev), side,
+                                cfg.fft_precision, fixed_order=True)
             if isinstance(y, GlobalArray):
                 y.write(c, b, p)
             else:
@@ -256,14 +232,14 @@ class ShardedStreamer:
         with span("crlot.stream.context"):
             ext = torch.cat([left[:, -l_ctx:], mid, right[:, :l_ctx]], dim=1)
         s = mid.shape[1]
-        if self._mode is not None:
+        if self._plan is not None:
             # Blocked: the full-validity mesh program for every chunk (the
             # context makes the kept rows read what the one-shot's rows
             # read; the in-mesh phantom patches land in the discarded
             # context), then the stream's edge patches on its head and
             # tail chunks.
-            y = sharded_round_trip(ext, self.cfg, self.mesh,
-                                   self.spectral_fn)
+            y = _sharded_round_trip(ext, self.cfg, self.mesh,
+                                    self.spectral_fn, plan=self._plan)
             c_local = ext.shape[0] // self.mesh.shape[CHANNEL_AXIS]
             for c in range(self.mesh.shape[CHANNEL_AXIS]):
                 rows = slice(c * c_local, (c + 1) * c_local)
@@ -329,7 +305,7 @@ class ShardedStreamer:
                 )
             self._s = s
             if self.allow_blocked:
-                self._mode = _blocked_stream_mode(
+                self._plan = _blocked_stream_mode(
                     self.cfg, self.mesh, self.spectral_fn, s)
             self._tail = torch.zeros_like(chunk)
         elif chunk.shape[1] != self._s:
@@ -379,7 +355,7 @@ class ShardedStreamer:
         self._tail = None if st["tail"] is None else self._place(st["tail"])
         self._first = bool(st["first"])
         self._s = None if st["s"] is None else int(st["s"])
-        self._mode = (
+        self._plan = (
             _blocked_stream_mode(self.cfg, self.mesh, self.spectral_fn,
                                  self._s)
             if self.allow_blocked and self._s is not None else None

@@ -15,7 +15,12 @@ Counterpart of the slice's part of `crlot_tpu/fft/matmul_backend.py`:
   hop-block Toeplitz kernel applied straight to the padded signal
   (`hopblock_apply`), with the head/tail blocks recomputed exactly from the
   real boundary frames (`blocked_edge_patch`), and the halo a streaming
-  chunk carries to reproduce it (`blocked_chunk_geometry`).
+  chunk carries to reproduce it (`blocked_chunk_geometry`);
+* its plan (`blocked_response`, `blocked_plan`): the response a spectral
+  fn resolves to and every design constant of one blocked round-trip
+  (geometry, norm fold, edge norms, the kernel and its B0 split on each
+  device), the one source of them for the one-shot route, both chunk
+  streamers and the mesh program.
 
 The float64 host design code is copied, not imported (the port never
 imports the JAX package); the tests hold every array byte-identical to the
@@ -49,12 +54,17 @@ otherwise.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+from typing import Optional
+
 import numpy as np
 import torch
 
-from ..core.consts import const_on, design_cache
-from ..profiling import span
-from ..core.types import FftPrecision, float_tier
+from ..core.consts import as_f32, const_on, design_cache
+from ..core.types import FftPrecision, StftConfig, float_tier
+from ..ola.norm import edge_norm
+from ..spectral import resolve_per_bin_response
+from ..window.windows import get_window
 from . import fp32_window, tf32x3
 
 MAX_MATMUL_NFFT = 4096
@@ -389,26 +399,6 @@ def blocked_runtime_kernel(
 
 
 @design_cache(8)
-def _runtime_kernel_on(nfft, hop, group, awin_bytes, swin_bytes, rb_kern,
-                       device: torch.device) -> torch.Tensor:
-    kern, _ = blocked_runtime_kernel(
-        nfft, hop, group, awin_bytes, swin_bytes, rb_kern
-    )
-    return torch.from_numpy(kern).to(device)
-
-
-@design_cache(8)
-def _runtime_bt_on(nfft, hop, group, awin_bytes, swin_bytes, rb_kern,
-                   device: torch.device) -> tuple:
-    """The runtime kernel as B0 takes it: transposed [G*hop, mg*G*hop],
-    split into TF32 (hi, lo) by the host design code."""
-    kern, _ = blocked_runtime_kernel(
-        nfft, hop, group, awin_bytes, swin_bytes, rb_kern
-    )
-    return tuple(torch.from_numpy(a).to(device) for a in tf32x3.split_t(kern))
-
-
-@design_cache(8)
 def _composed_basis_on(nfft, awin_bytes, swin_bytes, response_bytes,
                        device: torch.device) -> torch.Tensor:
     m = _composed_roundtrip_basis(nfft, awin_bytes, swin_bytes, response_bytes)
@@ -573,54 +563,209 @@ def roundtrip_composed_blocked(
     precision=FftPrecision.HIGH,
 ) -> torch.Tensor:
     """Composed per-bin round-trip INCLUDING the overlap-add as hop-block
-    products on the raw signal, length (num_frames-1)*hop + nfft; the
-    windowed product at `precision` (`hopblock_apply`).
+    products on the raw signal, length (num_frames-1)*hop + nfft, for any
+    window pair and group; the windowed product at `precision`
+    (`hopblock_apply`). `round_trip`'s "blocked" route runs the same steps
+    on a `blocked_plan`'s constants (`pipeline.blocked_composed_round_trip`).
 
     Without `norm_fold` the result is the un-normalized OLA sum. With
     `norm_fold = (norm_c, head_norm, tail_norm)` -- the constant interior
     COLA norm and the eps-clamped f32 norms of the (R-1)*hop edge samples at
-    each end, on the signal's device (`pipeline.blocked_norm_fold` checks
-    the interior is constant) -- 1/norm_c is folded into the kernel at f64
-    design time and only the edge samples divide by their true norm."""
+    each end, on the signal's device -- 1/norm_c is folded into the kernel
+    at f64 design time and only the edge samples divide by their true
+    norm."""
     assert composed_block_supported(nfft, hop)
     assert num_frames >= 2 * (nfft // hop - 1)
     assert group >= 1
-    r_count = nfft // hop
     full = (num_frames - 1) * hop + nfft
-    edge = (r_count - 1) * hop
-    dev = padded.device
-    with span("crlot.blocked.consts"):
-        wb = _bytes(analysis_window_f64, np.float64)
-        sb = (
-            None if synthesis_window_f64 is None
-            else _bytes(synthesis_window_f64, np.float64)
-        )
-        rb = _bytes(per_bin_response, np.complex128)
-        rb_kern = rb
-        if norm_fold is not None:
-            rb_kern = _bytes(
-                np.asarray(per_bin_response, np.complex128) / norm_fold[0],
-                np.complex128,
-            )
-        kern = _runtime_kernel_on(nfft, hop, group, wb, sb, rb_kern, dev)
-        bt = (_runtime_bt_on(nfft, hop, group, wb, sb, rb_kern, dev)
-              if dev.type != "cpu"
+    edge = (nfft // hop - 1) * hop
+    wb = _bytes(analysis_window_f64, np.float64)
+    sb = (None if synthesis_window_f64 is None
+          else _bytes(synthesis_window_f64, np.float64))
+    response = np.asarray(per_bin_response, np.complex128)
+    rb = _bytes(response, np.complex128)
+    kern, _ = blocked_runtime_kernel(
+        nfft, hop, group, wb, sb,
+        rb if norm_fold is None else _bytes(response / norm_fold[0],
+                                            np.complex128))
+    x = padded[..., :full].float()
+    out = hopblock_apply(x, torch.from_numpy(kern).to(x.device), group * hop,
+                         full, edge, precision)
+    span_p = blocked_patch_span(nfft, hop)
+    head = blocked_edge_patch(x[..., :span_p], nfft, hop, wb, sb, rb, "head")
+    tail = blocked_edge_patch(x[..., full - span_p :], nfft, hop, wb, sb, rb,
+                              "tail")
+    if norm_fold is not None:
+        head, tail = head / norm_fold[1], tail / norm_fold[2]
+    return torch.cat([head, out[..., edge : full - edge], tail], dim=-1)
+
+
+# --- the blocked plan --------------------------------------------------------
+
+
+def blocked_response(cfg: StftConfig, spectral_fn) -> Optional[np.ndarray]:
+    """The per-bin response (complex128 [N/2+1]) the blocked formulation
+    applies for `spectral_fn` at cfg's frame size: ones for the identity,
+    the fn's fixed per-bin response, or None where there is none (a
+    nonlinear fn, or N above MAX_MATMUL_NFFT). The one resolution of the
+    fn for a round-trip call, a chunk stream or a mesh stream."""
+    n = cfg.frame_size
+    if n > MAX_MATMUL_NFFT:
+        return None
+    if spectral_fn is None:
+        return np.ones(n // 2 + 1, np.complex128)
+    return resolve_per_bin_response(spectral_fn, n)
+
+
+@dataclass(frozen=True)
+class BlockedPlan:
+    """The design of one blocked (hop-block Toeplitz) round-trip, for every
+    caller: the one-shot route, both chunk streamers and the mesh program.
+    Equal (and hashed) by its key: N, hop, the f64 analysis window's bytes,
+    whether the window also synthesizes, eps and the response's bytes.
+
+    The geometry is `blocked_chunk_geometry`'s with `blocked_group_for`'s
+    group G (its left context is `edge`). Where the interior COLA norm is
+    constant (to 1e-9 relative) 1/norm_c folds into the kernel at f64
+    design time (`rb_kern` is the response over norm_c, `tile` None);
+    otherwise the kernel keeps the raw response and the interior divides
+    by `tile`, the eps-clamped [hop] period of the norm. `head_norm` and
+    `tail_norm` are the eps-clamped f32 norms of the (R-1)*hop edge
+    samples at each end. None of these depends on the frame count
+    (`ola.norm.edge_norm` adds frames in ascending order), so one plan
+    serves every count >= 2(R-1)."""
+
+    nfft: int
+    hop: int
+    wb: bytes
+    synthesis: bool
+    eps: float
+    rb: bytes
+    group: int = field(compare=False)
+    gh: int = field(compare=False)
+    mg: int = field(compare=False)
+    edge: int = field(compare=False)
+    right_ctx: int = field(compare=False)
+    patch_span: int = field(compare=False)
+    rb_kern: bytes = field(compare=False)
+    norm_c: Optional[float] = field(compare=False)
+    tile: Optional[np.ndarray] = field(compare=False)
+    head_norm: np.ndarray = field(compare=False)
+    tail_norm: np.ndarray = field(compare=False)
+
+    @property
+    def sb(self):
+        """The synthesis window's bytes, or None."""
+        return self.wb if self.synthesis else None
+
+    def kernel(self, folded: bool = True) -> np.ndarray:
+        """The f32 runtime kernel [mg*G*hop, G*hop] of the folded response
+        (`rb_kern`) or of the raw one."""
+        return blocked_runtime_kernel(self.nfft, self.hop, self.group,
+                                      self.wb, self.sb,
+                                      self.rb_kern if folded else self.rb)[0]
+
+    def operands(self, device, precision, folded: bool = True) -> tuple:
+        """(kern, bt): the kernel (`kernel(folded)`) on `device`, and where
+        `hopblock_apply` runs it on B0 in 3xTF32 (a card at HIGH) its TF32
+        (hi, lo) halves from the host design code, else None. Built once a
+        device."""
+        folded = folded and self.norm_c is not None  # else the same kernel
+        device = torch.device(device)
+        bt = (_plan_bt_on(self, folded, device) if device.type != "cpu"
               and float_tier(precision) == FftPrecision.HIGH else None)
-    with span("crlot.blocked.b0"):
-        x = padded[..., :full].float()
-        out = hopblock_apply(x, kern, group * hop, full, edge, precision, bt)
-    with span("crlot.blocked.edges"):
-        span_p = blocked_patch_span(nfft, hop)
-        head = blocked_edge_patch(x[..., :span_p], nfft, hop, wb, sb, rb,
-                                  "head")
-        tail = blocked_edge_patch(
-            x[..., full - span_p : full], nfft, hop, wb, sb, rb, "tail"
-        )
-    with span("crlot.blocked.join"):
-        if norm_fold is not None:
-            head = head / norm_fold[1]
-            tail = tail / norm_fold[2]
-        return torch.cat([head, out[..., edge : full - edge], tail], dim=-1)
+        return _plan_kernel_on(self, folded, device), bt
+
+    def patch(self, x_region: torch.Tensor, side: str,
+              precision=FftPrecision.HIGH, fixed_order: bool = False):
+        """`blocked_edge_patch` of the raw response: the UN-normalized head
+        (or tail) samples of a [..., patch_span] region."""
+        return blocked_edge_patch(x_region, self.nfft, self.hop, self.wb,
+                                  self.sb, self.rb, side, precision,
+                                  fixed_order)
+
+    def edge_patch(self, x_region: torch.Tensor, side: str,
+                   precision=FftPrecision.HIGH, fixed_order: bool = False):
+        """`patch` over the edge samples' norm: the normalized head (or
+        tail) of the output."""
+        head, tail, _ = _plan_norms_on(self, x_region.device)
+        return (self.patch(x_region, side, precision, fixed_order)
+                / (head if side == "head" else tail))
+
+    def interior(self, out: torch.Tensor) -> torch.Tensor:
+        """A hop-aligned stretch of the folded kernel's output, normalized:
+        as it is where 1/norm_c is in the kernel, else over `tile`."""
+        tile = _plan_norms_on(self, out.device)[2]
+        if tile is None:
+            return out
+        return out / tile.repeat(out.shape[-1] // self.hop)
+
+
+@design_cache(16)
+def blocked_plan(nfft: int, hop: int, window_bytes: bytes, synthesis: bool,
+                 eps: float, response_bytes: bytes) -> BlockedPlan:
+    """The `BlockedPlan` of this key (requires
+    `composed_block_supported(nfft, hop)`). The norms are those of the f32
+    window, as every frames route of the pipeline normalizes, over a
+    reference frame count."""
+    geo = blocked_chunk_geometry(nfft, hop)
+    edge = geo["edge"]
+    nf_ref = 2 * (nfft // hop - 1) + 2
+    full = (nf_ref - 1) * hop + nfft
+    w = np.frombuffer(window_bytes, np.float64)
+    w = w.astype(np.float32).astype(np.float64)
+    norm = edge_norm(w * w if synthesis else w, hop, nf_ref, full)
+    interior = norm[edge : full - edge]
+    fold = bool(interior[0] > 0 and np.max(np.abs(interior - interior[0]))
+                <= 1e-9 * interior[0])
+    norm64 = np.asarray(norm, np.float64)
+    norm_c = float(norm64[edge]) if fold else None
+    response = np.frombuffer(response_bytes, np.complex128)
+
+    def clamped(a):
+        return np.maximum(a, eps).astype(np.float32)
+
+    return BlockedPlan(
+        nfft, hop, window_bytes, synthesis, eps, response_bytes,
+        group=geo["group"], gh=geo["gh"], mg=geo["mg"], edge=edge,
+        right_ctx=geo["right_ctx"],
+        patch_span=blocked_patch_span(nfft, hop),
+        rb_kern=(_bytes(response / norm_c, np.complex128) if fold
+                 else response_bytes),
+        norm_c=norm_c,
+        tile=None if fold else clamped(norm64[edge : edge + hop]),
+        head_norm=clamped(norm64[:edge]),
+        tail_norm=clamped(norm64[full - edge :]),
+    )
+
+
+def blocked_plan_for(cfg: StftConfig, response: np.ndarray) -> BlockedPlan:
+    """`blocked_plan` for cfg's geometry, window, synthesis flag and eps
+    and a response `blocked_response` resolved."""
+    w = get_window(cfg.window, cfg.frame_size, cfg.periodic, dtype=np.float64)
+    return blocked_plan(cfg.frame_size, cfg.hop_size, _bytes(w, np.float64),
+                        cfg.synthesis_window, cfg.eps,
+                        _bytes(response, np.complex128))
+
+
+@design_cache(8)
+def _plan_kernel_on(plan: BlockedPlan, folded: bool,
+                    device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(plan.kernel(folded)).to(device)
+
+
+@design_cache(8)
+def _plan_bt_on(plan: BlockedPlan, folded: bool,
+                device: torch.device) -> tuple:
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in tf32x3.split_t(plan.kernel(folded)))
+
+
+@design_cache(8)
+def _plan_norms_on(plan: BlockedPlan, device: torch.device) -> tuple:
+    """(head_norm, tail_norm, tile or None) as f32 tensors on `device`."""
+    return (as_f32(plan.head_norm, device), as_f32(plan.tail_norm, device),
+            None if plan.tile is None else as_f32(plan.tile, device))
 
 
 # --- the tiled layout -------------------------------------------------------

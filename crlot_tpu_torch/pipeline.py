@@ -12,7 +12,8 @@ Branches of `round_trip` (names returned by `formulation_for`):
   B3 kernel's round-trip frames (`fft/fused_rt.py`) and the B1 OLA kernel;
 * "blocked": identity and fixed per-bin responses (EQ, FIR, gain) as one
   hop-block Toeplitz product with the OLA and 1/COLA folded in
-  (`fft/matmul_backend.roundtrip_composed_blocked`);
+  (`blocked_composed_round_trip`, its constants from
+  `fft/matmul_backend.blocked_plan`);
 * "fused_rt_ola": a nonlinear packed fn whose packed chain has a full B2
   epilogue menu, through the B2 kernel (`fft/fused_rt.py`);
 * "packed_parts": any other packed fn: folded forward, `fn.packed`, folded
@@ -58,13 +59,14 @@ from .fft.fused_rt import (
 )
 from .fft.matmul_backend import (
     MAX_MATMUL_NFFT,
-    blocked_group_for,
+    blocked_plan_for,
+    blocked_response,
     composed_block_supported,
     fold_windowed,
     folded_consts_on,
     folded_forward,
     folded_inverse,
-    roundtrip_composed_blocked,
+    hopblock_apply,
     roundtrip_composed_matmul,
     roundtrip_folded_matmul,
     roundtrip_folded_tiled,
@@ -76,7 +78,7 @@ from .ola.fused import ola_normalized_auto
 from .ola.norm import edge_norm
 from .profiling import span
 from .resample.polyphase import resample
-from .spectral import epilogue_of, resolve_per_bin_response
+from .spectral import epilogue_of
 from .window.windows import get_window
 
 
@@ -168,7 +170,8 @@ def blocked_norm_fold(cfg: StftConfig, num_frames: int):
     """(norm_arr, full, edge, fold_ok): fold_ok when the interior COLA sum
     is constant (to 1e-9 relative), so 1/norm folds into the blocked kernel
     at design time and only the 2*(R-1)*hop edge samples divide by the true
-    norm. Cached: the check reads the whole norm."""
+    norm. The reference's counterpart; the port's routes take the same
+    decision from their `blocked_plan`, for every frame count."""
     full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
     norm_arr = _norm_np(cfg, num_frames, full)
     edge = (cfg.frame_size // cfg.hop_size - 1) * cfg.hop_size
@@ -181,49 +184,35 @@ def blocked_norm_fold(cfg: StftConfig, num_frames: int):
     return norm_arr, full, edge, fold_ok
 
 
-@design_cache(8)
-def _norm_fold_on(cfg: StftConfig, num_frames: int, device: torch.device):
-    """`roundtrip_composed_blocked`'s norm_fold for this geometry, or None
-    when the interior norm is not constant."""
-    norm_arr, full, edge, fold_ok = blocked_norm_fold(cfg, num_frames)
-    if not fold_ok:
-        return None
-    return (
-        float(np.float64(norm_arr[edge])),
-        as_f32(np.maximum(norm_arr[:edge], cfg.eps), device),
-        as_f32(np.maximum(norm_arr[full - edge : full], cfg.eps), device),
-    )
-
-
 def blocked_composed_round_trip(
     signal: torch.Tensor, cfg: StftConfig, per_bin: np.ndarray
 ) -> torch.Tensor:
-    """round_trip's "blocked" branch as a gate-free program. Caller
-    contract: composed_block_supported(N, hop) and
-    num_frames >= 2*(N/hop - 1)."""
+    """round_trip's "blocked" branch as a gate-free program: the centre
+    pad, B0's hop-block product of the plan's folded kernel, the head and
+    tail patches over their norms, and the join. Caller contract:
+    composed_block_supported(N, hop) and num_frames >= 2*(N/hop - 1)."""
     spec_ = cfg.frame_spec
-    num_frames = spec_.num_frames(signal.shape[-1])
+    hop, prec = cfg.hop_size, cfg.fft_precision
+    full = (spec_.num_frames(signal.shape[-1]) - 1) * hop + cfg.frame_size
     with span("crlot.blocked.pad"):
         padded = pad_signal(
             signal, spec_.pad_amount, spec_.pad_amount,
             spec_.pad_mode, spec_.pad_value,
         )
     with span("crlot.blocked.consts"):
-        w64 = _window_f64(cfg)
-        norm_fold = _norm_fold_on(cfg, num_frames, signal.device)
-    out = roundtrip_composed_blocked(
-        padded, cfg.frame_size, cfg.hop_size, num_frames, w64,
-        per_bin, w64 if cfg.synthesis_window else None,
-        group=blocked_group_for(cfg.frame_size, cfg.hop_size),
-        norm_fold=norm_fold,
-        precision=cfg.fft_precision,
-    )
+        plan = blocked_plan_for(cfg, per_bin)
+        kern, bt = plan.operands(signal.device, prec)
+    edge, span_p = plan.edge, plan.patch_span
+    with span("crlot.blocked.b0"):
+        x = padded[..., :full].float()
+        out = hopblock_apply(x, kern, plan.gh, full, edge, prec, bt)
+    with span("crlot.blocked.edges"):
+        head = plan.edge_patch(x[..., :span_p], "head")
+        tail = plan.edge_patch(x[..., full - span_p :], "tail")
+    with span("crlot.blocked.join"):
+        out = torch.cat([head, plan.interior(out[..., edge : full - edge]),
+                         tail], dim=-1)
     pad = spec_.pad_amount
-    if norm_fold is None:
-        full = (num_frames - 1) * cfg.hop_size + cfg.frame_size
-        out = out / torch.clamp_min(
-            _norm_on(cfg, num_frames, full, out.device), cfg.eps
-        )
     with span("crlot.round_trip.crop"):
         return out[..., pad : pad + signal.shape[-1]]
 
@@ -244,6 +233,13 @@ def formulation_for(
     Each is the reference accelerator's choice at the same gates
     (`crlot_tpu/pipeline.py`'s round_trip with a "tpu" backend); a
     frames-level route needs at least one frame."""
+    return _formulation(cfg, spectral_fn, n_samples,
+                        blocked_response(cfg, spectral_fn))
+
+
+def _formulation(cfg: StftConfig, spectral_fn: Optional[Callable],
+                 n_samples: int, response: Optional[np.ndarray]) -> str:
+    """`formulation_for` with the fn's `blocked_response` resolved."""
     matmul_ok = cfg.fft_backend in (FftBackend.AUTO, FftBackend.MATMUL)
     nfft, hop = cfg.frame_size, cfg.hop_size
     has_frames = cfg.frame_spec.num_frames(n_samples) > 0
@@ -257,17 +253,12 @@ def formulation_for(
         and has_frames
     ):
         return "fused_rt_frames"
-    per_bin = (
-        resolve_per_bin_response(spectral_fn, nfft)
-        if nfft <= MAX_MATMUL_NFFT else None
-    )
-    if nfft <= MAX_MATMUL_NFFT and (spectral_fn is None
-                                    or per_bin is not None):
+    if response is not None:
         if _blocked_ok(cfg, n_samples):
             return "blocked"
         if not has_frames:
             return "stft_istft"
-        if per_bin is not None:
+        if spectral_fn is not None:
             return "composed"
         if tiled_supported(nfft):
             return ("tiled_i8" if cfg.fft_precision == FftPrecision.INT8X2
@@ -302,22 +293,17 @@ def round_trip(
     While a profiler records, a call is the span `crlot.round_trip` (its
     `route`, `rows` and `samples`, the constants it built and kernels it
     launched, and on "packed_parts" `frame_bytes`, `packed_frame_bytes`)
-    over its stages: `crlot.round_trip.plan` (the route, and
-    the per-bin response on the "blocked" route, the window on the
-    others), the route's own stages and
+    over its stages: `crlot.round_trip.plan` (the fn's
+    `blocked_response`, resolved once a call, the route, and the window on
+    routes but "blocked"), the route's own stages and
     `crlot.round_trip.crop` (`profiling.span`)."""
     with span("crlot.round_trip") as call:
         signal = _device.place(signal, device)
         n = signal.shape[-1]
         with span("crlot.round_trip.plan"):
-            route = formulation_for(cfg, spectral_fn, n)
-            if route == "blocked":
-                per_bin = resolve_per_bin_response(spectral_fn,
-                                                   cfg.frame_size)
-                if per_bin is None:
-                    per_bin = np.ones(cfg.frame_size // 2 + 1)
-            else:
-                w64 = _window_f64(cfg)
+            response = blocked_response(cfg, spectral_fn)
+            route = _formulation(cfg, spectral_fn, n, response)
+            w64 = None if route == "blocked" else _window_f64(cfg)
         if call:
             rows = math.prod(signal.shape[:-1])
             call.note(route=route, rows=rows, samples=n)
@@ -326,13 +312,14 @@ def round_trip(
                     cfg, rows, n,
                     _rt.packed_engine(cfg.fft_precision, signal.device)))
         if route == "blocked":
-            return blocked_composed_round_trip(signal, cfg, per_bin)
-        return _round_trip(signal, cfg, spectral_fn, route, w64)
+            return blocked_composed_round_trip(signal, cfg, response)
+        return _round_trip(signal, cfg, spectral_fn, route, w64, response)
 
 
 def _round_trip(signal: torch.Tensor, cfg: StftConfig, spectral_fn,
-                route: str, w64: np.ndarray) -> torch.Tensor:
-    """`round_trip` on `route`, every route but "blocked"."""
+                route: str, w64: np.ndarray, response) -> torch.Tensor:
+    """`round_trip` on `route`, every route but "blocked" (`response`: the
+    fn's `blocked_response`, which "composed" applies)."""
     n = signal.shape[-1]
     spec_ = cfg.frame_spec
     pad = spec_.pad_amount
@@ -379,9 +366,7 @@ def _round_trip(signal: torch.Tensor, cfg: StftConfig, spectral_fn,
         frames = frame_signal(signal, spec_)
         if route == "composed":
             out_frames = roundtrip_composed_matmul(
-                frames, cfg.frame_size, w64,
-                resolve_per_bin_response(spectral_fn, cfg.frame_size), syn,
-                cfg.fft_precision)
+                frames, cfg.frame_size, w64, response, syn, cfg.fft_precision)
         else:
             out_frames = roundtrip_folded_matmul(frames, cfg.frame_size, w64,
                                                  syn)

@@ -4,10 +4,11 @@ Counterpart of `crlot_tpu/streaming_pipeline.py`.
 
 * `BlockedChunkStreamer` runs the blocked (hop-block Toeplitz) formulation
   on halo-extended chunks: each chunk carries `left_ctx` samples of its
-  predecessor and `right_ctx` of its successor
-  (`fft.matmul_backend.blocked_chunk_geometry`), so every chunk row is the
+  predecessor and `right_ctx` of its successor, so every chunk row is the
   one-shot's row over the same data, and the stream head and tail run the
-  one-shot's phantom-frame patches (`blocked_edge_patch`). Concatenated
+  one-shot's phantom-frame patches, all from the one-shot's
+  `fft.matmul_backend.blocked_plan` (`I16BlockedStreamer` in `wire.py`
+  quantizes its kernel). Concatenated
   output equals `pipeline.blocked_composed_round_trip` over the unbroken
   stream bit for bit wherever the products are independent of the batch
   they sit in: on the card at HIGH (B0, a fixed order per output), and on
@@ -29,7 +30,6 @@ tensor stays on its own device. No environment knob is read.
 from __future__ import annotations
 
 import logging
-from typing import Optional
 
 import numpy as np
 import torch
@@ -38,15 +38,12 @@ from .core import device as _device
 from .core.consts import as_f32, const_on, design_cache
 from .core.types import FftBackend, FftPrecision, StftConfig, float_tier
 from .fft import dispatch as _fft
-from .fft import tf32x3
 from .fft.fused_rt import roundtrip_of_frames
 from .fft.matmul_backend import (
     MAX_MATMUL_NFFT,
-    blocked_chunk_geometry,
-    blocked_edge_patch,
-    blocked_patch_span,
-    blocked_runtime_kernel,
-    composed_block_supported,
+    blocked_group_for,
+    blocked_plan_for,
+    blocked_response,
     hopblock_apply,
     irfft_folded_parts,
     rfft_folded_packed,
@@ -54,7 +51,7 @@ from .fft.matmul_backend import (
 )
 from .ola.norm import build_norm_linear
 from .ola.reference import overlap_add
-from .pipeline import _synthesis, _window_f64, _window_np, blocked_norm_fold
+from .pipeline import _synthesis, _window_f64, _window_np
 from .spectral import epilogue_of, resolve_per_bin_response
 
 logger = logging.getLogger("crlot_tpu_torch.streaming")
@@ -63,79 +60,6 @@ logger = logging.getLogger("crlot_tpu_torch.streaming")
 # ---------------------------------------------------------------------------
 # Blocked (hop-block Toeplitz) chunk streaming.
 # ---------------------------------------------------------------------------
-
-
-def _resolve_blocked_per_bin(cfg: StftConfig, spectral_fn) -> Optional[bytes]:
-    """Per-bin response bytes for the blocked stream (ones for the
-    identity), or None when the spectral fn is not a fixed per-bin
-    response."""
-    n = cfg.frame_size
-    if spectral_fn is None:
-        per_bin = np.ones(n // 2 + 1)
-    else:
-        per_bin = resolve_per_bin_response(spectral_fn, n)
-        if per_bin is None:
-            return None
-    return np.ascontiguousarray(per_bin, np.complex128).tobytes()
-
-
-@design_cache(16)
-def _blocked_stream_consts(cfg: StftConfig, rb: bytes) -> dict:
-    """Design-time constants of the blocked chunk program, identical to
-    what `pipeline.blocked_composed_round_trip` builds for any stream
-    length: the interior and edge COLA norms do not depend on the frame
-    count (`pipeline.blocked_norm_fold`), so a reference count stands in
-    for the unknown stream length. numpy only."""
-    n, hop = cfg.frame_size, cfg.hop_size
-    r = n // hop
-    geo = blocked_chunk_geometry(n, hop)
-    nf_ref = 2 * (r - 1) + 2
-    norm_ref, full_ref, edge, fold_ok = blocked_norm_fold(cfg, nf_ref)
-    w64 = _window_f64(cfg)
-    wb = np.ascontiguousarray(w64, np.float64).tobytes()
-    sb = wb if cfg.synthesis_window else None
-    norm64 = np.asarray(norm_ref, np.float64)
-    per_bin = np.frombuffer(rb, np.complex128)
-    tile = None
-    if fold_ok:
-        # The one-shot's fold: 1/interior-norm into the kernel.
-        norm_c = float(norm64[edge])
-        rb_kern = np.ascontiguousarray(
-            np.asarray(per_bin, np.complex128) / norm_c
-        ).tobytes()
-    else:
-        # Divide-after: the interior norm is hop-periodic, so one [hop]
-        # tile reproduces the one-shot's values anywhere in the interior.
-        rb_kern = rb
-        tile = np.maximum(norm64[edge : edge + hop], cfg.eps).astype(
-            np.float32
-        )
-    kern, mg = blocked_runtime_kernel(n, hop, geo["group"], wb, sb, rb_kern)
-    return {
-        **geo,
-        "kern": kern,
-        "kern_t": tf32x3.split_t(kern),  # B0's (hi, lo)
-        "wb": wb,
-        "sb": sb,
-        "interior_norm_tile": tile,
-        "head_norm": np.maximum(norm64[:edge], cfg.eps).astype(np.float32),
-        "tail_norm": np.maximum(
-            norm64[full_ref - edge : full_ref], cfg.eps
-        ).astype(np.float32),
-    }
-
-
-@design_cache(8)
-def _blocked_consts_on(cfg: StftConfig, rb: bytes, device: torch.device):
-    c = _blocked_stream_consts(cfg, rb)
-    tile = c["interior_norm_tile"]
-    return {
-        "kern": torch.from_numpy(c["kern"]).to(device),
-        "bt": tuple(torch.from_numpy(a).to(device) for a in c["kern_t"]),
-        "tile": None if tile is None else as_f32(tile, device),
-        "head_norm": as_f32(c["head_norm"], device),
-        "tail_norm": as_f32(c["tail_norm"], device),
-    }
 
 
 def blocked_stream_supported(
@@ -147,57 +71,13 @@ def blocked_stream_supported(
     G*hop-aligned chunks long enough that the head and tail patches never
     overlap (S >= 2*edge + N)."""
     n, hop = cfg.frame_size, cfg.hop_size
-    if cfg.center or cfg.fft_backend == FftBackend.XLA:
+    group = blocked_group_for(n, hop)
+    if cfg.center or cfg.fft_backend == FftBackend.XLA or group is None:
         return False
-    if not composed_block_supported(n, hop):
+    if chunk_samples is not None and (chunk_samples % (group * hop) != 0
+                                      or chunk_samples < 2 * (n - hop) + n):
         return False
-    if _resolve_blocked_per_bin(cfg, spectral_fn) is None:
-        return False
-    if chunk_samples is not None:
-        geo = blocked_chunk_geometry(n, hop)
-        if chunk_samples % geo["gh"] != 0:
-            return False
-        if chunk_samples < 2 * geo["edge"] + n:
-            return False
-    return True
-
-
-def _splice_edges(out, x_region, cfg: StftConfig, c: dict, k: dict, rb,
-                  head: bool, tail: bool):
-    """Replace the head / tail `edge` samples of a chunk's interior output
-    by the one-shot's exact phantom-frame patches. `x_region(a, b)` gives
-    the chunk's extended input [a, b) in float32."""
-    n, hop = cfg.frame_size, cfg.hop_size
-    edge, s = c["edge"], out.shape[-1]
-    span_p = blocked_patch_span(n, hop)
-    if head:
-        p = blocked_edge_patch(x_region(edge, edge + span_p), n, hop,
-                               c["wb"], c["sb"], rb, "head") / k["head_norm"]
-        out = torch.cat([p, out[..., edge:]], dim=-1)
-    if tail:
-        p = blocked_edge_patch(x_region(edge + s - span_p, edge + s), n, hop,
-                               c["wb"], c["sb"], rb, "tail") / k["tail_norm"]
-        out = torch.cat([out[..., : s - edge], p], dim=-1)
-    return out
-
-
-def _blocked_chunk(lctx, mid, rctx, cfg: StftConfig, rb: bytes, head: bool,
-                   tail: bool) -> torch.Tensor:
-    """One halo-extended blocked chunk: [..., S] output for the `mid`
-    samples. lctx: [..., left_ctx] predecessor tail (zeros at the stream
-    head); rctx: [..., right_ctx] successor head (zeros at the tail)."""
-    c = _blocked_stream_consts(cfg, rb)
-    k = _blocked_consts_on(cfg, rb, mid.device)
-    s = mid.shape[-1]
-    x_ext = torch.cat([lctx, mid, rctx], dim=-1)
-    # Interior: the one-shot's hop-block rows over the same data (its zero
-    # padding beyond the stream is lctx / rctx's zeros at the edge chunks).
-    out = hopblock_apply(x_ext, k["kern"], c["gh"], s, 0, cfg.fft_precision,
-                         k["bt"])
-    if k["tile"] is not None:
-        out = out / k["tile"].repeat(s // cfg.hop_size)
-    return _splice_edges(out, lambda a, b: x_ext[..., a:b], cfg, c, k, rb,
-                         head, tail)
+    return blocked_response(cfg, spectral_fn) is not None
 
 
 class _HaloChunkStreamer:
@@ -206,14 +86,24 @@ class _HaloChunkStreamer:
     PREDECESSOR chunk's output (one chunk of latency, since the kernel's
     look-ahead needs the successor's head), `finish` drains the last;
     `state` / `load_state` checkpoint the position as a dict of numpy
-    arrays and resume bit-identically."""
+    arrays and resume bit-identically. A chunk's interior is the
+    one-shot's hop-block rows over the same data (its zero padding beyond
+    the stream is the edge chunks' zero context). The stream's plan is
+    built once, its response resolved once."""
 
-    def __init__(self, cfg: StftConfig, rb: bytes, device) -> None:
+    _unsupported = "config not supported by the blocked streamer"
+
+    def __init__(self, cfg: StftConfig, spectral_fn=None,
+                 device=None) -> None:
+        if cfg.center:
+            raise ValueError("blocked streaming is uncentered (center=False)")
+        response = blocked_response(cfg, spectral_fn)
+        if response is None or not blocked_stream_supported(cfg):
+            raise ValueError(self._unsupported)
         self.cfg = cfg
-        self._rb = rb
+        self._plan = plan = blocked_plan_for(cfg, response)
         self._device = device
-        c = _blocked_stream_consts(cfg, rb)
-        self._edge, self._rctx_n, self._gh = c["edge"], c["right_ctx"], c["gh"]
+        self._edge, self._rctx_n, self._gh = plan.edge, plan.right_ctx, plan.gh
         self._prev = None  # previous chunk (tensor)
         self._lctx = None  # tail of the chunk before that
         self._first = True
@@ -222,6 +112,20 @@ class _HaloChunkStreamer:
 
     def _chunk(self, lctx, mid, rctx, head: bool, tail: bool):
         raise NotImplementedError
+
+    def _splice(self, out, x_region, head: bool, tail: bool):
+        """Replace the head / tail `edge` samples of a chunk's interior
+        output by the one-shot's normalized edge patches. `x_region(a, b)`
+        gives the chunk's extended input [a, b) in float32."""
+        plan, edge, s = self._plan, self._edge, out.shape[-1]
+        span_p = plan.patch_span
+        if head:
+            p = plan.edge_patch(x_region(edge, edge + span_p), "head")
+            out = torch.cat([p, out[..., edge:]], dim=-1)
+        if tail:
+            p = plan.edge_patch(x_region(edge + s - span_p, edge + s), "tail")
+            out = torch.cat([out[..., : s - edge], p], dim=-1)
+        return out
 
     def _place(self, chunk) -> torch.Tensor:
         if isinstance(chunk, torch.Tensor):
@@ -313,22 +217,22 @@ class BlockedChunkStreamer(_HaloChunkStreamer):
     `finish()`. Numpy chunks go to `device` (default "cuda"); tensor
     chunks stay on their device."""
 
-    def __init__(self, cfg: StftConfig, spectral_fn=None, device=None) -> None:
-        if cfg.center:
-            raise ValueError("blocked streaming is uncentered (center=False)")
-        rb = _resolve_blocked_per_bin(cfg, spectral_fn)
-        if rb is None or not blocked_stream_supported(cfg, None, spectral_fn):
-            raise ValueError(
-                "config not supported by the blocked streamer; use "
-                "streaming_round_trip_blocks (scan formulation) instead"
-            )
-        super().__init__(cfg, rb, device)
+    _unsupported = ("config not supported by the blocked streamer; use "
+                    "streaming_round_trip_blocks (scan formulation) instead")
 
     def _place(self, chunk) -> torch.Tensor:
         return super()._place(chunk).float()
 
     def _chunk(self, lctx, mid, rctx, head, tail):
-        return _blocked_chunk(lctx, mid, rctx, self.cfg, self._rb, head, tail)
+        """One halo-extended chunk: [..., S] output for the `mid` samples.
+        lctx: [..., left_ctx] predecessor tail (zeros at the stream head);
+        rctx: [..., right_ctx] successor head (zeros at the tail)."""
+        prec = self.cfg.fft_precision
+        kern, bt = self._plan.operands(mid.device, prec)
+        x_ext = torch.cat([lctx, mid, rctx], dim=-1)
+        out = hopblock_apply(x_ext, kern, self._gh, mid.shape[-1], 0, prec, bt)
+        return self._splice(self._plan.interior(out),
+                            lambda a, b: x_ext[..., a:b], head, tail)
 
 
 # ---------------------------------------------------------------------------

@@ -39,14 +39,8 @@ from . import int8_gemm as b6
 from .int8_gemm import i16_limbs  # noqa: F401  (the exact split, C1)
 from .core import device as _device
 from .core.types import StftConfig
-from .streaming_pipeline import (
-    _HaloChunkStreamer,
-    _blocked_consts_on,
-    _blocked_stream_consts,
-    _resolve_blocked_per_bin,
-    _splice_edges,
-    blocked_stream_supported,
-)
+from .fft.matmul_backend import BlockedPlan
+from .streaming_pipeline import _HaloChunkStreamer
 
 _TIERS = ("int8x2", "int8x1")
 
@@ -55,16 +49,15 @@ _I16_SCALE = 32768.0
 
 
 @lru_cache(maxsize=16)
-def _i16_kernel_consts(cfg: StftConfig, rb: bytes, tier: str) -> dict:
-    """Blocked-stream consts plus the design-time integer kernel limbs:
-    the same norm-folded runtime kernel the f32 streamer uses, quantized
-    byte for byte as the reference quantizes it (numpy)."""
-    c = _blocked_stream_consts(cfg, rb)
-    kern = np.asarray(c["kern"], np.float64)  # [mg*gh, gh]
+def _i16_kernel_consts(plan: BlockedPlan, tier: str) -> dict:
+    """The plan's folded runtime kernel (`kern`, the one the f32 streamer
+    runs) and its design-time integer limbs with their `k_scale`,
+    quantized byte for byte as the reference quantizes it (numpy)."""
+    out = {"kern": plan.kernel()}
+    kern = np.asarray(out["kern"], np.float64)  # [mg*gh, gh]
     kmax = float(np.max(np.abs(kern)))
     if kmax == 0.0:
         kmax = 1.0
-    out = dict(c)
     if tier == "int8x1":
         s1 = kmax / 127.0
         out["k_i8"] = np.clip(np.rint(kern / s1), -127, 127).astype(np.int8)
@@ -81,11 +74,11 @@ def _i16_kernel_consts(cfg: StftConfig, rb: bytes, tier: str) -> dict:
 
 
 @lru_cache(maxsize=8)
-def _i16_limbs_on(cfg: StftConfig, rb: bytes, tier: str,
+def _i16_limbs_on(plan: BlockedPlan, tier: str,
                   device: torch.device) -> list:
     """The kernel limbs as B6's B operands, [gh, mg*gh] int8 (K-contiguous),
     on `device`."""
-    c = _i16_kernel_consts(cfg, rb, tier)
+    c = _i16_kernel_consts(plan, tier)
     names = ("k_i8",) if tier == "int8x1" else ("k_hi", "k_lo")
     return [torch.from_numpy(np.ascontiguousarray(c[k].T)).to(device)
             for k in names]
@@ -107,34 +100,6 @@ def _hopblock_apply_i8(x_i8, kt_i8, block: int, n_out: int) -> torch.Tensor:
     return acc.reshape(acc.shape[:-2] + (nb * block,))[..., :n_out]
 
 
-def _i16_blocked_chunk(lctx, mid, rctx, cfg: StftConfig, rb: bytes,
-                       tier: str, head: bool, tail: bool,
-                       emit_i16: bool) -> torch.Tensor:
-    """One halo-extended blocked chunk on int16 wire samples: the limb
-    products and their f32 combination in ONE B6-limb launch, then the
-    interior-norm divide (non-fold configs) and the f32 edge patches on the
-    dequantized patch regions."""
-    c = _i16_kernel_consts(cfg, rb, tier)
-    k = _blocked_consts_on(cfg, rb, mid.device)
-    gh, s = c["gh"], mid.shape[-1]
-    x_ext = torch.cat([lctx, mid, rctx], dim=-1)
-    limbs = _i16_limbs_on(cfg, rb, tier, mid.device)
-    scale = float(np.float32(c["k_scale"] / _I16_SCALE))
-    epilogue = "wire1" if tier == "int8x1" else "wire2"
-    out = b6.limb_gemm_i16(x_ext, limbs[0], limbs[-1], epilogue, scale,
-                           rows=s // gh, lda=gh)
-    out = out.reshape(out.shape[:-2] + (s,))
-    if k["tile"] is not None:
-        out = out / k["tile"].repeat(s // cfg.hop_size)
-    out = _splice_edges(
-        out, lambda a, b: x_ext[..., a:b].to(torch.float32)
-        * (1.0 / _I16_SCALE), cfg, c, k, rb, head, tail)
-    if emit_i16:
-        out = torch.clamp(torch.round(out * _I16_SCALE), -32768.0,
-                          32767.0).to(torch.int16)
-    return out
-
-
 class I16BlockedStreamer(_HaloChunkStreamer):
     """Resumable chunk streamer for born-int16 wire audio on the blocked
     formulation's integer tier.
@@ -146,6 +111,10 @@ class I16BlockedStreamer(_HaloChunkStreamer):
     `emit_i16=True` (default) the output chunks are int16 wire samples.
     Numpy chunks go to `device` (default "cuda")."""
 
+    _unsupported = ("config not supported by the blocked streamer (see "
+                    "blocked_stream_supported); the integer wire tier has no "
+                    "scan fallback")
+
     def __init__(
         self,
         cfg: StftConfig,
@@ -156,16 +125,7 @@ class I16BlockedStreamer(_HaloChunkStreamer):
     ) -> None:
         if tier not in _TIERS:
             raise ValueError(f"tier must be one of {_TIERS}, got {tier!r}")
-        if cfg.center:
-            raise ValueError("blocked streaming is uncentered (center=False)")
-        rb = _resolve_blocked_per_bin(cfg, spectral_fn)
-        if rb is None or not blocked_stream_supported(cfg, None, spectral_fn):
-            raise ValueError(
-                "config not supported by the blocked streamer (see "
-                "blocked_stream_supported); the integer wire tier has no "
-                "scan fallback"
-            )
-        super().__init__(cfg, rb, device)
+        super().__init__(cfg, spectral_fn, device)
         self.tier = tier
         self.emit_i16 = emit_i16
 
@@ -176,8 +136,25 @@ class I16BlockedStreamer(_HaloChunkStreamer):
         return t
 
     def _chunk(self, lctx, mid, rctx, head, tail):
-        return _i16_blocked_chunk(lctx, mid, rctx, self.cfg, self._rb,
-                                  self.tier, head, tail, self.emit_i16)
+        """One halo-extended chunk on int16 wire samples: the limb products
+        and their f32 combination in ONE B6-limb launch, then the interior
+        norm (non-fold configs) and the f32 edge patches on the
+        dequantized patch regions."""
+        plan, s = self._plan, mid.shape[-1]
+        c = _i16_kernel_consts(plan, self.tier)
+        x_ext = torch.cat([lctx, mid, rctx], dim=-1)
+        limbs = _i16_limbs_on(plan, self.tier, mid.device)
+        scale = float(np.float32(c["k_scale"] / _I16_SCALE))
+        epilogue = "wire1" if self.tier == "int8x1" else "wire2"
+        out = b6.limb_gemm_i16(x_ext, limbs[0], limbs[-1], epilogue, scale,
+                               rows=s // plan.gh, lda=plan.gh)
+        out = plan.interior(out.reshape(out.shape[:-2] + (s,)))
+        out = self._splice(out, lambda a, b: x_ext[..., a:b].to(
+            torch.float32) * (1.0 / _I16_SCALE), head, tail)
+        if self.emit_i16:
+            out = torch.clamp(torch.round(out * _I16_SCALE), -32768.0,
+                              32767.0).to(torch.int16)
+        return out
 
 
 def i16_round_trip(

@@ -159,10 +159,9 @@ def _streamer(precision):
 
 def _sharded(precision):
     cfg = pt.StftConfig(frame_size=256, hop_size=64, fft_precision=precision)
-    w = pt.pipeline._window_f64(cfg)
+    plan = mb.blocked_plan_for(cfg, mb.blocked_response(cfg, None))
     return spl._blocked_local_round_trip(
-        [_meta((2, 1024)), _meta((2, 1024))], w, cfg, np.ones(129), 2, 29,
-        1024, 2)[0]
+        [_meta((2, 1024)), _meta((2, 1024))], plan, cfg, 29, 1024, 2)[0]
 
 
 def _convolve(precision):

@@ -35,6 +35,7 @@ from crlot_tpu_torch import spectral as S
 from crlot_tpu_torch.convert import config_from_reference
 from crlot_tpu_torch.core.types import FftBackend, StftConfig
 from crlot_tpu_torch.distributed import stream as pst
+from crlot_tpu_torch.fft import matmul_backend as mb
 from crlot_tpu_torch.pipeline import _norm_np
 
 CPU = torch.device("cpu")
@@ -206,7 +207,8 @@ def test_streamer_masked_modes():
 
 def test_blocked_mode_gate():
     mesh = _mesh(1, 4)
-    assert pst._blocked_stream_mode(CFG, mesh, None, S16) is not None
+    assert pst._blocked_stream_mode(CFG, mesh, None, S16) is (
+        mb.blocked_plan_for(CFG, mb.blocked_response(CFG, None)))
     gate = S.noise_gate(-40.0)
     assert pst._blocked_stream_mode(CFG, mesh, gate, S16) is None
     xla = StftConfig(frame_size=256, hop_size=64, fft_backend=FftBackend.XLA)
@@ -323,7 +325,7 @@ def test_edge_patch_product_runs_a_fixed_order_kernel_on_the_card(
     import ctypes
 
     from crlot_tpu_torch import cuda_build
-    from crlot_tpu_torch.fft import fp32_window, matmul_backend as mb
+    from crlot_tpu_torch.fft import fp32_window
     from crlot_tpu_torch.fft.tf32x3 import MODE_TF32X3
 
     calls = []

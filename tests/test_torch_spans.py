@@ -73,8 +73,8 @@ ROUTES = {
 
 STAGES = {
     "blocked": ["crlot.blocked.pad", "crlot.blocked.consts",
-                "crlot.blocked.consts", "crlot.blocked.b0",
-                "crlot.blocked.edges", "crlot.blocked.join"],
+                "crlot.blocked.b0", "crlot.blocked.edges",
+                "crlot.blocked.join"],
     "fused_rt_ola": ["crlot.fused_rt.pad", "crlot.fused_rt.consts",
                      "crlot.fused_rt.consts", "crlot.fused_rt.kernels"],
     "packed_parts": ["crlot.packed.consts", "crlot.packed.fold",
@@ -234,14 +234,20 @@ def test_halo_span_bytes_are_the_counters(allow_blocked):
 
 
 def test_const_builds_counts_a_new_length_once():
-    cfg, fn = _route("blocked")
+    """The blocked route's constants are its plan's: the first call of a
+    config builds them, and neither a repeat nor a new length (the plan
+    serves every frame count) builds any."""
+    _, fn = _route("blocked")
+    cfg = StftConfig(frame_size=1024, hop_size=256, center=True, eps=3e-8)
     x = _x(4, n=N_SAMPLES + 31 * 256 + 7)
     with _cpu_profile():
         pt.round_trip(x, cfg, fn)
         first = _last_call()[0].attrs["const_builds"]
         pt.round_trip(x, cfg, fn)
         again = _last_call()[0].attrs["const_builds"]
-    assert first > 0 and again == 0
+        pt.round_trip(x[..., : N_SAMPLES + 5 * 256], cfg, fn)
+        new_length = _last_call()[0].attrs["const_builds"]
+    assert first > 0 and again == 0 and new_length == 0
 
 
 def test_the_log_keeps_the_last_calls():

@@ -29,8 +29,6 @@ from crlot_tpu_torch.fft import matmul_backend as mm
 from crlot_tpu_torch.pipeline import blocked_composed_round_trip
 from crlot_tpu_torch.streaming_pipeline import (
     BlockedChunkStreamer,
-    _blocked_stream_consts,
-    _resolve_blocked_per_bin,
     blocked_stream_supported,
     process_wav_file,
     streaming_round_trip,
@@ -249,9 +247,9 @@ def test_blocked_streamer_vs_reference(fn_name):
     assert np.max(np.abs(y - want)[:, edge:-edge]) <= 2e-6
     # The edges divide by the partial-coverage norm (down to eps at the
     # first sample): compare them before that division.
-    c = _blocked_stream_consts(cfg, _resolve_blocked_per_bin(cfg, fn))
-    head = np.abs(y[:, :edge] - want[:, :edge]) * c["head_norm"]
-    tail = np.abs(y[:, -edge:] - want[:, -edge:]) * c["tail_norm"]
+    plan = mm.blocked_plan_for(cfg, mm.blocked_response(cfg, fn))
+    head = np.abs(y[:, :edge] - want[:, :edge]) * plan.head_norm
+    tail = np.abs(y[:, -edge:] - want[:, -edge:]) * plan.tail_norm
     assert max(head.max(), tail.max()) <= 1e-6
 
 

@@ -153,10 +153,9 @@ def test_tf32_bases_rebuild_the_folded_bases(nfft):
 
 def test_runtime_kernel_halves_rebuild_the_kernel():
     cfg = pt.StftConfig(frame_size=256, hop_size=64)
-    wb = np.ascontiguousarray(pt.pipeline._window_f64(cfg)).tobytes()
-    rb = np.ones(129, np.complex128).tobytes()
-    kern, _ = mb.blocked_runtime_kernel(256, 64, 2, wb, None, rb)
-    hi, lo = mb._runtime_bt_on(256, 64, 2, wb, None, rb, torch.device("cpu"))
+    plan = mb.blocked_plan_for(cfg, mb.blocked_response(cfg, None))
+    kern = plan.kernel(folded=False)
+    hi, lo = mb._plan_bt_on(plan, False, torch.device("cpu"))
     assert hi.shape == (kern.shape[1], kern.shape[0])
     np.testing.assert_array_equal(hi.numpy().T, tf32x3.tf32_round_np(kern))
     err = np.abs(hi.numpy().T.astype(np.float64) + lo.numpy().T - kern)
@@ -283,10 +282,9 @@ def _streamer(precision):
 
 def _sharded(precision):
     cfg = pt.StftConfig(frame_size=256, hop_size=64, fft_precision=precision)
-    w = pt.pipeline._window_f64(cfg)
+    plan = mb.blocked_plan_for(cfg, mb.blocked_response(cfg, None))
     xs = [_meta((2, 1024)), _meta((2, 1024))]
-    return spl._blocked_local_round_trip(xs, w, cfg, np.ones(129), 2, 29,
-                                         1024, 2)[0]
+    return spl._blocked_local_round_trip(xs, plan, cfg, 29, 1024, 2)[0]
 
 
 def _convolve(precision):

@@ -31,10 +31,8 @@ from crlot_tpu_torch import int8_gemm as b6
 from crlot_tpu_torch import spectral as S
 from crlot_tpu_torch import wire
 from crlot_tpu_torch.core.types import StftConfig
-from crlot_tpu_torch.streaming_pipeline import (
-    BlockedChunkStreamer,
-    _resolve_blocked_per_bin,
-)
+from crlot_tpu_torch.fft import matmul_backend as mm
+from crlot_tpu_torch.streaming_pipeline import BlockedChunkStreamer
 from crlot_tpu_torch.wire import I16BlockedStreamer, i16_round_trip
 
 CPU = "cpu"
@@ -42,6 +40,11 @@ CFG = StftConfig(frame_size=1024, hop_size=256, center=False)
 JCFG = JConfig(frame_size=1024, hop_size=256, center=False,
                fft_backend=JBackend.MATMUL)
 EDGE = 768
+
+
+def _plan(fn=None):
+    """The streamers' blocked plan at CFG for `fn` (the identity: None)."""
+    return mm.blocked_plan_for(CFG, mm.blocked_response(CFG, fn))
 
 
 def _wire_signal(total, seed=0, channels=None):
@@ -164,10 +167,10 @@ def test_rejects_bad_inputs():
 def test_kernel_limbs_byte_equal_to_reference(tier, eq):
     fn = S.band_gain([3000.0], [1.0, 0.4], 48000, 1024) if eq else None
     jfn = JS.band_gain([3000.0], [1.0, 0.4], 48000, 1024) if eq else None
-    rb = _resolve_blocked_per_bin(CFG, fn)
-    assert rb == j_resolve(JCFG, jfn)
-    c = wire._i16_kernel_consts(CFG, rb, tier)
-    jc = jw._i16_kernel_consts(JCFG, rb, tier)
+    plan = _plan(fn)
+    assert plan.rb == j_resolve(JCFG, jfn)
+    c = wire._i16_kernel_consts(plan, tier)
+    jc = jw._i16_kernel_consts(JCFG, plan.rb, tier)
     names = ["k_i8"] if tier == "int8x1" else ["k_hi", "k_lo"]
     for name in names + ["kern"]:
         a, b = np.asarray(c[name]), np.asarray(jc[name])
@@ -189,8 +192,7 @@ def test_limb_parity_below_32640(tier):
     reference's."""
     rng = np.random.default_rng(2)
     x = rng.integers(-32768, 32640, (64, 2048)).astype(np.int16)
-    c = wire._i16_kernel_consts(CFG, _resolve_blocked_per_bin(CFG, None),
-                                "int8x1")
+    c = wire._i16_kernel_consts(_plan(), "int8x1")
     port = wire.i16_limbs(torch.from_numpy(x))
     ref = jw.i16_limbs(np.asarray(x))
     exact = x.astype(np.int64) @ c["k_i8"].astype(np.int64)
@@ -250,8 +252,7 @@ def test_full_range_interior_matches_float64_oracle(tier):
     within 2e-6 (the f32 combination's rounding); the reference misses it
     by far at the wrapped codes."""
     x = _full_range_signal()
-    rb = _resolve_blocked_per_bin(CFG, None)
-    c = wire._i16_kernel_consts(CFG, rb, tier)
+    c = wire._i16_kernel_consts(_plan(), tier)
     kq = (c["k_i8"].astype(np.float64) if tier == "int8x1"
           else c["k_hi"].astype(np.float64) * 128 + c["k_lo"])
     s = x.shape[-1]
@@ -276,10 +277,9 @@ def test_limb_gemm_wire_epilogue_matches_the_reference_expression():
     written out on the same int32 accumulators."""
     rng = np.random.default_rng(8)
     x = rng.integers(-32768, 32768, (1, 3 * 512 + 1536)).astype(np.int16)
-    rb = _resolve_blocked_per_bin(CFG, None)
-    c = wire._i16_kernel_consts(CFG, rb, "int8x2")
+    c = wire._i16_kernel_consts(_plan(), "int8x2")
     hi, lo = wire.i16_limbs(torch.from_numpy(x))
-    kh, kl = wire._i16_limbs_on(CFG, rb, "int8x2", torch.device("cpu"))
+    kh, kl = wire._i16_limbs_on(_plan(), "int8x2", torch.device("cpu"))
     scale = float(np.float32(c["k_scale"] / 32768.0))
     got = b6.limb_gemm(hi, lo, kh, kl, "wire2", scale, rows=3, lda=512)
     dots = [b6.int_dot(b6.windows(a, 3, 512, 2048), k)
