@@ -52,7 +52,9 @@ Phases (each prints one line; the script exits 1 if any fails):
   3. round_trip identity ("blocked", one B0 launch): SNR vs input >= 60 dB.
   4. round_trip with a 3-band band_gain ("blocked", one B0 launch): the
      first 1 s against a float64 numpy STFT * g * iSTFT oracle, SNR >= 80
-     dB.
+     dB; then on 64 channels x 60 s (`multich64.eq_resident`'s batch):
+     one B0 launch, and torch.equal to the composition the route ran
+     before it wrote the signal once (the centre pad, `F.pad`, the cat).
   5. istft(stft(x)): SNR >= 60 dB, B1 launched.
   6. round_trip with noise_gate(-30) ("fused_rt_ola"): SNR vs input >=
      60 dB, B2 launched.
@@ -895,8 +897,25 @@ def main() -> int:
         snr = min(pt.snr_db(want[c], y[c, :SR]) for c in range(2))
         check(snr >= 80.0, f"snr vs f64 oracle {snr:.2f} dB")
         check(b0.launches == before + 1, "B0 not launched once")
+        # The batch of `multich64.eq_resident`: the route writes the signal
+        # once, and its bits are the composition's with three copies.
+        g64 = torch.Generator(device=dev).manual_seed(SEED + 64)
+        x64 = torch.rand((64, n), generator=g64, device=dev) * 2 - 1
+        before = b0.launches
+        y64 = pt.round_trip(x64, cfg, band)
+        sync()
+        launched = b0.launches - before
+        check(launched == 1, f"{launched} B0 launches for 64 ch x 60 s")
+        # The composition's own B0 launch is not the main path's: the
+        # count printed after phase 6 leaves it out.
+        counted = b0.launches
+        want64 = _blocked_composition(x64, cfg, band)
+        b0.launches = counted
+        same = bool(torch.equal(y64, want64))
+        check(same, "64 ch x 60 s: not torch.equal to the composition")
         return (f"route blocked, first 1 s vs f64 oracle {snr:.2f} dB, B0 "
-                f"(3xTF32) launches +1")
+                f"(3xTF32) launches +1; 64 ch x 60 s torch.equal to the "
+                f"pad, F.pad and cat composition, B0 launches +1")
 
     def p5():
         before = b1.launches
@@ -5826,6 +5845,34 @@ def large_frames_timings(dev, cell, mix, cuda_ms) -> dict:
         f"{t['inverse']:.3f} ms ({t['inverse_tflops']:.1f} TFLOP/s; bound "
         f"{t['inverse_bound_ms']:.3f}), round_trip {t['round_trip']:.3f} ms")
     return t
+
+
+def _blocked_composition(signal, cfg, fn):
+    """The blocked route as it was composed before it wrote the signal
+    once: the centre pad, its first `full` samples in float32,
+    `hopblock_apply` (its halo by `F.pad`), the normalised patches, the
+    interior and a cat, then the crop."""
+    import torch
+
+    from crlot_tpu_torch.core.padding import pad_signal
+    from crlot_tpu_torch.fft import matmul_backend as mb
+
+    spec_ = cfg.frame_spec
+    full = ((spec_.num_frames(signal.shape[-1]) - 1) * cfg.hop_size
+            + cfg.frame_size)
+    padded = pad_signal(signal, spec_.pad_amount, spec_.pad_amount,
+                        spec_.pad_mode, spec_.pad_value)
+    plan = mb.blocked_plan_for(cfg, mb.blocked_response(cfg, fn))
+    kern, bt = plan.operands(signal.device, cfg.fft_precision)
+    edge, span_p = plan.edge, plan.patch_span
+    x = padded[..., :full].float()
+    out = mb.hopblock_apply(x, kern, plan.gh, full, edge, cfg.fft_precision,
+                            bt)
+    head = plan.edge_patch(x[..., :span_p], "head")
+    tail = plan.edge_patch(x[..., full - span_p :], "tail")
+    out = torch.cat([head, plan.interior_(out[..., edge : full - edge]),
+                     tail], dim=-1)
+    return out[..., spec_.pad_amount : spec_.pad_amount + signal.shape[-1]]
 
 
 def _oracle(x_np, gains_f64, cfg, span=SR):

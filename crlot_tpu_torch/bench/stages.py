@@ -11,9 +11,10 @@ differencing existed for its tunnel and is not needed on the card.
   60 s at 48 kHz, N=1024, H=256;
 * `main_pipeline()`: the real decomposition: framing, the folded DFT
   products, their round-trip, B1's fused OLA + normalize, and the port's
-  route for the main path on the card ("blocked": the padded signal, B0's
-  product, the two edge patches), each beside the whole `round_trip`; the
-  framed and the blocked stage sums are reported next to it.
+  route for the main path on the card ("blocked": B0's extended input
+  written once, B0's product on it, the two edge patches), each beside
+  the whole `round_trip`; the framed and the blocked stage sums are
+  reported next to it.
 
     python -m crlot_tpu_torch.bench.stages [--pipeline [--only a,b]]
         [--device cuda|cpu] [--seconds S]
@@ -122,12 +123,11 @@ def main_pipeline(seconds=60, n=1024, hop=256, only=None,
     completes, then one with the stage sums beside `round_trip`. `only`
     restricts to a comma-separated subset of the stages. Returns the
     stage times (ms) and the sums."""
-    from ..core.padding import pad_signal
     from ..core.types import StftConfig
     from ..fft.matmul_backend import (
         blocked_plan_for,
         blocked_response,
-        hopblock_apply,
+        hopblock_product,
         irfft_folded_parts,
         rfft_folded_packed,
         roundtrip_folded_matmul,
@@ -135,7 +135,7 @@ def main_pipeline(seconds=60, n=1024, hop=256, only=None,
     from ..frame.framing import frame_signal
     from ..ola.fused import ola_normalized_auto
     from ..ola.norm import edge_norm
-    from ..pipeline import formulation_for, round_trip
+    from ..pipeline import blocked_input, formulation_for, round_trip
     from ..window.windows import get_window
 
     dev = _device(device)
@@ -156,16 +156,15 @@ def main_pipeline(seconds=60, n=1024, hop=256, only=None,
 
     # The "blocked" route's pieces, as `blocked_composed_round_trip` runs
     # them on this signal, on its plan.
-    spec_ = cfg.frame_spec
-    nf = spec_.num_frames(total)
+    nf = cfg.frame_spec.num_frames(total)
     plan = blocked_plan_for(cfg, blocked_response(cfg, None))
     kern, bt = plan.operands(dev, cfg.fft_precision)
     bfull = (nf - 1) * hop + n
-    edge, span_p = plan.edge, plan.patch_span
-    xpad = pad_signal(x, spec_.pad_amount, spec_.pad_amount, spec_.pad_mode,
-                      spec_.pad_value)[..., :bfull].contiguous()
+    span_p = plan.patch_span
+    x_ext, edge = blocked_input(x, cfg, bfull)
 
-    def edges(xp):
+    def edges(xe):
+        xp = xe[..., edge:edge + bfull]
         return (plan.patch(xp[..., :span_p], "head"),
                 plan.patch(xp[..., bfull - span_p:], "tail"))
 
@@ -178,12 +177,10 @@ def main_pipeline(seconds=60, n=1024, hop=256, only=None,
         "rt_folded": (lambda fr: roundtrip_folded_matmul(fr, n, w64), frames),
         "ola_fused": (lambda fr: ola_normalized_auto(fr, norm, hop, full,
                                                      1e-8), frames),
-        "blocked_pad": (lambda s: pad_signal(
-            s, spec_.pad_amount, spec_.pad_amount, spec_.pad_mode,
-            spec_.pad_value), x),
-        "blocked_b0": (lambda xp: hopblock_apply(
-            xp, kern, plan.gh, bfull, edge, cfg.fft_precision, bt), xpad),
-        "blocked_edges": (edges, xpad),
+        "blocked_pad": (lambda s: blocked_input(s, cfg, bfull), x),
+        "blocked_b0": (lambda xe: hopblock_product(
+            xe, kern, plan.gh, cfg.fft_precision, bt), x_ext),
+        "blocked_edges": (edges, x_ext),
         "round_trip": (lambda s: round_trip(s, cfg), x),
     }
     wanted = set(only.split(",")) if only else set(stages)

@@ -405,6 +405,14 @@ def _composed_basis_on(nfft, awin_bytes, swin_bytes, response_bytes,
     return torch.from_numpy(m).to(device)
 
 
+def hopblock_extent(n_out: int, block: int, mg: int) -> tuple:
+    """(nb, length): the output blocks of a hop-block product of `n_out`
+    samples, and the length of the extended signal that its nb windows of
+    `mg` blocks read, the look-back halo included."""
+    nb = -(-n_out // block)
+    return nb, (nb - 1 + mg) * block
+
+
 def _hopblock_ext(x, kern, block, n_out, left):
     """(x padded with `left` zeros and enough right zeros, mg, nb)."""
     assert kern.shape[0] % block == 0, (
@@ -412,8 +420,8 @@ def _hopblock_ext(x, kern, block, n_out, left):
         f"block size {block}"
     )
     mg = kern.shape[0] // block
-    nb = -(-n_out // block)
-    right = (nb - 1 + mg) * block - left - x.shape[-1]
+    nb, length = hopblock_extent(n_out, block, mg)
+    right = length - left - x.shape[-1]
     return torch.nn.functional.pad(x, (left, right)), mg, nb
 
 
@@ -428,18 +436,35 @@ def hopblock_apply(
 ) -> torch.Tensor:
     """Hop-block Toeplitz product: pad x with `left` zeros (the look-back
     halo) and enough right zeros, and take each output block as one window
-    of M*block samples times the kernel. Returns [..., n_out].
+    of M*block samples times the kernel (`hopblock_product`). Returns
+    [..., n_out]."""
+    x_ext, _, _ = _hopblock_ext(x, kern, block, n_out, left)
+    return hopblock_product(x_ext, kern, block, precision, bt)[..., :n_out]
+
+
+def hopblock_product(
+    x_ext: torch.Tensor,  # [..., (nb - 1 + M)*block] extended signal
+    kern: torch.Tensor,  # [M*block, block] Toeplitz-laid kernel, same device
+    block: int,
+    precision=FftPrecision.HIGH,
+    bt=None,
+) -> torch.Tensor:
+    """`hopblock_apply`'s product on a signal already extended by its
+    halo and right zeros (`hopblock_extent`): output block b is the window
+    x_ext[..., b*block : (b + M)*block] times the kernel. Returns
+    [..., nb*block].
 
     On a CUDA tensor, one launch over the overlapping windows (lda =
     block), each output summed in a fixed order: at HIGH (and INT8X2) B0 in
     3xTF32, with `bt` = the kernel's (hi, lo) from the host design code
     (split here when not given); at HIGHEST B0's IEEE fp32 kernel
-    (`fp32_window`). On the CPU: the padded signal viewed as ONE contiguous
-    [..., B, block] tensor and the M products of its shifted row slices
-    (each a contiguous view, no im2col copy) accumulated in ascending m
-    order, in IEEE fp32."""
-    x_ext, mg, nb = _hopblock_ext(x, kern, block, n_out, left)
-    if x.device.type != "cpu":
+    (`fp32_window`). On the CPU: the extended signal viewed as ONE
+    contiguous [..., B, block] tensor and the M products of its shifted row
+    slices (each a contiguous view, no im2col copy) accumulated in
+    ascending m order, in IEEE fp32."""
+    mg = kern.shape[0] // block
+    nb = x_ext.shape[-1] // block - mg + 1
+    if x_ext.device.type != "cpu":
         if float_tier(precision) == FftPrecision.HIGH:
             bt_hi, bt_lo = tf32x3.split_t(kern) if bt is None else bt
             out = tf32x3.gemm_cuda(x_ext.contiguous(), bt_hi, bt_lo,
@@ -447,7 +472,7 @@ def hopblock_apply(
         else:
             out = fp32_window.gemm_cuda(x_ext.contiguous(), kern, rows=nb,
                                         lda=block)
-        return out.reshape(out.shape[:-2] + (nb * block,))[..., :n_out]
+        return out.reshape(out.shape[:-2] + (nb * block,))
     blocks = x_ext.reshape(x_ext.shape[:-1] + (-1, block))
     acc = None
     for m in range(mg):
@@ -455,7 +480,7 @@ def hopblock_apply(
             blocks[..., m : m + nb, :], kern[m * block : (m + 1) * block, :]
         )
         acc = term if acc is None else acc + term
-    return acc.reshape(acc.shape[:-2] + (nb * block,))[..., :n_out]
+    return acc.reshape(acc.shape[:-2] + (nb * block,))
 
 
 def hopblock_apply_tf32x3_plain(x, kern, block, n_out, left) -> torch.Tensor:
@@ -692,13 +717,14 @@ class BlockedPlan:
         return (self.patch(x_region, side, precision, fixed_order)
                 / (head if side == "head" else tail))
 
-    def interior(self, out: torch.Tensor) -> torch.Tensor:
-        """A hop-aligned stretch of the folded kernel's output, normalized:
-        as it is where 1/norm_c is in the kernel, else over `tile`."""
+    def interior_(self, out: torch.Tensor) -> torch.Tensor:
+        """A hop-aligned stretch of the folded kernel's output, normalized
+        in place and returned: as it is where 1/norm_c is in the kernel,
+        else divided by `tile` hop by hop."""
         tile = _plan_norms_on(self, out.device)[2]
-        if tile is None:
-            return out
-        return out / tile.repeat(out.shape[-1] // self.hop)
+        if tile is not None:
+            out.unflatten(-1, (-1, self.hop)).div_(tile)
+        return out
 
 
 @design_cache(16)

@@ -48,7 +48,7 @@ import torch
 
 from .core import device as _device
 from .core.consts import as_f32, const_on, design_cache
-from .core.padding import pad_signal
+from .core.padding import pad_signal, pad_signal_into
 from .core.types import FftBackend, FftPrecision, StftConfig
 from .fft import dispatch as _fft
 from .fft import fused_rt as _rt
@@ -59,6 +59,7 @@ from .fft.fused_rt import (
 )
 from .fft.matmul_backend import (
     MAX_MATMUL_NFFT,
+    blocked_chunk_geometry,
     blocked_plan_for,
     blocked_response,
     composed_block_supported,
@@ -66,7 +67,8 @@ from .fft.matmul_backend import (
     folded_consts_on,
     folded_forward,
     folded_inverse,
-    hopblock_apply,
+    hopblock_extent,
+    hopblock_product,
     roundtrip_composed_matmul,
     roundtrip_folded_matmul,
     roundtrip_folded_tiled,
@@ -187,34 +189,55 @@ def blocked_norm_fold(cfg: StftConfig, num_frames: int):
 def blocked_composed_round_trip(
     signal: torch.Tensor, cfg: StftConfig, per_bin: np.ndarray
 ) -> torch.Tensor:
-    """round_trip's "blocked" branch as a gate-free program: the centre
-    pad, B0's hop-block product of the plan's folded kernel, the head and
-    tail patches over their norms, and the join. Caller contract:
-    composed_block_supported(N, hop) and num_frames >= 2*(N/hop - 1)."""
+    """round_trip's "blocked" branch as a gate-free program: B0's extended
+    input written once (`blocked_input`), B0's hop-block product of the
+    plan's folded kernel on it, the head and tail patches over their norms
+    written into B0's output, and the crop, a view of that output. Caller
+    contract: composed_block_supported(N, hop) and num_frames >=
+    2*(N/hop - 1)."""
     spec_ = cfg.frame_spec
-    hop, prec = cfg.hop_size, cfg.fft_precision
-    full = (spec_.num_frames(signal.shape[-1]) - 1) * hop + cfg.frame_size
+    full = ((spec_.num_frames(signal.shape[-1]) - 1) * cfg.hop_size
+            + cfg.frame_size)
     with span("crlot.blocked.pad"):
-        padded = pad_signal(
-            signal, spec_.pad_amount, spec_.pad_amount,
-            spec_.pad_mode, spec_.pad_value,
-        )
+        x_ext, edge = blocked_input(signal, cfg, full)
     with span("crlot.blocked.consts"):
         plan = blocked_plan_for(cfg, per_bin)
-        kern, bt = plan.operands(signal.device, prec)
-    edge, span_p = plan.edge, plan.patch_span
+        kern, bt = plan.operands(signal.device, cfg.fft_precision)
+    x, span_p = x_ext[..., edge : edge + full], plan.patch_span
     with span("crlot.blocked.b0"):
-        x = padded[..., :full].float()
-        out = hopblock_apply(x, kern, plan.gh, full, edge, prec, bt)
+        out = hopblock_product(x_ext, kern, plan.gh, cfg.fft_precision,
+                               bt)[..., :full]
     with span("crlot.blocked.edges"):
         head = plan.edge_patch(x[..., :span_p], "head")
         tail = plan.edge_patch(x[..., full - span_p :], "tail")
     with span("crlot.blocked.join"):
-        out = torch.cat([head, plan.interior(out[..., edge : full - edge]),
-                         tail], dim=-1)
+        out[..., :edge].copy_(head)
+        plan.interior_(out[..., edge : full - edge])
+        out[..., full - edge :].copy_(tail)
     pad = spec_.pad_amount
     with span("crlot.round_trip.crop"):
         return out[..., pad : pad + signal.shape[-1]]
+
+
+def blocked_input(signal: torch.Tensor, cfg: StftConfig,
+                  full: int) -> tuple:
+    """(x_ext, edge): the blocked one-shot's B0 input, float32 [..., L],
+    each sample written once: the first `full` samples of the
+    centre-padded signal (`pad_signal_into`), after `edge` zeros (B0's
+    look-back halo) and before zeros to the end of B0's last window
+    (`hopblock_extent`), the zeros written last. Equal to
+    `F.pad(pad_signal(signal, ...)[..., :full].float(), (edge, right))`."""
+    geo = blocked_chunk_geometry(cfg.frame_size, cfg.hop_size)
+    edge = geo["edge"]
+    _, length = hopblock_extent(full, geo["gh"], geo["mg"])
+    x_ext = torch.empty(signal.shape[:-1] + (length,), dtype=torch.float32,
+                        device=signal.device)
+    spec_ = cfg.frame_spec
+    pad_signal_into(x_ext[..., edge : edge + full], signal, spec_.pad_amount,
+                    spec_.pad_amount, spec_.pad_mode, spec_.pad_value)
+    x_ext[..., :edge].zero_()
+    x_ext[..., edge + full :].zero_()
+    return x_ext, edge
 
 
 def _blocked_ok(cfg: StftConfig, n_samples: int) -> bool:

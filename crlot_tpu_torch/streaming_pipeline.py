@@ -231,7 +231,7 @@ class BlockedChunkStreamer(_HaloChunkStreamer):
         kern, bt = self._plan.operands(mid.device, prec)
         x_ext = torch.cat([lctx, mid, rctx], dim=-1)
         out = hopblock_apply(x_ext, kern, self._gh, mid.shape[-1], 0, prec, bt)
-        return self._splice(self._plan.interior(out),
+        return self._splice(self._plan.interior_(out),
                             lambda a, b: x_ext[..., a:b], head, tail)
 
 

@@ -148,7 +148,7 @@ class I16BlockedStreamer(_HaloChunkStreamer):
         epilogue = "wire1" if self.tier == "int8x1" else "wire2"
         out = b6.limb_gemm_i16(x_ext, limbs[0], limbs[-1], epilogue, scale,
                                rows=s // plan.gh, lda=plan.gh)
-        out = plan.interior(out.reshape(out.shape[:-2] + (s,)))
+        out = plan.interior_(out.reshape(out.shape[:-2] + (s,)))
         out = self._splice(out, lambda a, b: x_ext[..., a:b].to(
             torch.float32) * (1.0 / _I16_SCALE), head, tail)
         if self.emit_i16:
