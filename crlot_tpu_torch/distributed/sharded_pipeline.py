@@ -296,11 +296,15 @@ def _block_round_trip(
     blocked: Optional[dict] = None,
     row=None,
     halos=None,
+    frame_bytes: Optional[list] = None,
 ):
     """One channel group through the round-trip: its normalized output
     blocks, and with `with_metrics` each shard's (signal energy, noise
     energy, peak) f32 partials. Entries of shards another rank holds are
-    None throughout. `halos`: the blocked route's exchanges, if issued."""
+    None throughout. `halos`: the blocked route's exchanges, if issued.
+    `frame_bytes`, where given, gets the bytes of each [C_local, F, N]
+    tensor the masked route writes: the per-shard route's frames (and
+    their synthesis-window product), then the mask's."""
     n, hop = cfg.frame_size, cfg.hop_size
     halo = n - hop
     t_block = next(x for x in xs if x is not None).shape[-1]
@@ -319,32 +323,44 @@ def _block_round_trip(
             if x is None:
                 frames.append(None)
                 continue
-            x_ext = torch.cat([x, received(right)], dim=-1)
-            of = _local_frames(route, x_ext, cfg, spectral_fn, window_f64,
-                               frames_per_block)
-            _report(x[..., :1].numel()
-                    * _frames_macs(route, frames_per_block, n), True)
-            if cfg.synthesis_window:
-                of = of * const_on(window_f64, of.device)
-            # Keep only the frames that exist globally: start >= valid_start
-            # and start + N <= total_len.
-            start = t * t_block + hop * torch.arange(
-                frames_per_block, device=of.device)
-            valid = (start >= valid_start) & (start + n <= total_len)
-            frames.append(torch.where(valid[:, None], of, 0.0))
+            with span("crlot.sharded.frames", route=route,
+                      frames=frames_per_block):
+                x_ext = torch.cat([x, received(right)], dim=-1)
+                of = _local_frames(route, x_ext, cfg, spectral_fn,
+                                   window_f64, frames_per_block)
+                _report(x[..., :1].numel()
+                        * _frames_macs(route, frames_per_block, n), True)
+                written = [of]
+                if cfg.synthesis_window:
+                    of = of * const_on(window_f64, of.device)
+                    written.append(of)
+            with span("crlot.sharded.mask"):
+                # Keep only the frames that exist globally: start >=
+                # valid_start and start + N <= total_len.
+                start = t * t_block + hop * torch.arange(
+                    frames_per_block, device=of.device)
+                valid = (start >= valid_start) & (start + n <= total_len)
+                of = torch.where(valid[:, None], of, 0.0)
+            if frame_bytes is not None:
+                frame_bytes.extend(w.numel() * w.element_size()
+                                   for w in written + [of])
+            frames.append(of)
         # OLA with the left neighbour's tail seeded first (canonical
         # order): the tail each shard ships right is the part of its local
         # OLA past its block.
-        tails = [None if of is None
-                 else overlap_add(of, hop, t_block + halo)[..., t_block:]
-                 for of in frames]
-        with span("crlot.sharded.halo", counts=halo_counts):
-            seeds = push_right_tail(tails, row)
-        accs = [None if of is None
-                else overlap_add(of, hop, t_block, init_head=received(seed))
-                for of, seed in zip(frames, seeds)]
-    outs = [None if acc is None else acc / torch.clamp_min(norm, cfg.eps)
-            for acc, norm in zip(accs, norms)]
+        with span("crlot.sharded.ola", passes=2):
+            tails = [None if of is None
+                     else overlap_add(of, hop, t_block + halo)[..., t_block:]
+                     for of in frames]
+            with span("crlot.sharded.halo", counts=halo_counts):
+                seeds = push_right_tail(tails, row)
+            accs = [None if of is None
+                    else overlap_add(of, hop, t_block,
+                                     init_head=received(seed))
+                    for of, seed in zip(frames, seeds)]
+    with span("crlot.sharded.norm"):
+        outs = [None if acc is None else acc / torch.clamp_min(norm, cfg.eps)
+                for acc, norm in zip(accs, norms)]
     if not with_metrics:
         return outs, None
     partials = [
@@ -403,7 +419,14 @@ def sharded_round_trip(
     route, the window, the norms), `crlot.sharded.halo` where exchanges
     start (with the bytes `halo.counter` counted: `moved_bytes`,
     `received_bytes`, `cross_rank_ops`), `crlot.sharded.block` for each
-    channel row and `crlot.sharded.join` (`profiling.span`)."""
+    channel row and `crlot.sharded.join` (`profiling.span`). On the masked
+    route a row is, for each shard, `crlot.sharded.frames` (the per-shard
+    route: `route`, `frames`) and `crlot.sharded.mask` (the `where` on
+    the frames that exist globally), then `crlot.sharded.ola` (both
+    overlap-add passes, `passes`, the tail's exchange inside); on either
+    route `crlot.sharded.norm` (the divide) ends a row. A masked call
+    records `frame_bytes`: the bytes of every [rows, F, N] tensor it
+    wrote, from the tensors themselves."""
     return _sharded_round_trip(x, cfg, mesh, spectral_fn, valid_len,
                                valid_start, return_metrics, allow_blocked,
                                device)
@@ -513,12 +536,14 @@ def _mesh_program(x, cfg, mesh, spectral_fn, valid_len, valid_start,
             halos = {c: _blocked_halos(xs, n - hop, (mesh, c))
                      for c, _, xs, _ in rows}
     outs, partials = {}, {}
+    frame_bytes = [] if call and blocked is None else None
     for c, held, xs, norms_c in rows:
         with span("crlot.sharded.block", row=c):
             outs_c, parts = _block_round_trip(
                 xs, norms_c, window_f64, cfg, valid_len, spectral_fn,
                 valid_start=valid_start, with_metrics=return_metrics,
                 blocked=blocked, row=(mesh, c), halos=halos.get(c),
+                frame_bytes=frame_bytes,
             )
         for t in range(n_time):
             if held[t]:
@@ -535,6 +560,8 @@ def _mesh_program(x, cfg, mesh, spectral_fn, valid_len, valid_start,
                 torch.cat([outs[(c, t)].to(dev0) for t in range(n_time)],
                           dim=-1)
                 for c in range(n_ch)], dim=0)
+    if frame_bytes is not None:
+        call.note(frame_bytes=sum(frame_bytes))
     if not return_metrics:
         return y
     return y, _reduce_metrics(partials, mesh, dev0)

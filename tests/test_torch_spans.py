@@ -20,7 +20,7 @@ import torch
 import crlot_tpu_torch as pt
 from crlot_tpu_torch import pipeline, profiling, spectral
 from crlot_tpu_torch.core.types import FftBackend, FftPrecision, StftConfig
-from crlot_tpu_torch.distributed import halo
+from crlot_tpu_torch.distributed import halo, sharded_pipeline
 
 SR = 48000
 N_SAMPLES = 8192
@@ -231,6 +231,65 @@ def test_halo_span_bytes_are_the_counters(allow_blocked):
     assert names[0] == "crlot.sharded.plan"
     assert names[-1] == "crlot.sharded.join"
     assert names.count("crlot.sharded.block") == 1
+
+
+# Each per-shard route of the masked formulation: the spectral fn that
+# takes it at N 1024, H 256.
+MASKED_ROUTES = {
+    "fused_rt_frames": lambda n: spectral.noise_gate(-30.0),
+    "composed": _band_gain,
+    "packed_parts": lambda n: _without_menu(spectral.noise_gate(-30.0)),
+    "stft_istft": lambda n: None,
+}
+
+
+@pytest.mark.parametrize("n_time", [1, 2])
+@pytest.mark.parametrize("route", list(MASKED_ROUTES))
+def test_the_masked_block_emits_its_stages(route, n_time):
+    """Under `crlot.sharded.block`: the right halo's pull, then each
+    shard's route and mask, the two-pass OLA with the tail's push inside
+    it, the divide; the call's `frame_bytes` is two [rows, F, N] float32
+    tensors a shard, the route's frames and the mask's."""
+    cfg = StftConfig(frame_size=1024, hop_size=256)
+    fn = MASKED_ROUTES[route](1024)
+    assert sharded_pipeline.shard_route(cfg, fn) == route
+    mesh = pt.make_mesh(1, n_time, devices=["cpu"] * n_time)
+    x = _x(5, channels=2, n=2 * 4096)
+    with _cpu_profile():
+        pt.sharded_round_trip(x, cfg, mesh, fn, allow_blocked=False)
+    records = _last_call()
+    block = next(r for r in records if r.name == "crlot.sharded.block")
+    kids = [r for r in records if r.parent == block.id]
+    assert [r.name for r in kids] == (
+        ["crlot.sharded.halo"]
+        + ["crlot.sharded.frames", "crlot.sharded.mask"] * n_time
+        + ["crlot.sharded.ola", "crlot.sharded.norm"])
+    frames = x.shape[1] // n_time // cfg.hop_size
+    for r in kids:
+        if r.name == "crlot.sharded.frames":
+            assert r.attrs == {"route": route, "frames": frames}
+    ola = next(r for r in kids if r.name == "crlot.sharded.ola")
+    assert ola.attrs == {"passes": 2}
+    assert [r.name for r in records if r.parent == ola.id] == [
+        "crlot.sharded.halo"]
+    assert records[0].attrs["frame_bytes"] == (
+        2 * n_time * 2 * frames * cfg.frame_size * 4)
+
+
+def test_the_blocked_block_ends_with_the_divide():
+    """The blocked route's row is B0's products, then the same divide;
+    it writes no frames and records no `frame_bytes`."""
+    cfg = StftConfig(frame_size=1024, hop_size=256)
+    with _cpu_profile():
+        pt.sharded_round_trip(_x(6, channels=2, n=2 * 4096), cfg,
+                              pt.make_mesh(1, 1, devices=["cpu"]),
+                              _band_gain(1024))
+    records = _last_call()
+    assert records[0].attrs["route"] == "blocked"
+    assert "frame_bytes" not in records[0].attrs
+    block = next(r for r in records if r.name == "crlot.sharded.block")
+    assert [r.name for r in records if r.parent == block.id] == [
+        "crlot.sharded.norm"]
 
 
 def test_const_builds_counts_a_new_length_once():
