@@ -25,8 +25,10 @@ runtime `io/native.py`, `python -m crlot_tpu_torch.bench.suite`,
 `python -m crlot_tpu_torch.examples.<name>`); the frames-level routes
 (`round_trip`'s "folded" and "composed", and the packed products the
 reference keeps for an odd N); and the large frames (`round_trip`'s
-"packed_parts" at N 2048 and 4096 on B2's kernels launched one by one).
-`python3 chip_smoke.py --large-frames` runs the last path alone.
+"packed_parts" at N 2048 and 4096 on B2's kernels launched one by one);
+and B1's seeded variant, the masked stream's overlap-add.
+`python3 chip_smoke.py --large-frames` runs the large frames alone, and
+`python3 chip_smoke.py --seeded-ola` the seeded variant.
 
 Phases (each prints one line; the script exits 1 if any fails):
   1. B1 (fused OLA + normalize) vs plain on [2, 11251, 1024] frames, and
@@ -398,6 +400,15 @@ tones (16 ch x 3 s at 44.1 kHz):
      at HIGHEST no launch of the split path, the same limits. Then, at the
      cell's full 16 x 200 s, each kernel's CUDA-event time with the TF32
      rate the GEMMs issue and the DFT's bound, and the whole call's.
+Then B1's seeded variant, with its counter reset just before:
+ 51. `ola.fused.ola_seeded` torch.equal to its plain version, one launch
+     a call, at `nrstream128.gate_stream`'s feed (128 x 2352 frames of
+     1024, hop 256: the block with the tail seeded first and the divide,
+     and the tail window) and at odd shapes (R 2 and 5, N off the hop,
+     hops 21 and 7, windows off the hop grid, frames off 16 bytes, an
+     empty frame range); then the block's and the tail's CUDA-event times
+     at the feed beside their bound, the plain version's, and the former
+     `where` + two `overlap_add` passes + divide.
 Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
 busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
@@ -1160,6 +1171,7 @@ def main() -> int:
     path10 = tooling_path(dev, phase, check, failures, x_np, path6)
     path11 = routes_path(dev, phase, check, failures, x, x_np)
     large_frames_path(dev, phase, check, failures)
+    seeded_ola_path(dev, phase, check, failures)
 
     # Timings.
     def e2e_rate(fn, samples=2 * n):
@@ -3809,8 +3821,8 @@ class ToolingHold:
     `bench.launches.uncounted()`: they pass unheld and leave no count.
     Tolerances as the earlier phases hold each kernel: B0 (3xTF32) within
     tf32x3.REL_TOL of sum |x||k| per output (`KernelHold`); B0 fp32
-    torch.equal to the fmaf chain (`ProductHold`); B1 torch.equal (phase
-    1); B2 and B3 within max-abs 1e-5 outside the frames whose gate
+    torch.equal to the fmaf chain (`ProductHold`); B1 and its seeded
+    variant torch.equal (phases 1, 51); B2 and B3 within max-abs 1e-5 outside the frames whose gate
     decision is ambiguous (phases 2 and 7; B2's output times the norm
     over its peak, so the ends where the norm tends to 0 do not amplify
     the frames' roundoff); B4 within max-abs 1e-5 of
@@ -3844,6 +3856,7 @@ class ToolingHold:
         return [("b0", "gemm_cuda", "B0", self._b0),
                 ("b0f", "gemm_cuda", "B0_fp32", self._b0f),
                 ("b1", "ola_normalized_cuda", "B1", self._b1),
+                ("b1", "ola_seeded_cuda", "B1_seeded", self._b1_seeded),
                 ("b3", "roundtrip_signal_cuda", "B2", self._b2),
                 ("b3", "roundtrip_frames_cuda", "B3", self._b3),
                 ("sp", "roundtrip_of_frames", "B3", self._b3_scan),
@@ -3902,6 +3915,14 @@ class ToolingHold:
         want = self.mods["b1"].ola_normalized_plain(frames, norm, hop,
                                                     out_len, eps)
         self._equal("B1", f"hop {hop}, {list(frames.shape)}", out, want)
+        return True
+
+    def _b1_seeded(self, out, frames, hop, t0, length, f_lo, f_hi,
+                   seed=None, norm=None, eps=1e-8):
+        want = self.mods["b1"].ola_seeded_plain(frames, hop, t0, length,
+                                                f_lo, f_hi, seed, norm, eps)
+        self._equal("B1_seeded", f"hop {hop}, {list(frames.shape)}, "
+                    f"[{t0}, +{length}), frames [{f_lo}, {f_hi})", out, want)
         return True
 
     def _gate_err(self, kernel, what, out, want, mask, cover=None,
@@ -5928,9 +5949,112 @@ def multihost(nproc: int) -> int:
     return 0
 
 
-def large_frames() -> int:
-    """`python3 chip_smoke.py --large-frames`: phase 50 alone, with its
-    timings; exits 1 if it fails."""
+SEEDED_ROWS, SEEDED_FRAMES = 128, 2352  # the gate stream cell's feed
+
+
+def seeded_ola_path(dev, phase, check, failures) -> dict:
+    """Phase 51, with B1's seeded counter reset just before: B1's seeded
+    variant (the masked stream's overlap-add, `ola.fused.ola_seeded`)
+    torch.equal to its plain version on the card, one launch counted a
+    call: at the cell `nrstream128.gate_stream`'s feed (128 rows of 2352
+    frames of 1024, hop 256: the 602 112-sample block with the 768-sample
+    tail seeded first and the divide, then the tail window undivided;
+    the frames of an interior feed and of the first) and at odd shapes (R
+    2 and 5, N off the hop, hops 21 and 7, windows off the hop grid, a
+    frames pointer off 16 bytes, an empty frame range). Then, outside the
+    counts, the block's and the tail's CUDA-event times at the cell's
+    feed beside their bound (frames, seed and norm read once, the output
+    written once), the plain version's and the composition the variant
+    replaced (the `where`, two `overlap_add` passes, the divide)."""
+    import torch
+
+    from crlot_tpu_torch.bench.launches import uncounted
+    from crlot_tpu_torch.ola import fused as b1
+    from crlot_tpu_torch.ola.reference import overlap_add
+
+    eps = 1e-8
+    rows, n_frames = SEEDED_ROWS, SEEDED_FRAMES
+    t_block, halo = n_frames * HOP, NFFT - HOP
+    f_hi = (t_block - NFFT) // HOP + 1
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    frames = torch.randn((rows, n_frames, NFFT), generator=g, device=dev)
+    seed = torch.randn((rows, halo), generator=g, device=dev)
+    norm = torch.rand(t_block, generator=g, device=dev) + 0.5
+    b1.seeded_launches = 0
+    out = {}
+
+    def held(fr, hop, t0, length, lo, hi, sd, nrm):
+        before = b1.seeded_launches
+        got = b1.ola_seeded(fr, hop, t0, length, lo, hi, sd, nrm, eps)
+        torch.cuda.synchronize()
+        check(b1.seeded_launches == before + 1,
+              f"{b1.seeded_launches - before} launches for one call")
+        want = b1.ola_seeded_plain(fr, hop, t0, length, lo, hi, sd, nrm, eps)
+        check(torch.equal(got, want)
+              and torch.equal(torch.signbit(got), torch.signbit(want)),
+              f"[{t0}, +{length}) of {list(fr.shape)} at H {hop}, frames "
+              f"[{lo}, {hi}): not bit-exact, max-abs "
+              f"{float((got - want).abs().max()):.3g}")
+
+    def p51():
+        for lo in (0, 4):
+            held(frames, HOP, 0, t_block, lo, f_hi, seed, norm)
+            held(frames, HOP, t_block, halo, lo, f_hi, None, None)
+        g1 = torch.Generator(device=dev).manual_seed(1)
+        nf, shapes = 50, []
+        for nfft, hop in ((64, 32), (160, 32), (100, 32), (63, 21), (33, 7)):
+            for offset in (0, 1):
+                flat = torch.randn(3 * nf * nfft + offset, generator=g1,
+                                   device=dev)
+                fr = flat[offset:].view(3, nf, nfft)
+                sd = torch.randn((3, nfft - hop), generator=g1, device=dev)
+                nrm = torch.rand(nf * hop + 1000, generator=g1,
+                                 device=dev) + 0.25
+                nrm[::97] = 0.0  # below eps: divided by eps
+                for t0, length in ((0, nf * hop), (nf * hop, nfft - hop),
+                                   (5, 301)):
+                    held(fr, hop, t0, length, 3, nf - 4, sd, nrm)
+                    held(fr, hop, t0, length, 7, 7, None, None)
+            shapes.append(f"N {nfft} H {hop}")
+        out["launches"] = b1.seeded_launches
+        return (f"{b1.seeded_launches} launches, each torch.equal to plain: "
+                f"the cell's block and tail ([{rows}, {n_frames}, {NFFT}], "
+                f"frames from 0 and from 4 to {f_hi}), and {', '.join(shapes)}"
+                f" on 16-byte and offset frames")
+
+    def p51_times():
+        def former():
+            start = HOP * torch.arange(n_frames, device=dev)
+            of = torch.where((start + NFFT <= t_block)[:, None], frames, 0.0)
+            tail = overlap_add(of, HOP, t_block + halo)[..., t_block:]
+            acc = overlap_add(of, HOP, t_block, init_head=seed)
+            return acc / torch.clamp_min(norm, eps), tail
+
+        timing = {}
+        with uncounted():
+            timed(timing, "block", lambda: b1.ola_seeded(
+                frames, HOP, 0, t_block, 0, f_hi, seed, norm, eps))
+            timed(timing, "tail", lambda: b1.ola_seeded(
+                frames, HOP, t_block, halo, 0, f_hi))
+            timed(timing, "plain", lambda: b1.ola_seeded_plain(
+                frames, HOP, 0, t_block, 0, f_hi, seed, norm, eps))
+            timed(timing, "former", former)
+        b = bound(nbytes(frames, seed, norm) + rows * t_block * 4)
+        out.update(timing=timing, **b)
+        return (f"block {ms(timing, 'block')}, tail {ms(timing, 'tail')}; "
+                f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}), the block "
+                f"at {100 * b['bound_ms'] / timing['block']:.1f} % of it; "
+                f"plain {ms(timing, 'plain')}; the former where + two "
+                f"overlap_add + divide {ms(timing, 'former')}")
+
+    phase("51 B1 seeded vs plain (the masked stream's OLA)", p51)
+    phase("51 B1 seeded times at the gate stream's feed", p51_times)
+    return out
+
+
+def alone(path) -> int:
+    """One path of phases run alone, with its timings; exits 1 if one of
+    them fails."""
     import torch
 
     if not torch.cuda.is_available():
@@ -5959,7 +6083,7 @@ def large_frames() -> int:
         if not cond:
             raise AssertionError(what)
 
-    large_frames_path(torch.device("cuda", 0), phase, check, failures)
+    path(torch.device("cuda", 0), phase, check, failures)
     log(f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if failures:
@@ -5968,9 +6092,17 @@ def large_frames() -> int:
     return 0
 
 
+def large_frames() -> int:
+    """`python3 chip_smoke.py --large-frames`: phase 50 alone, with its
+    timings; exits 1 if it fails."""
+    return alone(large_frames_path)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--large-frames"]:
         sys.exit(large_frames())
+    if sys.argv[1:2] == ["--seeded-ola"]:
+        sys.exit(alone(seeded_ola_path))
     if sys.argv[1:2] == ["--multihost-child"]:
         sys.exit(multihost_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--multihost"]:

@@ -37,7 +37,8 @@ def launch_counts() -> Dict[str, int]:
     tf32x3, fp32_window, fused, fused_rt, b4, b5, b6 = _wrappers()
     b5, b6 = b5.launches, b6.launches
     return {"B0": tf32x3.launches, "B0_fp32": fp32_window.launches,
-            "B1": fused.launches, "B2": fused_rt.launches,
+            "B1": fused.launches, "B1_seeded": fused.seeded_launches,
+            "B2": fused_rt.launches,
             "B3": fused_rt.frames_launches, "B4": b4.launches,
             "K4": b5["axpy"], "K5": b5["axpy_windowed"],
             "K6": b5["normalize_and_clear"],
@@ -50,6 +51,7 @@ def set_launch_counts(counts: Dict[str, int]) -> None:
     tf32x3, fp32_window, fused, fused_rt, b4, b5, int8_gemm = _wrappers()
     tf32x3.launches, fp32_window.launches = counts["B0"], counts["B0_fp32"]
     fused.launches, fused_rt.launches = counts["B1"], counts["B2"]
+    fused.seeded_launches = counts["B1_seeded"]
     fused_rt.frames_launches, b4.launches = counts["B3"], counts["B4"]
     b5.launches.update(axpy=counts["K4"], axpy_windowed=counts["K5"],
                        normalize_and_clear=counts["K6"])

@@ -46,6 +46,11 @@ _LL = ctypes.c_longlong
 _SIGNATURES = {
     # (frames, norm, out, batch, n_frames, nfft, hop, out_len, eps, stream)
     "crlot_ola_normalized": [_VP, _VP, _VP, _I, _I, _I, _I, _I, _F, _VP],
+    # (frames, seed, seed_len, norm, out, batch, n_frames, nfft, hop, t0,
+    #  len, f_lo, f_hi, eps, stream)
+    "crlot_ola_seeded_normalized": [
+        _VP, _VP, _I, _VP, _VP, *[_I] * 8, _F, _VP,
+    ],
     # (x, ch_stride, lp, frame_stride, window, c_hi, c_lo, s_hi, s_lo,
     #  cinv_hi, cinv_lo, sinv_hi, sinv_lo, desc, n_ops, params, e, o, re,
     #  im, out, channels, n_frames, nfft, stream)

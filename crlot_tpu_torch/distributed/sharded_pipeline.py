@@ -6,12 +6,13 @@ nearest-neighbour exchange each way:
 
   1. pull the RIGHT halo (N - H samples) to frame the trailing hops,
   2. frame + window + rFFT + spectral fn + irFFT locally (batched),
-  3. local overlap-add,
+  3. local overlap-add of the tail past the block (B1's seeded variant),
   4. push the (N - H)-sample OLA tail RIGHT; the received left tail seeds
-     the local accumulation before any local frame, so every position sums
-     its frames in global ascending order and N shards give the same bits
-     as one wherever each frame's arithmetic does not depend on the batch
-     (B3, `torch.fft`, the seeded OLA).
+     the local accumulation before any local frame (B1's seeded variant,
+     with the divide), so every position sums its frames in global
+     ascending order and N shards give the same bits as one wherever each
+     frame's arithmetic does not depend on the batch (B3, `torch.fft`,
+     the seeded OLA).
 
 One program for every shard, as the reference's `shard_map` body: a
 process holds one tensor per shard it computes on the mesh's devices
@@ -68,7 +69,7 @@ from ..fft.matmul_backend import (
     roundtrip_composed_matmul,
 )
 from ..frame.framing import hop_block_frames
-from ..ola.reference import overlap_add
+from ..ola.fused import ola_seeded
 from ..pipeline import _norm_np
 from ..profiling import span
 from ..spectral import epilogue_of, resolve_per_bin_response
@@ -284,6 +285,82 @@ def _blocked_local_round_trip(
     return accs
 
 
+def _valid_frames(start: int, count: int, n: int, hop: int,
+                  valid_start: int, total_len: int) -> tuple:
+    """[f_lo, f_hi): of `count` frames starting at `start`, `start + hop`,
+    ..., those that exist globally: start >= valid_start and start + N <=
+    total_len."""
+    f_lo = min(count, max(0, -(-(valid_start - start) // hop)))
+    f_hi = max(f_lo, min(count, (total_len - n - start) // hop + 1))
+    return f_lo, f_hi
+
+
+def _masked_local_round_trip(
+    xs: list,  # one channel group's time shards, [C_local, T_block] each
+    norms: list,
+    window_f64: np.ndarray,
+    cfg: StftConfig,
+    total_len: int,
+    spectral_fn: Optional[Callable],
+    valid_start: int,
+    t_block: int,
+    row=None,
+    frame_bytes: Optional[list] = None,
+) -> list:
+    """The masked frame formulation: each shard's normalized output block
+    (None for a shard another rank holds).
+
+    Each shard frames its block with the right halo and runs the per-shard
+    route; then B1's seeded variant (`ola.fused.ola_seeded`) twice a shard:
+    the tail past the block, [t_block, t_block + N - H), which only the
+    last frames reach, undivided, shipped right; then the block with the
+    received tail seeded first and the divide. Both count only the frames
+    that exist globally (`_valid_frames`), in place of zeroing the others."""
+    n, hop = cfg.frame_size, cfg.hop_size
+    halo = n - hop
+    route = shard_route(cfg, spectral_fn)
+    frames_per_block = t_block // hop
+    with span("crlot.sharded.halo", counts=halo_counts):
+        rights = pull_right_halo(xs, halo, row)
+    frames, ranges = [], []
+    for t, (x, right) in enumerate(zip(xs, rights)):
+        ranges.append(_valid_frames(t * t_block, frames_per_block, n, hop,
+                                    valid_start, total_len))
+        if x is None:
+            frames.append(None)
+            continue
+        with span("crlot.sharded.frames", route=route,
+                  frames=frames_per_block):
+            x_ext = torch.cat([x, received(right)], dim=-1)
+            of = _local_frames(route, x_ext, cfg, spectral_fn,
+                               window_f64, frames_per_block)
+            _report(x[..., :1].numel()
+                    * _frames_macs(route, frames_per_block, n), True)
+            written = [of]
+            if cfg.synthesis_window:
+                of = of * const_on(window_f64, of.device)
+                written.append(of)
+        if frame_bytes is not None:
+            frame_bytes.extend(w.numel() * w.element_size() for w in written)
+        frames.append(of)
+    held = [(of, rng) for of, rng in zip(frames, ranges) if of is not None]
+    # The tail each shard ships right is its local OLA past its block; the
+    # received left tail seeds the block before any local frame (canonical
+    # order).
+    with span("crlot.sharded.ola",
+              path="plain" if held[0][0].device.type == "cpu" else "kernel",
+              frames=tuple(rng for _, rng in held)):
+        tails = [None if of is None
+                 else ola_seeded(of, hop, t_block, halo, *rng)
+                 for of, rng in zip(frames, ranges)]
+        with span("crlot.sharded.halo", counts=halo_counts):
+            seeds = push_right_tail(tails, row)
+        return [None if of is None
+                else ola_seeded(of, hop, 0, t_block, *rng,
+                                seed=received(seed), norm=norm, eps=cfg.eps)
+                for of, rng, seed, norm in zip(frames, ranges, seeds, norms)]
+
+
 def _block_round_trip(
     xs: list,  # one channel group's time shards, [C_local, T_block] each
     norms: list,  # each shard's [T_block] COLA norm, on its device
@@ -304,63 +381,22 @@ def _block_round_trip(
     None throughout. `halos`: the blocked route's exchanges, if issued.
     `frame_bytes`, where given, gets the bytes of each [C_local, F, N]
     tensor the masked route writes: the per-shard route's frames (and
-    their synthesis-window product), then the mask's."""
-    n, hop = cfg.frame_size, cfg.hop_size
-    halo = n - hop
+    their synthesis-window product)."""
     t_block = next(x for x in xs if x is not None).shape[-1]
     if blocked is not None:
         accs = _blocked_local_round_trip(
             xs, blocked["plan"], cfg, blocked["num_frames"], t_block,
             blocked["n_time"], row, halos,
         )
+        with span("crlot.sharded.norm"):
+            outs = [None if acc is None
+                    else acc / torch.clamp_min(norm, cfg.eps)
+                    for acc, norm in zip(accs, norms)]
     else:
-        route = shard_route(cfg, spectral_fn)
-        frames_per_block = t_block // hop
-        with span("crlot.sharded.halo", counts=halo_counts):
-            rights = pull_right_halo(xs, halo, row)
-        frames = []
-        for t, (x, right) in enumerate(zip(xs, rights)):
-            if x is None:
-                frames.append(None)
-                continue
-            with span("crlot.sharded.frames", route=route,
-                      frames=frames_per_block):
-                x_ext = torch.cat([x, received(right)], dim=-1)
-                of = _local_frames(route, x_ext, cfg, spectral_fn,
-                                   window_f64, frames_per_block)
-                _report(x[..., :1].numel()
-                        * _frames_macs(route, frames_per_block, n), True)
-                written = [of]
-                if cfg.synthesis_window:
-                    of = of * const_on(window_f64, of.device)
-                    written.append(of)
-            with span("crlot.sharded.mask"):
-                # Keep only the frames that exist globally: start >=
-                # valid_start and start + N <= total_len.
-                start = t * t_block + hop * torch.arange(
-                    frames_per_block, device=of.device)
-                valid = (start >= valid_start) & (start + n <= total_len)
-                of = torch.where(valid[:, None], of, 0.0)
-            if frame_bytes is not None:
-                frame_bytes.extend(w.numel() * w.element_size()
-                                   for w in written + [of])
-            frames.append(of)
-        # OLA with the left neighbour's tail seeded first (canonical
-        # order): the tail each shard ships right is the part of its local
-        # OLA past its block.
-        with span("crlot.sharded.ola", passes=2):
-            tails = [None if of is None
-                     else overlap_add(of, hop, t_block + halo)[..., t_block:]
-                     for of in frames]
-            with span("crlot.sharded.halo", counts=halo_counts):
-                seeds = push_right_tail(tails, row)
-            accs = [None if of is None
-                    else overlap_add(of, hop, t_block,
-                                     init_head=received(seed))
-                    for of, seed in zip(frames, seeds)]
-    with span("crlot.sharded.norm"):
-        outs = [None if acc is None else acc / torch.clamp_min(norm, cfg.eps)
-                for acc, norm in zip(accs, norms)]
+        outs = _masked_local_round_trip(
+            xs, norms, window_f64, cfg, total_len, spectral_fn, valid_start,
+            t_block, row, frame_bytes,
+        )
     if not with_metrics:
         return outs, None
     partials = [
@@ -421,11 +457,12 @@ def sharded_round_trip(
     `received_bytes`, `cross_rank_ops`), `crlot.sharded.block` for each
     channel row and `crlot.sharded.join` (`profiling.span`). On the masked
     route a row is, for each shard, `crlot.sharded.frames` (the per-shard
-    route: `route`, `frames`) and `crlot.sharded.mask` (the `where` on
-    the frames that exist globally), then `crlot.sharded.ola` (both
-    overlap-add passes, `passes`, the tail's exchange inside); on either
-    route `crlot.sharded.norm` (the divide) ends a row. A masked call
-    records `frame_bytes`: the bytes of every [rows, F, N] tensor it
+    route: `route`, `frames`), then `crlot.sharded.ola` (B1's seeded
+    variant over the tails, the tail's exchange, then over the blocks
+    with the divide; `path`, "kernel" or "plain", and `frames`, each held
+    shard's [f_lo, f_hi) of the frames that exist globally); on the
+    blocked route `crlot.sharded.norm` (the divide) ends a row. A masked
+    call records `frame_bytes`: the bytes of every [rows, F, N] tensor it
     wrote, from the tensors themselves."""
     return _sharded_round_trip(x, cfg, mesh, spectral_fn, valid_len,
                                valid_start, return_metrics, allow_blocked,

@@ -2,8 +2,8 @@
 traffic mix of the benchmark cell `nrstream128.gate_stream` (N 1024, hop
 256, not centred, `noise_gate(-45, -80)` over the cell's tones) through
 `ShardedStreamer` on a (1, 1) mesh, whose masked route runs B3's frames
-(on the CPU its plain version), the mask, the seeded overlap-add and the
-divide.
+(on the CPU its plain version), then B1's seeded variant (the seeded
+overlap-add of the frames that exist globally, and the divide).
 
 At 2 rows x 6 chunks of 8192 samples: the stream runs masked on the
 "fused_rt_frames" route; the interior chunks meet the benchmark's plain
@@ -46,6 +46,9 @@ N, HOP = CELL["frame_size"], CELL["hop_size"]
 ROWS, CHUNK, CHUNKS = 2, 8192, 6
 CTX = 1024  # the streamer's context a side on a (1, 1) mesh: N
 FRAMES = (CHUNK + 2 * CTX) // HOP  # B3's frames a feed
+# An interior feed's frames that exist globally: those inside its
+# context-extended chunk, start + N <= CHUNK + 2 * CTX.
+VALID = (0, (CHUNK + 2 * CTX - N) // HOP + 1)
 SEEDS = [2 ** 33 + 25, 2 ** 31 + 7, 11]
 
 # Tolerances against the float64 reference, on the interior chunks'
@@ -190,22 +193,21 @@ def test_the_masked_branch_records_its_stages():
     assert records[0].attrs["mode"] == "masked"
     call = by_name["crlot.sharded.round_trip"]
     assert call.attrs["route"] == "masked"
-    assert call.attrs["frame_bytes"] == 2 * ROWS * FRAMES * N * 4
+    assert call.attrs["frame_bytes"] == ROWS * FRAMES * N * 4
     block = by_name["crlot.sharded.block"]
     assert block.parent == call.id
     kids = [r for r in records if r.parent == block.id]
     assert [r.name for r in kids] == [
-        "crlot.sharded.halo", "crlot.sharded.frames", "crlot.sharded.mask",
-        "crlot.sharded.ola", "crlot.sharded.norm"]
+        "crlot.sharded.halo", "crlot.sharded.frames", "crlot.sharded.ola"]
     attrs = {r.name: r.attrs for r in kids}
     assert attrs["crlot.sharded.frames"] == {"route": "fused_rt_frames",
                                              "frames": FRAMES}
-    assert attrs["crlot.sharded.mask"] == {}
-    assert attrs["crlot.sharded.ola"] == {"passes": 2}
-    assert attrs["crlot.sharded.norm"] == {}
+    assert VALID == (0, 37)
+    assert attrs["crlot.sharded.ola"] == {"path": "plain",
+                                          "frames": (VALID,)}
     ola = by_name["crlot.sharded.ola"]
     assert [r.name for r in records if r.parent == ola.id] == [
-        "crlot.sharded.halo"]  # the tail's exchange, between the passes
+        "crlot.sharded.halo"]  # the tail's exchange, between the launches
     for r in kids:
         assert block.start_ns <= r.start_ns <= r.end_ns <= block.end_ns
     assert [r.start_ns for r in kids] == sorted(r.start_ns for r in kids)
@@ -240,8 +242,9 @@ class _FrameWrites(TorchDispatchMode):
 def test_frame_bytes_counts_every_frame_sized_write(monkeypatch, synthesis):
     """`frame_bytes` against the frame-sized writes of a feed counted op
     by op outside the per-shard route's own call (B3's, on the card one
-    launch), plus that call's output; with a synthesis window its product
-    is one more."""
+    launch), plus that call's output: that output alone, since the seeded
+    overlap-add reads the frames in place; with a synthesis window its
+    product is one more."""
     cfg, fn = _route()
     if synthesis:
         cfg = dataclasses.replace(cfg, synthesis_window=True)
@@ -271,7 +274,7 @@ def test_frame_bytes_counts_every_frame_sized_write(monkeypatch, synthesis):
             and r.name == "crlot.sharded.round_trip"][0]
     per_tensor = ROWS * FRAMES * N * 4
     assert count.bytes == call.attrs["frame_bytes"]
-    assert count.bytes == (3 if synthesis else 2) * per_tensor
+    assert count.bytes == (2 if synthesis else 1) * per_tensor
 
 
 @pytest.mark.parametrize("mesh_shape", [(1, 1), (1, 2), (2, 2)])
@@ -362,7 +365,8 @@ def test_frame_gb_reads_the_stretchs_feeds():
 
 def test_a_traced_run_of_the_cell_reads_the_frame_traffic():
     """The cell at a small size on the CPU, traced: `stream.frame_gb` is
-    the two frame-sized tensors of a feed; no B3 launch, so no roofline."""
+    the one frame-sized tensor of a feed, B3's frames; no B3 launch, so no
+    roofline."""
     over = {"config": {"channels": ROWS, "chunk_samples_per_card": CHUNK},
             "traffic": {"ring": 3, "compare": 2, "warmup_calls": 3,
                         "trace_from": 2, "trace_calls": 3}}
@@ -371,5 +375,5 @@ def test_a_traced_run_of_the_cell_reads_the_frame_traffic():
     line = result.line(cell, rec, True, kind="NVIDIA H100 80GB HBM3")
     assert line["correct"] is True, line["check"]
     assert line["metrics"]["stream.frame_gb"]["value"] == pytest.approx(
-        2 * ROWS * FRAMES * N * 4 * 1e-9)
+        ROWS * FRAMES * N * 4 * 1e-9)
     assert "kernel.b3_roofline" not in line["metrics"]
