@@ -1,5 +1,5 @@
-"""A cell on its card: the stream's mesh, and for each seed the inputs,
-the warm-up, the window and the check."""
+"""A cell on its card: its entry, the stream's mesh, and for each seed
+the inputs, the warm-up, the window and the check."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import time
 
 import torch
 
-from . import drive, signals
+from . import drive, spec
 
 
 def _mesh(cell, device):
@@ -41,17 +41,15 @@ def run(cell, seeds: list, seconds: float, traced: bool, device_kind: str,
         build_s = cuda_build.build_seconds
     else:
         device = torch.device("cpu")
+    entry = spec.entry(cell.traffic["entry"])
     mesh = _mesh(cell, device)
-    channels, samples = drive.input_shape(cell)
     records = []
     for i, seed in enumerate(seeds):
         marks = [("start", time.perf_counter() - t0)]
-        ring = signals.ring(cell.traffic["signal"], int(cell.traffic["ring"]),
-                            channels, samples, cell.config["sample_rate"],
-                            seed, device)
+        ring = entry.inputs(cell, seed, device)
         drive.sync(device)
         marks.append(("inputs", time.perf_counter() - t0))
-        loop = drive.make_loop(cell, ring, device, mesh)
+        loop = entry.Loop(cell, ring, device, mesh)
         loop.step(0)
         drive.sync(device)
         marks.append(("first call", time.perf_counter() - t0))
@@ -85,7 +83,8 @@ def run(cell, seeds: list, seconds: float, traced: bool, device_kind: str,
         loop.free()
         _free(device)
         t_check = time.perf_counter()
-        rec["check"] = drive.check(loop, kept, cell, device, control)
+        rec["check"] = drive.check(loop, kept, cell, device,
+                                   entry.reference, control)
         rec["check_s"] = time.perf_counter() - t_check
         del kept, loop, ring
         _free(device)

@@ -1,7 +1,8 @@
-"""Drive a cell: make the inputs, warm up, run the closed-loop
-window, trace a stretch of it, and check the outputs it produced.
+"""Drive a cell: the closed-loop window over an entry's loop, the trace
+of a stretch of it, and the check of the outputs it produced.
 
-The entries are the program's own: `pipeline.round_trip` on a clip, or
+The loops of the two entries there are, `entries/round_trip.py` and
+`entries/stream.py`, live here: `pipeline.round_trip` on a clip, or
 `ShardedStreamer.feed` on a stream's next chunk. One call is in flight:
 each is issued, then synchronized, then the next is issued.
 """
@@ -67,9 +68,10 @@ class Reservoir:
 class ClipLoop:
     """`round_trip` on clip i % ring of a ring of device-resident clips."""
 
-    def __init__(self, config: dict, traffic: dict, ring: list) -> None:
+    def __init__(self, cell, ring: list, device, mesh) -> None:
         from crlot_tpu_torch import pipeline
 
+        config, traffic = cell.config, cell.traffic
         self.pipeline = pipeline
         self.config, self.ring = config, ring
         self.cfg = port_config(config)
@@ -102,10 +104,10 @@ class StreamLoop:
     """`ShardedStreamer.feed` of the stream whose chunk j is ring[j % ring];
     each feed returns the chunk before it."""
 
-    def __init__(self, config: dict, traffic: dict, ring: list, mesh,
-                 device) -> None:
+    def __init__(self, cell, ring: list, device, mesh) -> None:
         from crlot_tpu_torch.distributed.stream import ShardedStreamer
 
+        config, traffic = cell.config, cell.traffic
         self.config, self.ring = config, ring
         self.cfg = port_config(config)
         self.fn = port_spectral(traffic["spectral"], config)
@@ -137,23 +139,6 @@ class StreamLoop:
 
     def free(self) -> None:
         self.streamer = None
-
-
-def make_loop(cell, ring: list, device, mesh=None):
-    entry = cell.traffic["entry"]
-    if entry == "round_trip":
-        return ClipLoop(cell.config, cell.traffic, ring)
-    if entry == "stream":
-        return StreamLoop(cell.config, cell.traffic, ring, mesh, device)
-    raise ValueError(f"unknown entry {entry!r}")
-
-
-def input_shape(cell) -> tuple:
-    """(rows, samples) of one input: a clip, or a stream's chunk."""
-    c = cell.config
-    if cell.traffic["entry"] == "round_trip":
-        return c["channels"], c["samples"]
-    return c["channels"], c["chunk_samples_per_card"]
 
 
 def window(loop, device, seconds: float, seed: int, traffic: dict,
@@ -217,14 +202,16 @@ def profiler(device):
     return torch.profiler.profile(activities=acts)
 
 
-def check(loop, kept: list, cell, device, control: bool = False) -> dict:
-    """Compare every kept output with the float64 reference: the worst of
-    each number, the pieces compared, and (for a gate) the share of bins
-    the reference gates. With `control`, also the TF32 control in the
-    program's place: its worst numbers against the same reference."""
-    ref = stft64.RoundTrip(cell.config, cell.traffic["spectral"], device)
-    ctl = (stft64.RoundTrip(cell.config, cell.traffic["spectral"], device,
-                            "tf32") if control else None)
+def check(loop, kept: list, cell, device, reference,
+          control: bool = False) -> dict:
+    """Compare every kept output with the float64 reference, the entry's
+    `reference(cell, device, "float64")`: the worst of each number, the
+    pieces compared, and (for a reference that counts bins, as a gate's
+    does) the share of bins it gates. With `control`, also the TF32
+    control, `reference(cell, device, "tf32")`, in the program's place:
+    its worst numbers against the same reference."""
+    ref = reference(cell, device, "float64")
+    ctl = reference(cell, device, "tf32") if control else None
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     worst = {"err_rel": 0.0, "peak_rel": 0.0}
@@ -244,7 +231,7 @@ def check(loop, kept: list, cell, device, control: bool = False) -> dict:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     out = {"numbers": worst, "pieces": pieces}
-    if ref.bins:
+    if getattr(ref, "bins", 0):
         out["gated_share"] = ref.gated_bins / ref.bins
     if ctl is not None:
         out["control"] = worst_ctl

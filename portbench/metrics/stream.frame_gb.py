@@ -2,7 +2,8 @@
 mean over the traced stretch's feeds of `frame_bytes` on their
 `crlot.sharded.round_trip` spans (the masked route's [rows, F, N]
 tensors, counted by the program from the tensors it wrote: the per-shard
-route's frames and the mask's), from `profiling.span_log()`. The
+route's frames alone, as B1's seeded variant writes no mask), from
+`profiling.span_log()`. The
 stretch's feeds are the last `steps` entry calls of the log, as
 `entry.plan_host_ms` takes them. Nothing when the run is untraced or the
 program records no such counter."""
