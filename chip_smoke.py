@@ -26,9 +26,11 @@ runtime `io/native.py`, `python -m crlot_tpu_torch.bench.suite`,
 (`round_trip`'s "folded" and "composed", and the packed products the
 reference keeps for an odd N); and the large frames (`round_trip`'s
 "packed_parts" at N 2048 and 4096 on B2's kernels launched one by one);
-and B1's seeded variant, the masked stream's overlap-add.
-`python3 chip_smoke.py --large-frames` runs the large frames alone, and
-`python3 chip_smoke.py --seeded-ola` the seeded variant.
+B1's seeded variant, the masked stream's overlap-add; and the resample
+chain's stream (`ResampledStftStreamer`) at BASELINE config 3's cell.
+`python3 chip_smoke.py --large-frames` runs the large frames alone,
+`python3 chip_smoke.py --seeded-ola` the seeded variant, and
+`python3 chip_smoke.py --chain-stream` the chain's stream.
 
 Phases (each prints one line; the script exits 1 if any fails):
   1. B1 (fused OLA + normalize) vs plain on [2, 11251, 1024] frames, and
@@ -409,6 +411,14 @@ Then B1's seeded variant, with its counter reset just before:
      empty frame range); then the block's and the tail's CUDA-event times
      at the feed beside their bound, the plain version's, and the former
      `where` + two `overlap_add` passes + divide.
+Then BASELINE config 3's chain as the cell `rschain128.chain_stream` feeds
+it, with B4's counter reset just before:
+ 52. `ResampledStftStreamer` (44.1 -> 48 -> 16 kHz, N 400, H 160) fed
+     three 128 x 1 323 000 chunks of noise: two B4 launches a feed, 3000
+     frames a feed after the first; each launch within 1e-5 of its largest
+     output of `resample_bank_plain` on the same joined buffer; the frames
+     within 1e-5 of the largest bin of `stft` over the plain chain of the
+     whole stream (`resample_bank_plain` a stage).
 Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
 busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
@@ -1172,6 +1182,7 @@ def main() -> int:
     path11 = routes_path(dev, phase, check, failures, x, x_np)
     large_frames_path(dev, phase, check, failures)
     seeded_ola_path(dev, phase, check, failures)
+    chain_stream_path(dev, phase, check, failures)
 
     # Timings.
     def e2e_rate(fn, samples=2 * n):
@@ -1594,11 +1605,10 @@ def resample_path(dev, phase, check, failures, seconds=SECONDS) -> dict:
 
     def p14():
         chunk = 65536
-        aligned = -(-chunk // 147) * 147
         before = b4.launches
         got = pt.resample_chunked(noise, 44100, 48000, chunk=chunk)
         launched = b4.launches - before
-        n_chunks = -(-n // aligned)
+        n_chunks = -(-n // chunk)
         check(launched == n_chunks, f"{launched} B4 launches, {n_chunks} chunks")
         one = pt.resample(noise, 44100, 48000)
         check(got.device == dev and torch.equal(got, one),
@@ -6052,6 +6062,85 @@ def seeded_ola_path(dev, phase, check, failures) -> dict:
     return out
 
 
+CHAIN_ROWS, CHAIN_CHUNK, CHAIN_FEEDS = 128, 1_323_000, 3  # the cell's feed
+
+
+def chain_stream_path(dev, phase, check, failures) -> dict:
+    """Phase 52, with B4's counter reset just before: the resample chain's
+    stream at the cell `rschain128.chain_stream`'s feed, each B4 launch
+    held against the plain bank product on the buffer it was given, the
+    frames against `stft` of the plain chain over the whole stream."""
+    import torch
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch.resample import kernel as b4
+    from crlot_tpu_torch.resample import polyphase
+
+    rates = (44100, 48000, 16000)
+    cfg = pt.StftConfig(frame_size=400, hop_size=160)
+    rows, chunk = CHAIN_ROWS, CHAIN_CHUNK
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((rows, CHAIN_FEEDS * chunk), generator=g,
+                    device=dev) * 0.05
+    out = {}
+
+    def rel(got, want):
+        return float((got - want).abs().max()) / float(want.abs().max())
+
+    def p52():
+        launch, held, counts, frames = polyphase.resample_cuda, [], [], []
+        worst = {}
+
+        def recorded(buf, l, m, n_out, *args, **kwargs):
+            y = launch(buf, l, m, n_out, *args, **kwargs)
+            held.append((buf, l, m, n_out, y))
+            return y
+
+        st = pt.ResampledStftStreamer(rates, cfg, rows, dev)
+        polyphase.resample_cuda = recorded
+        b4.launches = 0
+        try:
+            for k in range(CHAIN_FEEDS):
+                before = b4.launches
+                frames.append(st.feed(x[:, k * chunk:(k + 1) * chunk]))
+                counts.append((b4.launches - before, frames[-1].shape[-2]))
+                for buf, l, m, n_out, y in held:
+                    err = rel(y, b4.resample_bank_plain(buf, l, m, n_out))
+                    worst[f"{l}/{m}"] = max(worst.get(f"{l}/{m}", 0.0), err)
+                    check(err <= 1e-5, f"feed {k}, B4 at {l}/{m} on "
+                          f"{list(buf.shape)}: {err:.3e} of the largest")
+                held.clear()
+        finally:
+            polyphase.resample_cuda = launch
+        check(all(n == 2 for n, _ in counts),
+              f"B4 launches a feed {[n for n, _ in counts]}")
+        hops = chunk // 441  # 441 samples at 44.1 kHz: one hop at 16 kHz
+        check(0 < counts[0][1] < hops
+              and all(f == hops for _, f in counts[1:]),
+              f"frames a feed {[f for _, f in counts]}")
+        got = torch.cat(frames, dim=-2)
+        del frames
+        y = x
+        for a, b in zip(rates, rates[1:]):
+            c = math.gcd(a, b)
+            l, m = b // c, a // c
+            y = b4.resample_bank_plain(y, l, m, -(-y.shape[-1] * l // m))
+        want = pt.stft(y, cfg)[:, : got.shape[-2]]
+        err = rel(got, want)
+        check(err <= 1e-5, f"frames {err:.3e} of the largest bin")
+        out.update(launches=b4.launches, counts=counts, stage_err=worst,
+                   frame_err=err)
+        return (f"B4 launches {b4.launches} ({[n for n, _ in counts]} a "
+                f"feed), frames {[f for _, f in counts]} a feed; each "
+                f"launch against the plain bank product on its buffer, "
+                f"largest {', '.join(f'{k} {v:.3e}' for k, v in worst.items())}"
+                f" of the largest output; {got.shape[-2]} frames against "
+                f"stft of the plain chain, {err:.3e} of the largest bin")
+
+    phase("52 the resample chain's stream at rschain128's feed", p52)
+    return out
+
+
 def alone(path) -> int:
     """One path of phases run alone, with its timings; exits 1 if one of
     them fails."""
@@ -6103,6 +6192,8 @@ if __name__ == "__main__":
         sys.exit(large_frames())
     if sys.argv[1:2] == ["--seeded-ola"]:
         sys.exit(alone(seeded_ola_path))
+    if sys.argv[1:2] == ["--chain-stream"]:
+        sys.exit(alone(chain_stream_path))
     if sys.argv[1:2] == ["--multihost-child"]:
         sys.exit(multihost_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--multihost"]:

@@ -58,9 +58,11 @@ from .ola.streaming import OLAAccumulator
 from .ola.reference import overlap_add, overlap_add_normalized
 from .pipeline import formulation_for, istft, resampled_stft, round_trip, stft
 from .resample.polyphase import resample, resample_chunked
+from .resample.stream import PolyphaseStreamer
 from .convolve import convolve
 from .streaming_pipeline import (
     BlockedChunkStreamer,
+    ResampledStftStreamer,
     process_wav_file,
     streaming_round_trip,
 )

@@ -20,6 +20,8 @@ Counterpart of `crlot_tpu/fft/dispatch.py`, route for route:
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -49,9 +51,14 @@ def _fit(x: torch.Tensor, nfft: int) -> torch.Tensor:
         x, (0, nfft - t))
 
 
+def _folds(nfft: int) -> bool:
+    """Whether the products take the folded halves (`_mm_rfft`)."""
+    return nfft <= _mm.MAX_MATMUL_NFFT and nfft % 2 == 0
+
+
 def _mm_rfft(x: torch.Tensor, nfft: int, window_f64=None) -> torch.Tensor:
     if nfft <= _mm.MAX_MATMUL_NFFT:
-        if nfft % 2 == 0:
+        if _folds(nfft):
             re, im = _mm.rfft_folded_packed(x, nfft, window_f64)
             return torch.complex(re, im)
         return _mm.rfft_matmul(x, nfft, window_f64)
@@ -82,6 +89,22 @@ def rfft_windowed(
         return _mm_rfft(x, nfft, window_f64)
     w = const_on(window_f64, x.device)
     return torch.fft.rfft(x.float() * w, n=nfft, dim=-1)
+
+
+def rfft_windowed_bytes(shape, nfft: int, device: torch.device,
+                        backend: FftBackend = FftBackend.AUTO) -> int:
+    """The bytes `rfft_windowed` writes on float32 frames of `shape`
+    [..., nfft] besides its complex output, from the shape alone: on the
+    folded products `matmul_backend.rfft_folded_bytes`; on the dense
+    product its two planes; else the windowed frames (a transform's own
+    scratch is not seen)."""
+    rows = math.prod(shape[:-1])
+    if _pick(backend, nfft, device) == FftBackend.MATMUL:
+        if _folds(nfft):
+            return _mm.rfft_folded_bytes(rows, nfft)
+        if nfft <= _mm.MAX_MATMUL_NFFT:
+            return 4 * rows * 2 * (nfft // 2 + 1)
+    return 4 * rows * nfft
 
 
 def irfft(

@@ -131,6 +131,15 @@ def fold_windowed(x: torch.Tensor, nfft: int, window_f32=None):
     return _fold_frames(y, nfft)
 
 
+def rfft_folded_bytes(rows: int, nfft: int) -> int:
+    """The bytes `rfft_folded_packed` writes on `rows` float32 frames of
+    an even N, from the shape: the windowed frames; the fold's flipped
+    tail, sum, even part and difference (`_fold_frames`); the Re and Im
+    planes."""
+    h = nfft // 2
+    return 4 * rows * (nfft + 3 * (h - 1) + (h + 1) + 2 * (h + 1))
+
+
 def folded_forward(even: torch.Tensor, odd: torch.Tensor, c: torch.Tensor,
                    s: torch.Tensor):
     """The folded halves -> (Re [..., K], Im [..., K]): two half-size

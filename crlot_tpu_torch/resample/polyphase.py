@@ -214,17 +214,19 @@ def resample_chunked(
     atten_db: float = 120.0,
     device=None,
 ):
-    """Streaming variant: resample a long signal in overlapping M-aligned
-    chunks, with output identical to one-shot `resample`.
+    """Streaming variant: resample a long signal fed in chunks of `chunk`
+    samples through `stream.PolyphaseStreamer`, which carries each chunk's
+    history to the next, with output identical to one-shot `resample`.
 
     A numpy (or other array-like) input is moved to `device` (default
     "cuda", which raises without a card; "cpu" asks for the CPU) and the
     result comes back as numpy, as in the reference. A tensor input stays
     on its own device and the result is a tensor there; it takes no
     `device`. On CUDA every chunk launches B4 or raises."""
+    from .stream import PolyphaseStreamer  # it imports this module
+
     as_numpy = not isinstance(x, torch.Tensor)
     xt = _device.place(x, device, torch.float32)
-    l, m = _rate(sr_in, sr_out)
     if chunk <= 0:
         raise ValueError(f"chunk must be > 0, got {chunk}")
     squeeze = xt.ndim == 1
@@ -232,30 +234,13 @@ def resample_chunked(
         xt = xt[None, :]
     if xt.ndim != 2:
         raise ValueError(f"expected [T] or [C, T], got shape {tuple(xt.shape)}")
-    if l == m:
-        out = xt
-    else:
-        if chunk % m != 0:
-            chunk = -(-chunk // m) * m  # input chunks must be M-aligned
-        t_in = xt.shape[-1]
-        n_out = -(-t_in * l // m)
-        # History so interior windows see real samples (W input samples),
-        # rounded up to a multiple of M so every chunk starts at polyphase
-        # phase 0 (gcd(L, M) = 1: outputs align only at M-multiples).
-        _, _tau_min, w = _kernel_bank(l, m, taps_per_phase, atten_db)
-        hist = -(-(w + m) // m) * m
-        out = torch.zeros((xt.shape[0], n_out), dtype=torch.float32,
-                          device=xt.device)
-        for start in range(0, t_in, chunk):
-            lo = max(0, start - hist)  # multiple of m (chunk and hist are)
-            hi = min(t_in, start + chunk + hist)
-            y = _resample_impl(xt[:, lo:hi], l, m, -(-(hi - lo) * l // m),
-                               taps_per_phase, atten_db)
-            # Global output j maps to local j - lo*L/M (exact: m | lo).
-            out_lo = -(-start * l // m)
-            out_hi = min(n_out, -(-min(t_in, start + chunk) * l // m))
-            local0 = out_lo - lo * l // m
-            out[:, out_lo:out_hi] = y[:, local0 : local0 + (out_hi - out_lo)]
+    st = PolyphaseStreamer(sr_in, sr_out, xt.shape[0], xt.device,
+                           taps_per_phase, atten_db)
+    t_in = xt.shape[-1]
+    last = max(0, (t_in - 1) // chunk * chunk)
+    parts = [st.feed(xt[:, s : s + chunk]) for s in range(0, last, chunk)]
+    parts.append(st.finish(xt[:, last:]))
+    out = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
     if squeeze:
         out = out[0]
     return out.cpu().numpy() if as_numpy else out

@@ -22,6 +22,10 @@ Counterpart of `crlot_tpu/streaming_pipeline.py`.
   (`overlap_add(init_head=...)`): every output position sums "carry, then
   the frames in ascending order", exactly the sums of a per-block scan, so
   the output is the same for any block size and any chunking of a file.
+* `ResampledStftStreamer` is the analysis side's stream: a resample chain
+  (`resample.stream.PolyphaseStreamer` a stage, B4 with its history
+  carried) framed at its last rate and transformed, frame for frame
+  `stft` of the one-shot chain over the whole stream (BASELINE config 3).
 
 Array-like input goes to `device=` (default "cuda"; `core/device.py`); a
 tensor stays on its own device. No environment knob is read.
@@ -52,6 +56,8 @@ from .fft.matmul_backend import (
 from .ola.norm import build_norm_linear
 from .ola.reference import overlap_add
 from .pipeline import _synthesis, _window_f64, _window_np
+from .profiling import span
+from .resample.stream import PolyphaseStreamer
 from .spectral import epilogue_of, resolve_per_bin_response
 
 logger = logging.getLogger("crlot_tpu_torch.streaming")
@@ -427,3 +433,114 @@ def process_wav_file(
     logger.info("stream %s done: %d samples/channel written", outfile,
                 written)
     return written
+
+
+# ---------------------------------------------------------------------------
+# A resample chain framed on a stream (BASELINE config 3).
+# ---------------------------------------------------------------------------
+
+
+class ResampledStftStreamer:
+    """Polyphase resampling through each pair of `rates` (a
+    `resample.stream.PolyphaseStreamer` a stage: B4 on the card, each
+    stage's history and phase carried between feeds), then `stft`'s frames
+    at the last rate (not centred: frame f at sample f*H, the N - H samples
+    of the next frame's head carried) and its windowed rFFT, on `channels`
+    rows of one stream on `device` (default "cuda").
+
+    `feed(x [C, T])` takes feeds of any length and returns the complex64
+    `[C, F, N/2 + 1]` frames it completed; `finish(x=None)` returns the
+    rest and ends the stream. The concatenated frames are `stft(resample(
+    ...resample(x, rates[0], rates[1])..., rates[-1]), cfg)` over the whole
+    stream, frame for frame (on the card the resampled signal bit for bit;
+    the spectrum through the same products, batched otherwise).
+    `frames_out` counts the frames returned so far. Whisper's front end,
+    the default: 44.1 -> 48 -> 16 kHz, N 400, H 160, periodic Hann; a feed
+    of 441*k samples is k hops at 16 kHz once the filters' delay is
+    fed.
+
+    Each call is the span `crlot.resample_stream.feed` (`.finish`), with
+    `rows`, `samples`, `frames` and `glue_bytes`: the bytes its torch ops
+    write besides B4's outputs and the returned spectrum (each stage's
+    join and the history it keeps, the tail's join and the samples kept,
+    and what `stft`'s windowed rFFT writes on the way:
+    `dispatch.rfft_windowed_bytes`), counted from the tensors' shapes.
+    Under it `.plan` (the tiles, banks and tables looked up), a `.stage`
+    a stage (`l`, `m`, `in`, `out`, the tile's `kind`: B4's join and
+    launch), `.frames` (the tail's join and the framing) and `.stft` (the
+    products)."""
+
+    def __init__(self, rates=(44100, 48000, 16000), cfg: StftConfig = None,
+                 channels: int = 1, device=None,
+                 atten_db: float = 120.0) -> None:
+        cfg = StftConfig(frame_size=400, hop_size=160) if cfg is None else cfg
+        if cfg.center:
+            raise ValueError("the stream is framed uncentred (center=False)")
+        if len(rates) < 2:
+            raise ValueError(f"a chain needs two rates or more, got {rates}")
+        self.cfg = cfg
+        self.channels = int(channels)
+        self.device = _device.resolve_indexed(device)
+        self.stages = [PolyphaseStreamer(a, b, channels, self.device,
+                                         atten_db=atten_db)
+                       for a, b in zip(rates, rates[1:])]
+        self._window = _window_f64(cfg)
+        self._tail = torch.zeros((self.channels, 0), device=self.device)
+        self.frames_out = 0
+
+    def feed(self, x) -> torch.Tensor:
+        with span("crlot.resample_stream.feed", rows=self.channels,
+                  samples=int(x.shape[-1])) as call:
+            return self._run(x, False, call)
+
+    def finish(self, x=None) -> torch.Tensor:
+        with span("crlot.resample_stream.finish", rows=self.channels,
+                  samples=0 if x is None else int(x.shape[-1])) as call:
+            return self._run(x, True, call)
+
+    def _run(self, x, last: bool, call) -> torch.Tensor:
+        with span("crlot.resample_stream.plan"):
+            tiles = [st.tile() for st in self.stages]
+        glue = 0
+        for st, tile in zip(self.stages, tiles):
+            n_in = 0 if x is None else int(x.shape[-1])
+            with span("crlot.resample_stream.stage", l=st.l, m=st.m,
+                      kind="plain" if tile is None else tile.kind) as sp:
+                x = st.finish(x) if last else st.feed(x)
+                glue += st.join_bytes
+                if sp:
+                    sp.note(**{"in": n_in, "out": int(x.shape[-1])})
+        with span("crlot.resample_stream.frames"):
+            frames, wrote = self._frames(x)
+            glue += wrote
+        with span("crlot.resample_stream.stft"):
+            spec, wrote = self._spectrum(frames)
+        if call:
+            call.note(frames=int(frames.shape[-2]), glue_bytes=glue + wrote)
+        return spec
+
+    def _frames(self, y: torch.Tensor) -> tuple:
+        """(the whole frames of the carried head joined to `y`, a view; the
+        bytes the join and the carried samples wrote); the samples from the
+        next frame's start carried, copied out of the join."""
+        n, hop = self.cfg.frame_size, self.cfg.hop_size
+        sig = torch.cat([self._tail, y], dim=-1)
+        f = self.cfg.frame_spec.num_frames(sig.shape[-1])
+        self._tail = sig[:, f * hop:].clone()
+        self.frames_out += f
+        wrote = (sig.numel() + self._tail.numel()) * sig.element_size()
+        if f == 0:
+            return sig.new_zeros((self.channels, 0, n)), wrote
+        return sig.unfold(-1, n, hop)[:, :f], wrote
+
+    def _spectrum(self, frames: torch.Tensor) -> tuple:
+        """(`stft`'s windowed rFFT of the frames, the bytes its route
+        writes besides the spectrum: `dispatch.rfft_windowed_bytes`)."""
+        n, backend = self.cfg.frame_size, self.cfg.fft_backend
+        if frames.shape[-2] == 0:
+            return torch.zeros(frames.shape[:-1] + (n // 2 + 1,),
+                               dtype=torch.complex64,
+                               device=frames.device), 0
+        return (_fft.rfft_windowed(frames, n, self._window, backend=backend),
+                _fft.rfft_windowed_bytes(frames.shape, n, frames.device,
+                                         backend))

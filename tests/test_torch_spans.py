@@ -17,10 +17,14 @@ import numpy as np
 import pytest
 import torch
 
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_flatten
+
 import crlot_tpu_torch as pt
 from crlot_tpu_torch import pipeline, profiling, spectral
 from crlot_tpu_torch.core.types import FftBackend, FftPrecision, StftConfig
 from crlot_tpu_torch.distributed import halo, sharded_pipeline
+from portbench import peaks, result, run, spec
 
 SR = 48000
 N_SAMPLES = 8192
@@ -380,3 +384,200 @@ def test_norm_cache_is_bounded_by_its_callers():
         pt.round_trip(_x(k, channels=1, n=4096 + 256 * k + 3), cfg,
                       spectral.noise_gate(-30.0))
     assert pipeline._norm_np.cache_info().currsize <= bound
+
+
+# --- the resample chain's stream (BASELINE config 3) ------------------------
+
+CHAIN = "rschain128.chain_stream"
+
+
+class _Writes(TorchDispatchMode):
+    """The bytes of every tensor an op writes into new storage, while not
+    `paused`."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes, self.paused = 0, False
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if not self.paused:
+            inputs = {t.untyped_storage().data_ptr()
+                      for t in tree_flatten((args, kwargs))[0]
+                      if isinstance(t, torch.Tensor)}
+            for t in tree_flatten(out)[0]:
+                if (isinstance(t, torch.Tensor)
+                        and t.untyped_storage().data_ptr() not in inputs):
+                    self.bytes += t.numel() * t.element_size()
+        return out
+
+
+def _chain_x(k: int, n: int, rows: int = 2) -> torch.Tensor:
+    return _x(k, channels=rows, n=n) * 0.1
+
+
+@pytest.mark.parametrize("backend", [FftBackend.AUTO, FftBackend.MATMUL])
+def test_the_chain_feed_records_its_stages(monkeypatch, backend):
+    """A feed is `crlot.resample_stream.feed` over `.plan`, a `.stage` a
+    stage with its rate, lengths and tile, `.frames` and `.stft`; one
+    resample launch a stage (on the CPU its plain version, counted here as
+    the card counts B4); `glue_bytes` is every byte the feed's torch ops
+    write, counted op by op, but the stages' outputs and the spectrum."""
+    from crlot_tpu_torch.resample import kernel, polyphase
+
+    cfg = StftConfig(frame_size=400, hop_size=160, fft_backend=backend)
+    st = pt.ResampledStftStreamer((44100, 48000, 16000), cfg, 2,
+                                  device="cpu")
+    st.feed(_chain_x(0, 30_000))
+    count = _Writes()
+    impl = polyphase._resample_impl
+
+    def launched(*a, **k):
+        count.paused = True
+        try:
+            out = impl(*a, **k)
+        finally:
+            count.paused = False
+        kernel.launches += 1
+        return out
+
+    monkeypatch.setattr(polyphase, "_resample_impl", launched)
+    before = kernel.launches
+    x = _chain_x(1, 44100)
+    with _cpu_profile():
+        with count:
+            spec = st.feed(x)
+    records = _last_call()
+    entry = records[0]
+    assert entry.name == "crlot.resample_stream.feed" and entry.parent is None
+    assert entry.attrs["rows"] == 2 and entry.attrs["samples"] == 44100
+    assert entry.attrs["frames"] == spec.shape[-2] == 100  # 441 * 100
+    assert entry.attrs["launches"] == {"B4": 2}
+    assert kernel.launches - before == 2
+    names = [r.name for r in records[1:]]
+    assert names == ["crlot.resample_stream." + s for s in
+                     ("plan", "stage", "stage", "frames", "stft")]
+    assert all(r.parent == entry.id for r in records[1:])
+    stages = [r.attrs for r in records if r.name.endswith(".stage")]
+    assert [(a["l"], a["m"], a["kind"]) for a in stages] == [
+        (160, 147, "plain"), (1, 3, "plain")]
+    assert stages[0]["in"] == 44100 and stages[0]["out"] == 48000
+    assert stages[1]["in"] == 48000 and stages[1]["out"] == 16000
+    assert entry.attrs["glue_bytes"] == count.bytes - (
+        spec.numel() * spec.element_size())
+
+
+def test_spans_leave_the_chain_alone():
+    x = _chain_x(2, 60_000)
+
+    def outs():
+        st = pt.ResampledStftStreamer((44100, 48000, 16000), None, 2,
+                                      device="cpu")
+        return [st.feed(x[:, :25_000]), st.feed(x[:, 25_000:]), st.finish()]
+
+    off = outs()
+    with _cpu_profile():
+        on = outs()
+    assert all(torch.equal(a, b) for a, b in zip(off, on))
+    assert profiling.span_log()[-1].name.startswith(
+        "crlot.resample_stream.")
+
+
+def _chain_reader(name: str):
+    return spec.metric_reader(name).__globals__
+
+
+def _chain_ctx(summary):
+    return {"cell": spec.cell(CHAIN), "summary": summary,
+            "peaks": peaks.H100}
+
+
+def test_b4s_count_at_the_cells_shapes():
+    """The Kaiser length formula at 120 dB, rolloff 0.1 gives the port's
+    filters: 24 975 taps over 160 phases at 160/147 (15 phases read 157,
+    145 read 156: 156.09 an output on average) and 469 at 1/3; 128 x
+    1 440 000 and 128 x 480 000 outputs a feed: 57.54 + 57.63 GFLOP at 67
+    TFLOP/s, operations over bytes in both stages, about 1.719 ms a
+    feed."""
+    from crlot_tpu_torch.resample.polyphase import design_lowpass
+
+    mod = _chain_reader("kernel.b4_roofline")
+    for (l, m), longest in (((160, 147), 157), ((1, 3), 469)):
+        h = design_lowpass(l, m)
+        per_phase = [int(np.count_nonzero(h[p::l])) for p in range(l)]
+        assert mod["filter_taps"](l, m, 120.0, 0.1) == len(h)
+        assert mod["taps_per_output"](l, m, 120.0, 0.1) == pytest.approx(
+            sum(per_phase) / l)
+        assert max(per_phase) == longest
+    assert mod["taps_per_output"](160, 147, 120.0, 0.1) == 24975 / 160
+    cfg = spec.cell(CHAIN).config
+    ops = 2 * 128 * (1_440_000 * 24975 / 160 + 480_000 * 469)
+    assert mod["b4_feed"](cfg, peaks.H100) == pytest.approx(ops / 67e12)
+    assert mod["b4_feed"](cfg, peaks.H100) == pytest.approx(1.719e-3,
+                                                            rel=1e-3)
+
+
+def test_b4_roofline_reads_b4s_launches():
+    read = spec.metric_reader("kernel.b4_roofline")
+    names = {"void runs_kernel<8, 2, 4>(...)": 0.006,
+             "void runs_kernel<7, 2, 1>(...)": 0.004,
+             "void blocks_kernel<2>(...)": 0.002,
+             "ampere_sgemm_128x64_nn": 0.5}
+    got = read(_chain_ctx({"steps": 4, "device_s_by_name": names}))
+    assert got == pytest.approx(100.0 * 1.719001791e-3 / 0.003, rel=1e-6)
+    assert read(_chain_ctx({"steps": 4, "device_s_by_name": {
+        "ampere_sgemm_128x64_nn": 0.5}})) is None
+    assert read(_chain_ctx(None)) is None
+
+
+def _chain_feed(call: int, base: int, glue=None) -> list:
+    R = profiling.SpanRecord
+    i = 10 * call
+    attrs = {} if glue is None else {"glue_bytes": glue}
+    return [R(call, i, None, "crlot.resample_stream.feed", base, base + 100,
+              attrs),
+            R(call, i + 1, i, "crlot.resample_stream.stage", base + 10,
+              base + 90, {})]
+
+
+def test_glue_gb_reads_the_stretchs_feeds():
+    mod = _chain_reader("chain.glue_gb")
+    log = (_chain_feed(0, 0, 9 * 10 ** 9) + _chain_feed(1, 1000, 4 * 10 ** 9)
+           + _chain_feed(2, 2000, 5 * 10 ** 9))
+    assert mod["glue_gb"](log, 2) == pytest.approx(4.5)
+    assert mod["glue_gb"](log, 5) == pytest.approx(6.0)
+    assert mod["glue_gb"](_chain_feed(0, 0) + _chain_feed(1, 1000), 2) is None
+    assert mod["glue_gb"]([], 2) is None
+    assert mod["read"](_chain_ctx(None)) is None
+
+
+def test_the_chain_cell_loads_its_entry():
+    cell = spec.cell(CHAIN)
+    assert cell.chips == 1 and cell.config["reduced"] == []
+    assert cell.config["rates"] == [44100, 48000, 16000]
+    entry = spec.entry(cell.traffic["entry"])
+    for key in ("input_shape", "inputs", "Loop", "reference"):
+        assert callable(getattr(entry, key))
+    assert entry.input_shape(cell) == (128, 1_323_000)
+    names = {m["name"] for m in cell.per_layer}
+    assert {"kernel.b4_roofline", "chain.glue_gb", "entry.host_ms",
+            "entry.plan_host_ms", "route.torch_device_ms",
+            "device.idle_share"} == names
+
+
+def test_a_traced_run_of_the_chain_cell_reads_its_glue():
+    """The cell at a small size on the CPU, traced: correct, and
+    `chain.glue_gb` reads what the feeds wrote; no B4 launch, so no
+    roofline."""
+    over = {"config": {"channels": 2, "chunk_samples_per_card": 44100},
+            "traffic": {"ring": 3, "compare": 2, "warmup_calls": 3,
+                        "trace_from": 2, "trace_calls": 3}}
+    cell, (rec,) = run.run_cell(CHAIN, [2 ** 31 + 19], 0.3, True,
+                                device_kind="cpu", overrides=over)
+    line = result.line(cell, rec, True, kind="NVIDIA H100 80GB HBM3")
+    assert line["correct"] is True, line["check"]
+    glue = [r.attrs["glue_bytes"] for r in profiling.span_log()
+            if r.name == "crlot.resample_stream.feed"][-3:]
+    assert line["metrics"]["chain.glue_gb"]["value"] == pytest.approx(
+        1e-9 * sum(glue) / 3)
+    assert "kernel.b4_roofline" not in line["metrics"]
