@@ -26,11 +26,13 @@ runtime `io/native.py`, `python -m crlot_tpu_torch.bench.suite`,
 (`round_trip`'s "folded" and "composed", and the packed products the
 reference keeps for an odd N); and the large frames (`round_trip`'s
 "packed_parts" at N 2048 and 4096 on B2's kernels launched one by one);
-B1's seeded variant, the masked stream's overlap-add; and the resample
-chain's stream (`ResampledStftStreamer`) at BASELINE config 3's cell.
+B1's seeded variant, the masked stream's overlap-add; the resample
+chain's stream (`ResampledStftStreamer`) at BASELINE config 3's cell;
+and B7, the framed windowed rFFT.
 `python3 chip_smoke.py --large-frames` runs the large frames alone,
 `python3 chip_smoke.py --seeded-ola` the seeded variant, and
-`python3 chip_smoke.py --chain-stream` the chain's stream.
+`python3 chip_smoke.py --chain-stream` the chain's stream, and
+`python3 chip_smoke.py --stft-b7` B7.
 
 Phases (each prints one line; the script exits 1 if any fails):
   1. B1 (fused OLA + normalize) vs plain on [2, 11251, 1024] frames, and
@@ -419,6 +421,17 @@ it, with B4's counter reset just before:
      output of `resample_bank_plain` on the same joined buffer; the frames
      within 1e-5 of the largest bin of `stft` over the plain chain of the
      whole stream (`resample_bank_plain` a stage).
+Then B7, the framed windowed rFFT, with its counter reset just before:
+ 53. `fp32_window.stft_cuda` on `unfold` views read in place (one row and
+     128, rows of a length off 4, frame counts off the tile, N 400 / H
+     160, N 512 and 1024 at hops below and above N, N 16; Hann and a
+     window that is not symmetric): one launch a call, every output
+     within (h+1) 2^-24 sum|a||b| of the float64 products on its own
+     folded operands, torch.equal to its emulated fmaf chains where
+     small; `ResampledStftStreamer` in uneven feeds torch.equal to the
+     one-shot `resampled_stft` (one stage) and `stft` of the one-shot
+     chain; then B7's time at the chain's feed beside its bound and the
+     folded route's.
 Then CUDA-event timings (warm-up, then median of 10 runs queued behind a
 busy card, so that host launch time is not counted, checked to have been
 queued before the card woke, and else reported as not queued; beside it
@@ -1183,6 +1196,7 @@ def main() -> int:
     large_frames_path(dev, phase, check, failures)
     seeded_ola_path(dev, phase, check, failures)
     chain_stream_path(dev, phase, check, failures)
+    stft_b7_path(dev, phase, check, failures)
 
     # Timings.
     def e2e_rate(fn, samples=2 * n):
@@ -3838,7 +3852,8 @@ class ToolingHold:
     the frames' roundoff); B4 within max-abs 1e-5 of
     `resample_bank_plain` (phase 11); K5, K6 torch.equal, K6's cleared
     ring all zero (phase 12); B6's int16 limb modes torch.equal (phase
-    18). The scan form of B3 runs ungated on this path, so it has no
+    18); B7 within (h+1) 2^-24 sum |a||b| of its float64 products
+    (`stft_tolerance`, phase 53). The scan form of B3 runs ungated on this path, so it has no
     ambiguous frames. `verify` fails unless every launch counted was
     held (B1 counts B2's own overlap-add launch, held with B2) and the
     ambiguous frames stay under 0.1 % of those held."""
@@ -3857,7 +3872,8 @@ class ToolingHold:
                          sp=streaming_pipeline, b4=b4, poly=polyphase, b5=b5,
                          b6=int8_gemm)
         self.held = dict.fromkeys(launches.launch_counts(), 0)
-        self.worst = {"B0": 0.0, "B2": 0.0, "B3": 0.0, "B4": 0.0}
+        self.worst = {"B0": 0.0, "B2": 0.0, "B3": 0.0, "B4": 0.0,
+                      "B7": 0.0}
         self.exact = []  # (kernel, what, mismatches on the card)
         self.left_out = self.frames = 0
 
@@ -3865,6 +3881,7 @@ class ToolingHold:
     def _spies(self):
         return [("b0", "gemm_cuda", "B0", self._b0),
                 ("b0f", "gemm_cuda", "B0_fp32", self._b0f),
+                ("b0f", "stft_cuda", "B7", self._b7),
                 ("b1", "ola_normalized_cuda", "B1", self._b1),
                 ("b1", "ola_seeded_cuda", "B1_seeded", self._b1_seeded),
                 ("b3", "roundtrip_signal_cuda", "B2", self._b2),
@@ -3919,6 +3936,21 @@ class ToolingHold:
         want = self.mods["b0f"].chain_plain(a, kern, rows=rows, lda=lda)
         self._equal("B0_fp32", f"{list(a.shape)} x {list(kern.shape)}", out,
                     want)
+        return True
+
+    def _b7(self, out, frames, nfft, window):
+        import torch
+
+        b7 = self.mods["b0f"]
+        want = b7.stft_plain(frames, nfft, window)
+        tol = b7.stft_tolerance(frames, nfft, window)
+        d = out.to(torch.complex128) - want
+        over = int(((d.real.abs() > tol.real)
+                    | (d.imag.abs() > tol.imag)).sum())
+        rel = float(d.abs().max() / want.abs().max().clamp_min(1e-30))
+        self.worst["B7"] = max(self.worst["B7"], rel)
+        self.check(over == 0, f"B7 {list(frames.shape)} at N {nfft}: {over}"
+                   " outputs off their bound from the float64 DFT")
         return True
 
     def _b1(self, out, frames, norm, hop, out_len, eps=1e-8):
@@ -4046,7 +4078,8 @@ class ToolingHold:
             + f" (B0 worst {self.worst['B0']:.3e} of sum|x||k|; B2, B3 "
             f"max-abs {self.worst['B2']:.3e}, {self.worst['B3']:.3e} "
             f"outside {self.left_out} ambiguous frames of {self.frames}; "
-            f"B4 {self.worst['B4']:.3e}; the rest torch.equal)")
+            f"B4 {self.worst['B4']:.3e}; B7 {self.worst['B7']:.3e} of the "
+            f"largest bin; the rest torch.equal)")
 
 
 def _dtw_f64(c) -> "np.ndarray":
@@ -6066,15 +6099,22 @@ CHAIN_ROWS, CHAIN_CHUNK, CHAIN_FEEDS = 128, 1_323_000, 3  # the cell's feed
 
 
 def chain_stream_path(dev, phase, check, failures) -> dict:
-    """Phase 52, with B4's counter reset just before: the resample chain's
-    stream at the cell `rschain128.chain_stream`'s feed, each B4 launch
-    held against the plain bank product on the buffer it was given, the
-    frames against `stft` of the plain chain over the whole stream."""
+    """Phase 52, with B4's and B7's counters reset just before: the
+    resample chain's stream at the cell `rschain128.chain_stream`'s feed,
+    each B4 launch held against the plain bank product on the buffer it
+    was given, each B7 launch against `stft_plain` (the float64 DFT of
+    its own windowed frames) within `stft_tolerance`, the frames
+    against the folded route's torch ops (`rfft_folded_packed`) on the
+    plain chain over the whole stream."""
+    import numpy as np
     import torch
 
     import crlot_tpu_torch as pt
+    from crlot_tpu_torch.fft import fp32_window as b7
+    from crlot_tpu_torch.fft import matmul_backend as mm
     from crlot_tpu_torch.resample import kernel as b4
     from crlot_tpu_torch.resample import polyphase
+    from crlot_tpu_torch.window.windows import WindowType, get_window
 
     rates = (44100, 48000, 16000)
     cfg = pt.StftConfig(frame_size=400, hop_size=160)
@@ -6089,35 +6129,57 @@ def chain_stream_path(dev, phase, check, failures) -> dict:
 
     def p52():
         launch, held, counts, frames = polyphase.resample_cuda, [], [], []
-        worst = {}
+        stft_launch, spectra, worst = b7.stft_cuda, [], {}
 
         def recorded(buf, l, m, n_out, *args, **kwargs):
             y = launch(buf, l, m, n_out, *args, **kwargs)
             held.append((buf, l, m, n_out, y))
             return y
 
+        def recorded_stft(fr, n, w):
+            spec = stft_launch(fr, n, w)
+            spectra.append((fr, n, w, spec))
+            return spec
+
         st = pt.ResampledStftStreamer(rates, cfg, rows, dev)
         polyphase.resample_cuda = recorded
-        b4.launches = 0
+        b7.stft_cuda = recorded_stft
+        b4.launches = b7.stft_launches = 0
         try:
             for k in range(CHAIN_FEEDS):
-                before = b4.launches
+                before, before7 = b4.launches, b7.stft_launches
                 frames.append(st.feed(x[:, k * chunk:(k + 1) * chunk]))
-                counts.append((b4.launches - before, frames[-1].shape[-2]))
+                counts.append((b4.launches - before, frames[-1].shape[-2],
+                               b7.stft_launches - before7))
                 for buf, l, m, n_out, y in held:
                     err = rel(y, b4.resample_bank_plain(buf, l, m, n_out))
                     worst[f"{l}/{m}"] = max(worst.get(f"{l}/{m}", 0.0), err)
                     check(err <= 1e-5, f"feed {k}, B4 at {l}/{m} on "
                           f"{list(buf.shape)}: {err:.3e} of the largest")
+                for fr, n, w, spec in spectra:
+                    want = b7.stft_plain(fr, n, w)
+                    tol = b7.stft_tolerance(fr, n, w)
+                    got64 = spec.to(torch.complex128)
+                    over = ((got64.real - want.real).abs() > tol.real) | (
+                        (got64.imag - want.imag).abs() > tol.imag)
+                    worst["B7"] = max(worst.get("B7", 0.0), rel(got64, want))
+                    check(not bool(over.any()), f"feed {k}, B7 on "
+                          f"{list(fr.shape)}: {int(over.sum())} outputs "
+                          f"off the bound")
+                    del want, tol, got64, over
                 held.clear()
+                spectra.clear()
         finally:
             polyphase.resample_cuda = launch
-        check(all(n == 2 for n, _ in counts),
-              f"B4 launches a feed {[n for n, _ in counts]}")
+            b7.stft_cuda = stft_launch
+        check(all(n == 2 for n, _, _ in counts),
+              f"B4 launches a feed {[n for n, _, _ in counts]}")
+        check(all(n == 1 for _, _, n in counts),
+              f"B7 launches a feed {[n for _, _, n in counts]}")
         hops = chunk // 441  # 441 samples at 44.1 kHz: one hop at 16 kHz
         check(0 < counts[0][1] < hops
-              and all(f == hops for _, f in counts[1:]),
-              f"frames a feed {[f for _, f in counts]}")
+              and all(f == hops for _, f, _ in counts[1:]),
+              f"frames a feed {[f for _, f, _ in counts]}")
         got = torch.cat(frames, dim=-2)
         del frames
         y = x
@@ -6125,19 +6187,165 @@ def chain_stream_path(dev, phase, check, failures) -> dict:
             c = math.gcd(a, b)
             l, m = b // c, a // c
             y = b4.resample_bank_plain(y, l, m, -(-y.shape[-1] * l // m))
-        want = pt.stft(y, cfg)[:, : got.shape[-2]]
+        n, hop, f = cfg.frame_size, cfg.hop_size, got.shape[-2]
+        w64 = get_window(cfg.window, n, cfg.periodic, dtype=np.float64)
+        want = torch.complex(*mm.rfft_folded_packed(
+            y[:, : (f - 1) * hop + n].unfold(-1, n, hop), n, w64))
         err = rel(got, want)
         check(err <= 1e-5, f"frames {err:.3e} of the largest bin")
-        out.update(launches=b4.launches, counts=counts, stage_err=worst,
-                   frame_err=err)
-        return (f"B4 launches {b4.launches} ({[n for n, _ in counts]} a "
-                f"feed), frames {[f for _, f in counts]} a feed; each "
-                f"launch against the plain bank product on its buffer, "
-                f"largest {', '.join(f'{k} {v:.3e}' for k, v in worst.items())}"
+        out.update(launches=b4.launches, b7_launches=b7.stft_launches,
+                   counts=counts, stage_err=worst, frame_err=err)
+        return (f"B4 launches {b4.launches} ({[n for n, _, _ in counts]} a "
+                f"feed), B7 launches {b7.stft_launches} "
+                f"({[n for _, _, n in counts]} a feed), frames "
+                f"{[f for _, f, _ in counts]} a feed; each B4 launch against "
+                f"the plain bank product on its buffer, each B7 launch "
+                f"within its bound of the float64 products, largest "
+                f"{', '.join(f'{k} {v:.3e}' for k, v in worst.items())}"
                 f" of the largest output; {got.shape[-2]} frames against "
-                f"stft of the plain chain, {err:.3e} of the largest bin")
+                f"the folded route's torch ops on the plain chain, "
+                f"{err:.3e} of the largest bin")
 
     phase("52 the resample chain's stream at rschain128's feed", p52)
+    return out
+
+
+# B7's checks: (rows, row length, N, H, window), one row and 128 (the
+# chain's feed among them), rows of a length off 4 (each row's start off 16
+# bytes), frame counts off a CTA's, hops below, at and above N, every radix,
+# Hann and a window that is not symmetric.
+B7_CASES = ((1, 160 * 2999 + 400, 400, 160, "hann"),
+            (128, 160 * 120 + 400 + 3, 400, 160, "random"),
+            (3, 128 * 300 + 512 + 1, 512, 128, "hann"),
+            (2, 200 * 77 + 512 + 2, 512, 200, "random"),
+            (5, 256 * 41 + 1024 + 3, 1024, 256, "random"),
+            (2, 333 * 50 + 1024 + 1, 1024, 333, "hann"),
+            (2, 1100 * 19 + 1024 + 5, 1024, 1100, "random"),
+            (4, 7 * 33 + 16 + 1, 16, 7, "random"),
+            (3, 45 * 60 + 98 + 1, 98, 45, "random"),
+            (2, 100 * 30 + 960 + 1, 960, 100, "hann"),
+            (128, 160 * 2999 + 400 + 1, 400, 160, "hann"))
+
+
+def stft_b7_path(dev, phase, check, failures) -> dict:
+    """Phase 53, with B7's counter reset just before: the framed windowed
+    rFFT's kernel (`fp32_window.stft_cuda`) on `unfold` views read in
+    place, against `stft_plain` (the float64 DFT of the kernel's own
+    windowed frames) within `stft_tolerance`, and a run of the frames
+    copied out and taken alone torch.equal to its bins in the whole; the
+    cell's
+    chain streamed in uneven feeds torch.equal to the one-shot
+    `resampled_stft` a stage and to `stft` of the one-shot chain. Then,
+    outside the counts, B7's CUDA-event time on 30 s of 128 channels at
+    16 kHz (the cell's feed: 3000 frames of 400, hop 160; and N 512, hop
+    128 and N 1024, hop 256) beside its bound, the folded route's
+    (`matmul_backend.rfft_folded_packed`, then the complex interleave) and
+    `torch.fft.rfft` of the windowed frames (cuFFT)."""
+    import numpy as np
+    import torch
+
+    import crlot_tpu_torch as pt
+    from crlot_tpu_torch.bench.launches import uncounted
+    from crlot_tpu_torch.core.consts import const_on
+    from crlot_tpu_torch.fft import dispatch
+    from crlot_tpu_torch.fft import fp32_window as b7
+    from crlot_tpu_torch.fft import matmul_backend as mm
+    from crlot_tpu_torch.window.windows import WindowType, get_window
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    b7.stft_launches = 0
+    out = {"worst": 0.0}
+
+    def window(n, kind):
+        if kind == "hann":
+            return const_on(get_window(WindowType.HANN, n), dev)
+        return torch.rand(n, generator=g, device=dev) + 0.1
+
+    def p53():
+        shapes = []
+        for rows, length, n, hop, kind in B7_CASES:
+            x = torch.randn(rows * length + 1, generator=g, device=dev)
+            x = x[1:].view(rows, length)  # rows off 16 bytes
+            frames = x.unfold(-1, n, hop)
+            w = window(n, kind)
+            before = b7.stft_launches
+            got = b7.stft_cuda(frames, n, w)
+            torch.cuda.synchronize()
+            check(b7.stft_launches == before + 1, "one launch a call")
+            want = b7.stft_plain(frames, n, w)
+            tol = b7.stft_tolerance(frames, n, w)
+            got64 = got.to(torch.complex128)
+            over = ((got64.real - want.real).abs() > tol.real) | (
+                (got64.imag - want.imag).abs() > tol.imag)
+            rel = float((got64 - want).abs().max() / want.abs().max())
+            out["worst"] = max(out["worst"], rel)
+            check(not bool(over.any()), f"N {n} H {hop} {rows} x {length}: "
+                  f"{int(over.sum())} outputs off the bound")
+            part = frames[-1:, 1:-1]
+            alone = b7.stft_cuda(part.contiguous(), n, w)
+            check(torch.equal(alone, got[-1:, 1:-1]), f"N {n} H {hop}: a "
+                  f"frame's bins depend on its neighbours")
+            plan = b7.stft_plan(n, hop)
+            shapes.append(f"N {n} H {hop} {rows} x {frames.shape[1]} "
+                          f"(radices {b7.stft_radices(n)}, {plan.tm} frames "
+                          f"a CTA)")
+        cfg = pt.StftConfig(frame_size=400, hop_size=160)
+        x = torch.randn((2, 3 * 44100 + 17), generator=g, device=dev) * 0.1
+        for rates in ((44100, 16000), (44100, 48000, 16000)):
+            st = pt.ResampledStftStreamer(rates, cfg, 2, dev)
+            parts, pos, k = [], 0, 0
+            feeds = (1, 441, 8191, 147, 44100, 3)
+            while pos < x.shape[-1]:
+                step = feeds[k % len(feeds)]
+                parts.append(st.feed(x[:, pos:pos + step]))
+                pos, k = pos + step, k + 1
+            parts.append(st.finish())
+            got = torch.cat(parts, dim=-2)
+            y = x
+            for a, b in zip(rates, rates[1:]):
+                y = pt.resample(y, a, b)
+            want = (pt.resampled_stft(x, *rates, cfg) if len(rates) == 2
+                    else pt.stft(y, cfg))
+            check(got.shape == want.shape and torch.equal(got, want),
+                  f"{rates}: streamed {tuple(got.shape)} not torch.equal "
+                  f"to one-shot {tuple(want.shape)}")
+        check(dispatch.windowed_route(400, dev) == "B7", "route")
+        out["launches"] = b7.stft_launches
+        return (f"{b7.stft_launches} launches; each within its bound of "
+                f"the float64 products (worst {out['worst']:.3e} of the "
+                f"largest bin): {'; '.join(shapes)}; the chain streamed in "
+                f"uneven feeds torch.equal to one-shot")
+
+    def p53_times():
+        rows, length = 128, 16000 * 30  # 30 s at 16 kHz, the chain's feed
+        x = torch.randn((rows, length), generator=g, device=dev)
+        parts = []
+        for n, hop in ((400, 160), (512, 128), (1024, 256)):
+            frames = x[:, : (length - n) // hop * hop + n].unfold(-1, n, hop)
+            w64 = get_window(WindowType.HANN, n, dtype=np.float64)
+            w = const_on(w64, dev)
+            timing = {}
+            with uncounted():
+                timed(timing, "b7", lambda: b7.stft_cuda(frames, n, w))
+                timed(timing, "folded", lambda: torch.complex(
+                    *mm.rfft_folded_packed(frames, n, w64)))
+                timed(timing, "cufft", lambda: torch.fft.rfft(
+                    frames * w, n=n, dim=-1))
+            h, f = n // 2, frames.shape[1]
+            ops = 2.5 * n * math.log2(n) * rows * f  # a real FFT's flop
+            b = bound(nbytes(x) + rows * f * (h + 1) * 8, ops)
+            out[f"N{n}"] = dict(timing=timing, **b)
+            parts.append(
+                f"N {n} H {hop} {rows} x {f}: B7 {ms(timing, 'b7')}, bound "
+                f"{b['bound_ms']:.4f} ms ({b['bound_by']}), B7 at "
+                f"{100 * b['bound_ms'] / timing['b7']:.1f} % of it; the "
+                f"folded route {ms(timing, 'folded')}; torch.fft.rfft of "
+                f"the windowed frames (cuFFT) {ms(timing, 'cufft')}")
+            del frames
+        return "; ".join(parts)
+
+    phase("53 B7 vs plain (the framed windowed rFFT)", p53)
+    phase("53 B7 times at the chain's feed", p53_times)
     return out
 
 
@@ -6194,6 +6402,8 @@ if __name__ == "__main__":
         sys.exit(alone(seeded_ola_path))
     if sys.argv[1:2] == ["--chain-stream"]:
         sys.exit(alone(chain_stream_path))
+    if sys.argv[1:2] == ["--stft-b7"]:
+        sys.exit(alone(stft_b7_path))
     if sys.argv[1:2] == ["--multihost-child"]:
         sys.exit(multihost_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--multihost"]:

@@ -40,6 +40,7 @@ def launch_counts() -> Dict[str, int]:
             "B1": fused.launches, "B1_seeded": fused.seeded_launches,
             "B2": fused_rt.launches,
             "B3": fused_rt.frames_launches, "B4": b4.launches,
+            "B7": fp32_window.stft_launches,
             "K4": b5["axpy"], "K5": b5["axpy_windowed"],
             "K6": b5["normalize_and_clear"],
             **{f"B2_{k}": v for k, v in fused_rt.packed_launches.items()},
@@ -53,6 +54,7 @@ def set_launch_counts(counts: Dict[str, int]) -> None:
     fused.launches, fused_rt.launches = counts["B1"], counts["B2"]
     fused.seeded_launches = counts["B1_seeded"]
     fused_rt.frames_launches, b4.launches = counts["B3"], counts["B4"]
+    fp32_window.stft_launches = counts["B7"]
     b5.launches.update(axpy=counts["K4"], axpy_windowed=counts["K5"],
                        normalize_and_clear=counts["K6"])
     for k in fused_rt.packed_launches:

@@ -90,6 +90,11 @@ _SIGNATURES = {
     "crlot_b6_fusedq": [_I, _VP, _I, _I, _VP, _VP, _VP, _VP, _VP, _I, _VP],
     # (x, lda, a_batch, w, k, n, out, m, batch, stream)
     "crlot_fp32_window": [_VP, _LL, _LL, _VP, _I, _I, _VP, _I, _I, _VP],
+    # (x, row_stride, hop, n, frames, rows, window, tables, out, radices,
+    #  tm, smem_bytes, stream)
+    "crlot_stft_fp32_window": [
+        _VP, _LL, _LL, _I, _I, _I, _VP, _VP, _VP, _LL, _I, _I, _VP,
+    ],
 }
 
 

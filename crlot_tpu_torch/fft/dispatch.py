@@ -11,6 +11,12 @@ Counterpart of `crlot_tpu/fft/dispatch.py`, route for route:
             power of two (`ct_backend.py`), `torch.fft` otherwise. The
             complex transforms run Cooley-Tukey for a power of two and
             `torch.fft` otherwise;
+            On a CUDA card the windowed rFFT of float32 frames (a frame's
+            samples contiguous, N even in [16, 1024] with N/2 a product of
+            2, 3, 5 and 7) is B7, one hand-written fp32 FFT kernel that
+            reads the frames in place (`fp32_window.stft_cuda`); elsewhere
+            the folded products are `matmul_backend.rfft_folded_packed`'s
+            torch ops;
   - AUTO:   follows the device of the tensor, as the reference follows its
             backend: on a CUDA tensor MATMUL for an even N <= 4096 or a
             power of two (the reference accelerator's rule), on a CPU
@@ -28,6 +34,7 @@ import torch
 from ..core.consts import const_on
 from ..core.types import FftBackend
 from . import ct_backend as _ct
+from . import fp32_window as _fp32
 from . import matmul_backend as _mm
 
 
@@ -52,18 +59,15 @@ def _fit(x: torch.Tensor, nfft: int) -> torch.Tensor:
 
 
 def _folds(nfft: int) -> bool:
-    """Whether the products take the folded halves (`_mm_rfft`)."""
+    """Whether the products take the folded halves."""
     return nfft <= _mm.MAX_MATMUL_NFFT and nfft % 2 == 0
 
 
-def _mm_rfft(x: torch.Tensor, nfft: int, window_f64=None) -> torch.Tensor:
+def _mm_rfft(x: torch.Tensor, nfft: int) -> torch.Tensor:
     if nfft <= _mm.MAX_MATMUL_NFFT:
         if _folds(nfft):
-            re, im = _mm.rfft_folded_packed(x, nfft, window_f64)
-            return torch.complex(re, im)
-        return _mm.rfft_matmul(x, nfft, window_f64)
-    if window_f64 is not None:
-        x = x.float() * const_on(window_f64, x.device)
+            return torch.complex(*_mm.rfft_folded_packed(x, nfft))
+        return _mm.rfft_matmul(x, nfft)
     if _is_pow2(nfft):
         return _ct.rfft_ct(x, nfft)
     return torch.fft.rfft(x.float(), n=nfft, dim=-1)
@@ -79,31 +83,62 @@ def rfft(
     return torch.fft.rfft(x.float(), n=nfft, dim=-1)
 
 
+def windowed_route(nfft: int, device, dtype=torch.float32,
+                   last_stride: int = 1,
+                   backend: FftBackend = FftBackend.AUTO) -> str:
+    """The route `rfft_windowed` takes on frames of `dtype` on `device`
+    whose samples lie `last_stride` apart: "B7" (the MATMUL route on a
+    card, `fp32_window.stft_takes`), "folded" (the folded products'
+    torch ops), "dense" (odd N), "ct" (Cooley-Tukey) or "torch_fft"."""
+    if _pick(backend, nfft, torch.device(device)) == FftBackend.MATMUL:
+        if _folds(nfft):
+            if _fp32.stft_takes(device, dtype, last_stride, nfft):
+                return "B7"
+            return "folded"
+        if nfft <= _mm.MAX_MATMUL_NFFT:
+            return "dense"
+        if _is_pow2(nfft):
+            return "ct"
+    return "torch_fft"
+
+
 def rfft_windowed(
     x: torch.Tensor, nfft: int, window_f64: np.ndarray,
     backend: FftBackend = FftBackend.AUTO,
 ) -> torch.Tensor:
     """rfft(x * window) -> complex64 [..., nfft//2+1]; on the products of
-    nfft <= 4096 the window folds into the basis."""
-    if _pick(backend, nfft, x.device) == FftBackend.MATMUL:
-        return _mm_rfft(x, nfft, window_f64)
-    w = const_on(window_f64, x.device)
-    return torch.fft.rfft(x.float() * w, n=nfft, dim=-1)
+    nfft <= 4096 the window folds into the basis; B7 applies it as it
+    reads the frames."""
+    route = windowed_route(nfft, x.device, x.dtype, x.stride(-1), backend)
+    if route == "B7":
+        return _fp32.stft_cuda(x, nfft, const_on(window_f64, x.device))
+    if route == "folded":
+        return torch.complex(*_mm.rfft_folded_packed(x, nfft, window_f64))
+    if route == "dense":
+        return _mm.rfft_matmul(x, nfft, window_f64)
+    x = x.float() * const_on(window_f64, x.device)
+    if route == "ct":
+        return _ct.rfft_ct(x, nfft)
+    return torch.fft.rfft(x, n=nfft, dim=-1)
 
 
 def rfft_windowed_bytes(shape, nfft: int, device: torch.device,
-                        backend: FftBackend = FftBackend.AUTO) -> int:
-    """The bytes `rfft_windowed` writes on float32 frames of `shape`
-    [..., nfft] besides its complex output, from the shape alone: on the
-    folded products `matmul_backend.rfft_folded_bytes`; on the dense
-    product its two planes; else the windowed frames (a transform's own
-    scratch is not seen)."""
+                        backend: FftBackend = FftBackend.AUTO,
+                        dtype=torch.float32, last_stride: int = 1) -> int:
+    """The bytes `rfft_windowed` writes on frames of `shape` [..., nfft]
+    (of `dtype`, samples `last_stride` apart) besides its complex output,
+    from the shape alone: none on B7; on the folded products
+    `matmul_backend.rfft_folded_bytes`; on the dense product its two
+    planes; else the windowed frames (a transform's own scratch is not
+    seen)."""
     rows = math.prod(shape[:-1])
-    if _pick(backend, nfft, device) == FftBackend.MATMUL:
-        if _folds(nfft):
-            return _mm.rfft_folded_bytes(rows, nfft)
-        if nfft <= _mm.MAX_MATMUL_NFFT:
-            return 4 * rows * 2 * (nfft // 2 + 1)
+    route = windowed_route(nfft, device, dtype, last_stride, backend)
+    if route == "B7":
+        return 0
+    if route == "folded":
+        return _mm.rfft_folded_bytes(rows, nfft)
+    if route == "dense":
+        return 4 * rows * 2 * (nfft // 2 + 1)
     return 4 * rows * nfft
 
 

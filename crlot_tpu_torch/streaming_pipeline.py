@@ -452,8 +452,9 @@ class ResampledStftStreamer:
     `[C, F, N/2 + 1]` frames it completed; `finish(x=None)` returns the
     rest and ends the stream. The concatenated frames are `stft(resample(
     ...resample(x, rates[0], rates[1])..., rates[-1]), cfg)` over the whole
-    stream, frame for frame (on the card the resampled signal bit for bit;
-    the spectrum through the same products, batched otherwise).
+    stream, frame for frame (on the card bit for bit: B4 and B7 compute
+    each output by the same operations wherever it sits; on the CPU the
+    spectrum through the same products, batched otherwise).
     `frames_out` counts the frames returned so far. Whisper's front end,
     the default: 44.1 -> 48 -> 16 kHz, N 400, H 160, periodic Hann; a feed
     of 441*k samples is k hops at 16 kHz once the filters' delay is
@@ -463,12 +464,12 @@ class ResampledStftStreamer:
     `rows`, `samples`, `frames` and `glue_bytes`: the bytes its torch ops
     write besides B4's outputs and the returned spectrum (each stage's
     join and the history it keeps, the tail's join and the samples kept,
-    and what `stft`'s windowed rFFT writes on the way:
+    and what `stft`'s windowed rFFT writes on the way, nothing on B7:
     `dispatch.rfft_windowed_bytes`), counted from the tensors' shapes.
     Under it `.plan` (the tiles, banks and tables looked up), a `.stage`
     a stage (`l`, `m`, `in`, `out`, the tile's `kind`: B4's join and
     launch), `.frames` (the tail's join and the framing) and `.stft` (the
-    products)."""
+    products; `route`: `dispatch.windowed_route`'s, "B7" on the card)."""
 
     def __init__(self, rates=(44100, 48000, 16000), cfg: StftConfig = None,
                  channels: int = 1, device=None,
@@ -513,7 +514,11 @@ class ResampledStftStreamer:
         with span("crlot.resample_stream.frames"):
             frames, wrote = self._frames(x)
             glue += wrote
-        with span("crlot.resample_stream.stft"):
+        cfg = self.cfg
+        route = _fft.windowed_route(cfg.frame_size, frames.device,
+                                    frames.dtype, frames.stride(-1),
+                                    cfg.fft_backend)
+        with span("crlot.resample_stream.stft", route=route):
             spec, wrote = self._spectrum(frames)
         if call:
             call.note(frames=int(frames.shape[-2]), glue_bytes=glue + wrote)
@@ -543,4 +548,5 @@ class ResampledStftStreamer:
                                device=frames.device), 0
         return (_fft.rfft_windowed(frames, n, self._window, backend=backend),
                 _fft.rfft_windowed_bytes(frames.shape, n, frames.device,
-                                         backend))
+                                         backend, frames.dtype,
+                                         frames.stride(-1)))

@@ -230,7 +230,7 @@ def test_launch_counts_cover_every_counter_and_reset():
         got = launches.launch_counts()
         assert (got["B0"], got["B3"], got["K6"], got["B6_limb"]) == (3, 2,
                                                                      5, 7)
-        assert len(got) == 10 + len(fused_rt.packed_launches) + len(
+        assert len(got) == 11 + len(fused_rt.packed_launches) + len(
             int8_gemm.launches)
         assert suite.launch_counts is launches.launch_counts
         launches.reset_launch_counts()

@@ -12,6 +12,7 @@ whole gaps.
 from __future__ import annotations
 
 import json
+import math
 
 import numpy as np
 import pytest
@@ -530,6 +531,38 @@ def test_b4_roofline_reads_b4s_launches():
     assert read(_chain_ctx(None)) is None
 
 
+def test_b7s_count_at_the_cells_shapes():
+    """3000 frames a feed (480 000 samples at 16 kHz over H 160): the
+    bytes, the 16 kHz signal read (245.8 MB) and the complex64 spectrum
+    written (617.5 MB), 0.258 ms at 3.35 TB/s, over a real FFT's 2.5 N
+    log2 N flop a frame (3.32 GFLOP, 0.050 ms at 67 TFLOP/s)."""
+    mod = _chain_reader("kernel.b7_roofline")
+    cfg = spec.cell(CHAIN).config
+    assert mod["frames_per_feed"](cfg) == 3000
+    data = 4 * 128 * (480_000 + 2 * 3000 * 201)
+    assert data == 863_232_000
+    assert mod["b7_feed"](cfg, peaks.H100) == pytest.approx(data / 3.35e12)
+    assert mod["b7_feed"](cfg, peaks.H100) == pytest.approx(0.2577e-3,
+                                                            rel=1e-3)
+    ops = 2.5 * 400 * math.log2(400) * 128 * 3000
+    assert ops / 67e12 == pytest.approx(0.0496e-3, rel=1e-2)
+
+
+def test_b7_roofline_reads_b7s_launches():
+    """Only `stft_fp32_window_kernel` counts: B0's `fp32_window_kernel`
+    and cuBLAS's SGEMMs do not."""
+    read = spec.metric_reader("kernel.b7_roofline")
+    names = {"(anonymous namespace)::stft_fp32_window_kernel(...)": 0.006,
+             "(anonymous namespace)::fp32_window_kernel(...)": 0.2,
+             "cutlass_80_simt_sgemm_128x128_8x4_nn_align1": 0.5}
+    got = read(_chain_ctx({"steps": 4, "device_s_by_name": names}))
+    data = 4 * 128 * (480_000 + 2 * 3000 * 201)
+    assert got == pytest.approx(100.0 * data / 3.35e12 / 0.0015, rel=1e-9)
+    assert read(_chain_ctx({"steps": 4, "device_s_by_name": {
+        "(anonymous namespace)::fp32_window_kernel(...)": 0.2}})) is None
+    assert read(_chain_ctx(None)) is None
+
+
 def _chain_feed(call: int, base: int, glue=None) -> list:
     R = profiling.SpanRecord
     i = 10 * call
@@ -560,8 +593,8 @@ def test_the_chain_cell_loads_its_entry():
         assert callable(getattr(entry, key))
     assert entry.input_shape(cell) == (128, 1_323_000)
     names = {m["name"] for m in cell.per_layer}
-    assert {"kernel.b4_roofline", "chain.glue_gb", "entry.host_ms",
-            "entry.plan_host_ms", "route.torch_device_ms",
+    assert {"kernel.b4_roofline", "kernel.b7_roofline", "chain.glue_gb",
+            "entry.host_ms", "entry.plan_host_ms", "route.torch_device_ms",
             "device.idle_share"} == names
 
 
