@@ -11,8 +11,10 @@ the reference's traffic model, copied: pure arithmetic.
 The program's stages are spans (`span`): while a `torch.profiler` records
 (`trace()`, or any profiler of the caller's), each is a range on the
 trace's host timeline, on the clock of the card's events, and a record in `span_log()` with its host time and the
-counts of its call; otherwise a span is one flag read. `idle_by_span`
-charges the card's idle time in a trace to the program's stages.
+counts of its call (an entry call's with the interval it occupied on the
+card, `device_ns`); otherwise a span is one flag read. `idle_by_span`
+charges the card's idle time in a trace to the program's stages, and
+`device_by_span` its device time.
 
     python -m crlot_tpu_torch.profiling   # environment and roofline, as JSON
 """
@@ -189,7 +191,7 @@ def trace(log_dir: Optional[str] = None) -> Iterator[torch.profiler.profile]:
 # --- spans ------------------------------------------------------------------
 
 SPAN_PREFIX = "crlot."  # every span's name starts so
-OUTSIDE = "outside the program"  # idle_by_span's name for no span
+OUTSIDE = "outside the program"  # the *_by_span name for no span
 LOG_CALLS = 1024  # span_log keeps the spans of this many entry calls
 
 
@@ -201,7 +203,11 @@ class SpanRecord(NamedTuple):
     span's own bookkeeping lies outside them; `attrs` holds the attributes
     given and the change of each count over the span (an entry span's:
     `const_builds`, the design constants built, and `launches`, the
-    hand-written kernels launched, by kernel)."""
+    hand-written kernels launched, by kernel); `device`, on an entry span
+    recorded while CUDA is initialised, the (start, end) timing events
+    recorded on the stream current at its start, just before `start_ns`
+    and just after `end_ns` (`device_ns` reads them), None on every other
+    span."""
 
     call: int
     id: int
@@ -210,6 +216,7 @@ class SpanRecord(NamedTuple):
     start_ns: int
     end_ns: int
     attrs: dict
+    device: Optional[tuple] = None
 
 
 @functools.lru_cache(maxsize=None)
@@ -242,6 +249,35 @@ def _change(before: dict, after: dict) -> dict:
     return out
 
 
+class _Interval:
+    """An entry call's interval on the card: a timing event recorded on
+    the stream current at the call's start, and one more on the same
+    stream at `close()`."""
+
+    __slots__ = ("stream", "start")
+
+    def __init__(self, stream) -> None:
+        self.stream = stream
+        self.start = self._event()
+
+    def _event(self):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(self.stream)
+        return event
+
+    def close(self) -> tuple:
+        """(start, end) events."""
+        return self.start, self._event()
+
+
+def _on_card() -> Optional[_Interval]:
+    """The interval an entry call opens on the card now, or None while
+    CUDA is not initialised (the CPU)."""
+    if not torch.cuda.is_initialized():
+        return None
+    return _Interval(torch.cuda.current_stream())
+
+
 class _Off:
     """A span while no profiler records: nothing happens."""
 
@@ -269,7 +305,7 @@ _log: deque = deque(maxlen=LOG_CALLS)  # a list of records an entry call
 
 class _Span:
     __slots__ = ("name", "counts", "attrs", "call", "id", "parent",
-                 "records", "before", "start", "_range")
+                 "records", "before", "device", "start", "_range")
 
     def __init__(self, name: str, counts, attrs: dict) -> None:
         self.name, self.counts, self.attrs = name, counts, attrs
@@ -299,6 +335,11 @@ class _Span:
         self.id = next(_ids)
         stack.append(self)
         self.before = self._read()
+        # An entry call's interval on the card opens after the range and
+        # the counts, so that the tracing's bookkeeping stays outside it,
+        # and before `start`, so that the events stay outside every
+        # span's host time.
+        self.device = _on_card() if self.parent is None else None
         self.start = time.perf_counter_ns()
         return self
 
@@ -308,11 +349,12 @@ class _Span:
 
     def __exit__(self, *exc):
         end = time.perf_counter_ns()
+        device = None if self.device is None else self.device.close()
         self.attrs.update(_change(self.before, self._read()))
         _open.stack.pop()
         self.records.append(SpanRecord(self.call, self.id, self.parent,
                                        self.name, self.start, end,
-                                       self.attrs))
+                                       self.attrs, device))
         if self.parent is None:
             _log.append(self.records)
         self._range.__exit__(*exc)
@@ -342,6 +384,20 @@ def span_log() -> list:
     opened."""
     return [r for call in list(_log)
             for r in sorted(call, key=lambda r: r.id)]
+
+
+def device_ns(record: SpanRecord) -> Optional[float]:
+    """The interval in ns that the entry call of `record` occupied on its
+    stream, from the stream reaching the call's start to the end of the
+    last work the call queued (waited for here); None where the record
+    holds no events (a child span, a call on the CPU). With one call in
+    flight, all of a call's device work lies inside it, and any idle
+    inside it is the program's."""
+    if record.device is None:
+        return None
+    start, end = record.device
+    end.synchronize()
+    return start.elapsed_time(end) * 1e6
 
 
 def _union(intervals, lo: float, hi: float) -> list:
@@ -413,26 +469,72 @@ def idle_split(device: list, spans: list, lo: float, hi: float) -> dict:
     return dict(out)
 
 
+def device_split(events: list, spans: list) -> dict:
+    """{name: seconds} of device time: each of `events`, (name, launch_us,
+    start_us, end_us), charged whole to the innermost of `spans` ((name,
+    start_us, end_us), as `idle_split` takes them) open at its launch, and
+    to `OUTSIDE` where none was or its launch is None. The parts sum to
+    the events' durations."""
+    times = [t for _, t, _, _ in events if t is not None]
+    pieces = (_innermost(spans, min(times),
+                         max(times + [e for _, _, e in spans]))
+              if times else [])
+    starts = [p[0] for p in pieces]
+    out = defaultdict(float)
+    for _, t, s, e in events:
+        name = OUTSIDE
+        if t is not None:
+            i = bisect.bisect_right(starts, t) - 1
+            if i >= 0 and t < pieces[i][1]:
+                name = pieces[i][2]
+        out[name] += (e - s) * 1e-6
+    return dict(out)
+
+
+def _profile(prof) -> tuple:
+    """(device events as (name, correlation id, start_us, end_us), program
+    spans as (name, start_us, end_us), {correlation id: start_us} of the
+    CUDA runtime's and driver's calls, every event's ends) of a finished
+    profiler. The card's mirrors of host ranges are not work."""
+    cpu = torch.autograd.DeviceType.CPU
+    dev, spans, calls, ends = [], [], {}, []
+    for e in prof.events():
+        s, t = float(e.time_range.start), float(e.time_range.end)
+        ends += (s, t)
+        if e.device_type == cpu:
+            if e.name.startswith(SPAN_PREFIX):
+                spans.append((e.name, s, t))
+            elif e.name.startswith("cu"):  # cudaLaunchKernel, cuLaunchKernel
+                calls[e.id] = s
+        elif not getattr(e, "is_user_annotation", False):
+            dev.append((e.name, e.id, s, t))
+    return dev, spans, calls, ends
+
+
 def idle_by_span(prof) -> dict:
     """Why the card was idle: {span name: seconds} of the finished
     profiler `prof` in which no operation ran on the card, each moment
     charged to the innermost program span the host was inside then, and
     `OUTSIDE` ("outside the program") where it was in none. Over the
     profile's first event to its last (`idle_split` takes any other
-    stretch). The card's mirrors of host ranges are not work."""
-    cpu = torch.autograd.DeviceType.CPU
-    dev, spans, ends = [], [], []
-    for e in prof.events():
-        item = (e.name, float(e.time_range.start), float(e.time_range.end))
-        ends += item[1:]
-        if e.device_type == cpu:
-            if e.name.startswith(SPAN_PREFIX):
-                spans.append(item)
-        elif not getattr(e, "is_user_annotation", False):
-            dev.append(item)
+    stretch)."""
+    dev, spans, _, ends = _profile(prof)
     if not ends:
         return {}
-    return idle_split(dev, spans, min(ends), max(ends))
+    return idle_split([(n, s, e) for n, _, s, e in dev], spans, min(ends),
+                      max(ends))
+
+
+def device_by_span(prof) -> dict:
+    """Where the card's time went: {span name: seconds} of the finished
+    profiler `prof`'s device time, each device event charged to the
+    innermost program span open at the host call that issued it (the
+    runtime call of its correlation id), `OUTSIDE` where none was or no
+    such call was recorded (`device_split`). Sums to the profile's device
+    time, its events' durations."""
+    dev, spans, calls, _ = _profile(prof)
+    return device_split([(n, calls.get(c), s, e) for n, c, s, e in dev],
+                        spans)
 
 
 class _NanCheck(TorchDispatchMode):

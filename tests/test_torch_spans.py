@@ -6,13 +6,16 @@ each is a range of the trace with a record in
 stage of the streamer and the sharded round-trip emits its spans, the
 counters on the spans read the program's own counts, and the outputs are
 the same bits either way. `idle_by_span` splits the card's idle time over
-whole gaps.
+whole gaps, and `device_by_span` its device time by the span of each
+launch; an entry span carries its call's interval on the card, which
+`device.program_idle_share` reads.
 """
 
 from __future__ import annotations
 
 import json
 import math
+import time
 
 import numpy as np
 import pytest
@@ -368,6 +371,196 @@ def test_idle_by_span_reads_a_profile():
     assert sum(got.values()) == pytest.approx((max(ends) - min(ends)) * 1e-6)
 
 
+class _FakeEvent:
+    """A timing event stamped by the host clock when it is made: the
+    interval two of them give is the host time between them."""
+
+    made: list = []
+
+    def __init__(self):
+        self.ns = time.perf_counter_ns()
+        self.synced = False
+        _FakeEvent.made.append(self)
+
+    def synchronize(self):
+        self.synced = True
+
+    def elapsed_time(self, end):  # in ms, as torch.cuda.Event's
+        return (end.ns - self.ns) * 1e-6
+
+
+class _FakeInterval:
+    def __init__(self):
+        self.start = _FakeEvent()
+
+    def close(self):
+        return self.start, _FakeEvent()
+
+
+@pytest.fixture
+def fake_events(monkeypatch):
+    _FakeEvent.made = []
+    monkeypatch.setattr(profiling, "_on_card", _FakeInterval)
+    return _FakeEvent.made
+
+
+def test_an_entry_span_carries_its_interval_and_its_children_none(
+        fake_events):
+    """Two events an entry call, made outside its host clock's reads and
+    so outside every child's host interval; `device_ns` waits for the end
+    event and reads the interval between them."""
+    with _cpu_profile():
+        with profiling.span("crlot.test.call"):
+            with profiling.span("crlot.test.call.plan"):
+                with profiling.span("crlot.test.call.plan.inner"):
+                    pass
+            with profiling.span("crlot.test.call.run"):
+                pass
+    entry, *kids = _last_call()
+    assert entry.parent is None and len(kids) == 3
+    start, end = entry.device
+    assert fake_events == [start, end]
+    assert start.ns <= entry.start_ns and entry.end_ns <= end.ns
+    for r in kids:
+        assert r.device is None and profiling.device_ns(r) is None
+        assert not (start.ns > r.start_ns and start.ns < r.end_ns)
+        assert not (end.ns > r.start_ns and end.ns < r.end_ns)
+    got = profiling.device_ns(entry)
+    assert end.synced and got == pytest.approx(end.ns - start.ns)
+    assert got >= entry.end_ns - entry.start_ns
+
+
+def test_every_entry_call_of_a_stream_carries_one_interval(fake_events):
+    cfg = StftConfig(frame_size=1024, hop_size=256)
+    st = pt.ShardedStreamer(cfg, pt.make_mesh(1, 1, devices=["cpu"]),
+                            _band_gain(1024), device="cpu")
+    x = _x(7, channels=2, n=3 * 8192).numpy()
+    with _cpu_profile():
+        for k in range(3):
+            st.feed(x[:, k * 8192:(k + 1) * 8192])
+    entries = [r for r in profiling.span_log() if r.parent is None][-3:]
+    assert [r.name for r in entries] == ["crlot.stream.feed"] * 3
+    assert len(fake_events) == 6
+    assert [e for r in entries for e in r.device] == fake_events
+    assert all(r.device is None for r in profiling.span_log()
+               if r.call in {e.call for e in entries} and r.parent is not None)
+
+
+def test_off_makes_no_event(monkeypatch):
+    def refused(*a, **k):
+        raise AssertionError("an event was made with no profiler")
+
+    monkeypatch.setattr(profiling, "_on_card", refused)
+    monkeypatch.setattr(torch.cuda, "Event", refused)
+    cfg, fn = _route("fused_rt_ola")
+    pt.round_trip(_x(), cfg, fn)
+    with profiling.span("crlot.test.call") as call:
+        with profiling.span("crlot.test.call.plan"):
+            pass
+    assert call is profiling.span("crlot.test.other")
+
+
+def test_device_ns_is_none_on_the_cpu():
+    cfg, fn = _route("blocked")
+    with _cpu_profile():
+        pt.round_trip(_x(), cfg, fn)
+    assert all(r.device is None and profiling.device_ns(r) is None
+               for r in _last_call())
+
+
+def _program_idle_ctx(summary, busy_s=None, window_s=None):
+    return {"cell": None, "summary": summary, "busy_s": busy_s,
+            "window_s": window_s, "entry_host_ms": None, "peaks": None}
+
+
+def _timed_call(call: int, base: int, ms):
+    """An entry call and its child; the entry's interval `ms` long (None:
+    no interval)."""
+    R = profiling.SpanRecord
+    i = 10 * call
+    device = None
+    if ms is not None:
+        start, end = _FakeEvent(), _FakeEvent()
+        start.ns, end.ns = 0, round(ms * 1e6)
+        device = (start, end)
+    return [R(call, i, None, "crlot.round_trip", base, base + 100, {},
+              device),
+            R(call, i + 1, i, "crlot.round_trip.plan", base + 10, base + 20,
+              {})]
+
+
+def test_program_idle_share_reads_the_stretchs_calls(monkeypatch):
+    """Three calls of 10 ms on the card, 27 ms busy in a 33 ms stretch:
+    3 ms of idle inside the calls, 9.09 % of the stretch; the call before
+    the stretch is not read."""
+    read = spec.metric_reader("device.program_idle_share")
+    log = (_timed_call(0, 0, 99.0) + _timed_call(1, 1000, 10.0)
+           + _timed_call(2, 2000, 10.0) + _timed_call(3, 3000, 10.0))
+    monkeypatch.setattr(profiling, "span_log", lambda: log)
+    ctx = _program_idle_ctx({"steps": 3}, 0.027, 0.033)
+    assert read(ctx) == pytest.approx(100 * 3 / 33, rel=1e-9)
+    assert read(ctx) == pytest.approx(9.0909, abs=1e-4)
+    clip = spec.metric_reader("device.program_idle_share.clip")
+    assert clip(ctx) == read(ctx)
+    busy = _program_idle_ctx({"steps": 3}, 0.031, 0.033)
+    assert read(busy) == pytest.approx(-100 / 33, rel=1e-9)  # not clamped
+
+
+def test_program_idle_share_needs_every_calls_interval(monkeypatch):
+    read = spec.metric_reader("device.program_idle_share")
+    mod = read.__globals__
+    log = (_timed_call(0, 0, 10.0) + _timed_call(1, 1000, None)
+           + _timed_call(2, 2000, 10.0))
+    monkeypatch.setattr(profiling, "span_log", lambda: log)
+    assert read(_program_idle_ctx(None)) is None  # untraced, or no summary
+    assert read(_program_idle_ctx({"steps": 1}, 0.009, 0.0)) is None
+    assert read(_program_idle_ctx({"steps": 2}, 0.009, 0.02)) is None
+    assert read(_program_idle_ctx({"steps": 1}, 0.009, 0.02)) == (
+        pytest.approx(5.0))
+    assert mod["program_idle"](log, 4, profiling.device_ns, 0.0,
+                               1.0) is None  # fewer calls than steps
+    monkeypatch.setattr(profiling, "span_log", lambda: [])
+    assert read(_program_idle_ctx({"steps": 1}, 0.009, 0.02)) is None
+
+
+def test_device_time_goes_to_the_span_of_its_launch():
+    """An event is charged whole to the innermost span open at its launch,
+    even when it runs after that span closed; one launched outside every
+    span, or with no launch found, goes outside; the parts sum to the
+    events' durations."""
+    spans = [("crlot.call", 5.0, 80.0), ("crlot.call.plan", 20.0, 30.0),
+             ("crlot.call.plan.inner", 22.0, 24.0),
+             ("crlot.call.run", 40.0, 60.0)]
+    events = [("k_child", 25.0, 26.0, 31.0),      # the child's launch
+              ("k_inner", 23.0, 90.0, 95.0),      # runs long after .inner
+              ("k_entry", 10.0, 12.0, 18.0),      # the entry's own
+              ("k_run", 40.0, 61.0, 75.0),        # at .run's first moment
+              ("k_edge", 60.0, 62.0, 64.0),       # as .run closes: the entry
+              ("k_out", 2.0, 3.0, 4.5),           # before every span
+              ("k_late", 80.0, 82.0, 83.0),       # as the entry closes
+              ("k_nolaunch", None, 40.0, 41.0)]   # no launch recorded
+    got = profiling.device_split(events, spans)
+    want = {"crlot.call.plan": 5e-6, "crlot.call.plan.inner": 5e-6,
+            "crlot.call": 6e-6 + 2e-6, "crlot.call.run": 14e-6,
+            profiling.OUTSIDE: 1.5e-6 + 1e-6 + 1e-6}
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, rel=1e-12)
+    total = sum(e - s for _, _, s, e in events) * 1e-6
+    assert sum(got.values()) == pytest.approx(total, rel=1e-12)
+    assert profiling.device_split([], spans) == {}
+    assert profiling.device_split(events[:1], []) == {
+        profiling.OUTSIDE: pytest.approx(5e-6)}
+
+
+def test_device_by_span_reads_a_cpu_profile():
+    cfg, fn = _route("fused_rt_ola")
+    with _cpu_profile() as prof:
+        pt.round_trip(_x(), cfg, fn)
+    got = profiling.device_by_span(prof)
+    assert isinstance(got, dict) and got == {}  # no device event
+
+
 def test_the_chrome_trace_holds_the_stages(tmp_path):
     cfg, fn = _route("blocked")
     with profiling.trace(str(tmp_path)):
@@ -595,7 +788,7 @@ def test_the_chain_cell_loads_its_entry():
     names = {m["name"] for m in cell.per_layer}
     assert {"kernel.b4_roofline", "kernel.b7_roofline", "chain.glue_gb",
             "entry.host_ms", "entry.plan_host_ms", "route.torch_device_ms",
-            "device.idle_share"} == names
+            "device.idle_share", "device.program_idle_share"} == names
 
 
 def test_a_traced_run_of_the_chain_cell_reads_its_glue():
@@ -614,3 +807,17 @@ def test_a_traced_run_of_the_chain_cell_reads_its_glue():
     assert line["metrics"]["chain.glue_gb"]["value"] == pytest.approx(
         1e-9 * sum(glue) / 3)
     assert "kernel.b4_roofline" not in line["metrics"]
+
+
+def test_a_traced_cpu_run_of_the_chain_cell_leaves_program_idle_out():
+    """On the CPU no entry call has an interval on the card, so the traced
+    line has no `device.program_idle_share`."""
+    over = {"config": {"channels": 2, "chunk_samples_per_card": 44100},
+            "traffic": {"ring": 3, "compare": 2, "warmup_calls": 3,
+                        "trace_from": 2, "trace_calls": 3}}
+    cell, (rec,) = run.run_cell(CHAIN, [2 ** 31 + 23], 0.3, True,
+                                device_kind="cpu", overrides=over)
+    line = result.line(cell, rec, True, kind="NVIDIA H100 80GB HBM3")
+    assert line["correct"] is True, line["check"]
+    assert "chain.glue_gb" in line["metrics"]
+    assert "device.program_idle_share" not in line["metrics"]
